@@ -1,0 +1,48 @@
+"""Move state made on the JAX side (as NumPy arrays) into the port's tensors.
+
+The seeded NMF init (``nmf_init_numpy``), the steering planes
+(``gcc.steering_cos_sin``), the analysis window and a learned dictionary are
+all host NumPy arrays in the JAX package; this checks each one's dtype and
+shape before it becomes a tensor on ``device``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["from_numpy_state"]
+
+# key → required rank (a leading batch axis is allowed on the NMF state)
+_RANKS = {"w0": (2, 3), "h0": (2, 3), "cos": (2,), "sin": (2,), "window": (1,), "w": (2,)}
+
+
+def from_numpy_state(arrays: dict, device="cpu") -> dict:
+    """``{"w0", "h0", "cos", "sin", "window", "w"}`` NumPy float32 arrays →
+    the same keys as float32 tensors on ``device``. Every key is optional;
+    unknown keys, non-float32 dtypes and inconsistent shapes raise.
+
+    Shapes: ``w0`` (..., F, K); ``h0`` (..., T, K); ``cos``/``sin`` (F, D);
+    ``window`` (win,); ``w`` (F, K), a learned dictionary."""
+    unknown = set(arrays) - set(_RANKS)
+    if unknown:
+        raise KeyError(f"unknown state keys {sorted(unknown)}: want {sorted(_RANKS)}")
+    out = {}
+    for key, arr in arrays.items():
+        arr = np.asarray(arr)
+        if arr.dtype != np.float32:
+            raise TypeError(f"{key}: expected float32, got {arr.dtype}")
+        if arr.ndim not in _RANKS[key]:
+            raise ValueError(f"{key}: expected rank {_RANKS[key]}, got shape {arr.shape}")
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    if "w0" in out and "h0" in out and out["w0"].shape[-1] != out["h0"].shape[-1]:
+        raise ValueError("w0 and h0 disagree on the dictionary size K")
+    if "cos" in out and "sin" in out and out["cos"].shape != out["sin"].shape:
+        raise ValueError("cos and sin steering planes disagree in shape")
+    f = {out[k].shape[-2] for k in ("w0", "w") if k in out}
+    f |= {out[k].shape[0] for k in ("cos", "sin") if k in out}
+    if "window" in out:
+        f.add(out["window"].shape[0] // 2 + 1)
+    if len(f) > 1:
+        raise ValueError(f"frequency bins disagree across the state: {sorted(f)}")
+    return out

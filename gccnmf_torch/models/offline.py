@@ -1,0 +1,344 @@
+"""Offline GCC-NMF blind separation on PyTorch (counterpart of
+``gccnmf_tpu/models/offline.py``, the reference's ``runGCCNMF.py``).
+
+Separation (reference: gccNMF/runGCCNMF.py:30-54): stereo mixture → STFT →
+unsupervised KL-NMF on concatenated |X| → GCC-PHAT angular spectrogram →
+TDOA peak picking → per-atom attribution → hard coefficient masks → masked
+reconstruction with mixture phase → ISTFT.
+
+On a CUDA device the three heavy stages run through the port's hand-written
+kernels (``ops/frontend_cuda.py``, ``ops/nmf_cuda.py``,
+``ops/synthesis_cuda.py``) and the batched core stays on planes, with no
+complex intermediates. On the CPU the plain torch path mirrors the JAX
+package's XLA path. Peak picking and the attribution winner are torch ops
+on either device, as they are XLA ops in JAX.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from gccnmf_torch.convert import from_numpy_state
+from gccnmf_torch.device import resolve_device
+from gccnmf_torch.ops import gcc, localize, masks, stft as stft_ops
+from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_cuda
+from gccnmf_torch.ops.nmf import kl_nmf, nmf_init_numpy
+from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, nmf_mode
+from gccnmf_torch.ops.synthesis_cuda import masked_synthesis_cuda, synthesis_basis
+from gccnmf_torch.ops.windows import hann_symmetric
+from gccnmf_torch.precision import set_fp32_precision
+from gccnmf_torch.utils import wav
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["OfflineConfig", "GCCNMFSeparator", "stft_gain", "gemm_dtype", "plane_dtype"]
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+def _resolve_backend(name: str, value: str, device: torch.device) -> str:
+    if value not in BACKENDS:
+        raise ValueError(f"{name}={value!r}: want one of {BACKENDS}")
+    if value == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if value == "cuda" and device.type != "cuda":
+        raise ValueError(f"{name}='cuda' asks for the CUDA kernel on a {device.type} device")
+    return value
+
+
+@dataclass(frozen=True)
+class OfflineConfig:
+    """Offline pipeline parameters: the same fields and defaults as the JAX
+    package's (which match runGCCNMF.py:56-77).
+
+    ``nmf_backend``, ``synthesis_backend`` and ``frontend_backend`` are
+    ``"auto" | "torch" | "cuda"``. ``"auto"`` picks the hand-written kernel
+    for all three stages on a CUDA device, in every ported mode, and the
+    plain torch path on the CPU. Unlike JAX's ``"auto"``, which keeps the XLA
+    front-end in float32 parity mode, the port uses its front-end kernel
+    there too: in float32 it computes the same planes to fp32 rounding.
+
+    ``nmf_matmul_dtype``: ``"bfloat16_q"`` (default; V and Q held in bf16
+    inside the NMF loop), ``"bfloat16"`` (bf16 GEMM operands, fp32
+    accumulation) or ``"float32"`` (exact, the parity mode). The other
+    kernels run bf16 GEMMs in both bf16 modes (:func:`gemm_dtype`). The turbo
+    mode ``"bfloat16_q_simul"`` is not ported yet and raises.
+    """
+
+    window_size: int = 1024
+    hop_size: int = 128
+    num_tdoas: int = 128
+    mic_separation_m: float = 1.0
+    dictionary_size: int = 128
+    num_iterations: int = 100
+    sparsity_alpha: float = 0.0
+    num_sources: int | None = 3
+    sample_rate: int = 16000
+    stft_method: str = "auto"  # "auto" | "fft" | "matmul"
+    nmf_backend: str = "auto"  # "auto" | "torch" | "cuda"
+    nmf_matmul_dtype: str = "bfloat16_q"
+    synthesis_backend: str = "auto"  # "auto" | "torch" | "cuda"
+    frontend_backend: str = "auto"  # "auto" | "torch" | "cuda"
+    epsilon: float = 1e-16
+
+    @property
+    def num_freq(self) -> int:
+        return self.window_size // 2 + 1
+
+    def resolved_stft_method(self) -> str:
+        """'auto' → torch.fft on either device (the plain path's STFT)."""
+        if self.stft_method == "conv":
+            raise NotImplementedError("stft_method='conv' is not ported")
+        return "fft" if self.stft_method == "auto" else self.stft_method
+
+    def resolved_nmf_backend(self, device: torch.device) -> str:
+        return _resolve_backend("nmf_backend", self.nmf_backend, device)
+
+    def resolved_frontend_backend(self, device: torch.device) -> str:
+        return _resolve_backend("frontend_backend", self.frontend_backend, device)
+
+    def resolved_synthesis_backend(self, device: torch.device) -> str:
+        return _resolve_backend("synthesis_backend", self.synthesis_backend, device)
+
+
+def stft_gain(cfg: OfflineConfig) -> float:
+    """The reference's constant reconstruction gain hop/window*2
+    (gccNMFFunctions.py:155)."""
+    return cfg.hop_size / float(cfg.window_size) * 2.0
+
+
+def gemm_dtype(cfg: OfflineConfig) -> str:
+    """GEMM operand dtype for the non-NMF kernels: the NMF-only
+    "bfloat16_q" mode maps to plain bf16 GEMMs everywhere else."""
+    md = cfg.nmf_matmul_dtype
+    return "bfloat16" if md in ("bfloat16_q", "bfloat16_q_simul") else md
+
+
+def plane_dtype(cfg: OfflineConfig) -> str:
+    """Storage dtype of the front-end's spec/V/coherence planes: bf16 in the
+    throughput modes, fp32 in float32 parity mode."""
+    return "bfloat16" if gemm_dtype(cfg) == "bfloat16" else "float32"
+
+
+class GCCNMFSeparator:
+    """Blind stereo source separation.
+
+    ``device=None`` means CUDA, and raises when there is no card; pass
+    ``device="cpu"`` to run the plain torch path on the CPU."""
+
+    def __init__(self, config: OfflineConfig = OfflineConfig(), device=None):
+        self.config = config
+        self.device = resolve_device(device)
+        set_fp32_precision()
+        nmf_mode(config.nmf_matmul_dtype)  # raises for a mode not ported
+        self._stft_method = config.resolved_stft_method()
+        self._nmf_backend = config.resolved_nmf_backend(self.device)
+        self._synthesis_backend = config.resolved_synthesis_backend(self.device)
+        self._frontend_backend = config.resolved_frontend_backend(self.device)
+        window = hann_symmetric(config.window_size)
+        cos_m, sin_m = gcc.steering_cos_sin(
+            float(config.sample_rate), config.num_freq,
+            config.mic_separation_m, config.num_tdoas,
+        )
+        state = from_numpy_state({"window": window, "cos": cos_m, "sin": sin_m}, self.device)
+        self._window, self._cos, self._sin = state["window"], state["cos"], state["sin"]
+        if self._frontend_backend == "cuda":
+            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
+        if self._synthesis_backend == "cuda":
+            self._idft_basis = synthesis_basis(window, stft_gain(config), device=self.device)
+
+    # ---- stages -----------------------------------------------------------
+
+    def _init_nmf(self, n: int, batch: tuple[int, ...] = ()):
+        """Reference-seeded (W0, H0) for a length-n signal, broadcast over
+        ``batch``."""
+        cfg = self.config
+        t = stft_ops.num_frames(n, cfg.window_size, cfg.hop_size)
+        w0, h0 = nmf_init_numpy(cfg.num_freq, cfg.dictionary_size, 2 * t, cfg.epsilon)
+        state = from_numpy_state({"w0": w0, "h0": h0}, self.device)
+        return (state["w0"].expand(*batch, *w0.shape), state["h0"].expand(*batch, *h0.shape))
+
+    def _run_nmf(self, v, w0, h0):
+        cfg = self.config
+        if self._nmf_backend == "cuda":
+            return kl_nmf_cuda(
+                v, w0, h0, cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon,
+                matmul_dtype=cfg.nmf_matmul_dtype,
+            )
+        return kl_nmf(
+            v.to(torch.float32), w0, h0, cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon
+        )
+
+    def _analyze_planes(self, stereo, w0, h0):
+        """Analysis on planes: ``(spec_re, spec_im, W, H, coh_re, coh_im,
+        ang)`` for ``stereo`` (..., 2, n). On the front-end kernel the planes
+        come straight from it (fp32 or bf16); no complex tensor exists."""
+        cfg = self.config
+        if self._frontend_backend == "cuda":
+            sre, sim, vp, cre, cim, ang = stft_gcc_frontend_cuda(
+                stereo, self._dft_basis, self._cos, self._sin, hop_size=cfg.hop_size,
+                matmul_dtype=gemm_dtype(cfg), plane_dtype=plane_dtype(cfg),
+            )
+            # (..., 2, T, F) → (..., 2T, F): left‖right along time
+            # (runGCCNMF.py:40) is a free reshape in this layout
+            v = vp.reshape(*vp.shape[:-3], -1, vp.shape[-1])
+            w, h = self._run_nmf(v, w0, h0)
+            return sre, sim, w, h, cre, cim, ang
+        spec = stft_ops.stft(
+            stereo, self._window, cfg.hop_size, conjugate=True, method=self._stft_method
+        )  # (..., 2, T, F)
+        v = torch.cat([spec[..., 0, :, :].abs(), spec[..., 1, :, :].abs()], dim=-2)
+        w, h = self._run_nmf(v, w0, h0)
+        coh = gcc.coherence(spec)
+        ang = gcc.angular_spectrogram(coh, self._cos, self._sin)
+        return spec.real, spec.imag, w, h, coh.real, coh.imag, ang
+
+    def _reconstruct_one(self, spec, coh, w, h_stereo, targets):
+        """Plain tail for one utterance: attribution → hard masks → masked
+        reconstruction → ISTFT. Returns (estimates (N, 2, n_out), winner
+        (T, K))."""
+        cfg = self.config
+        scores = masks.target_attribution(coh, self._cos, self._sin, targets, w)
+        coef_masks = masks.hard_coefficient_masks(scores)
+        spec_est = masks.masked_reconstruction(coef_masks, spec, w, h_stereo)
+        est = stft_ops.istft(
+            spec_est, self._window, cfg.hop_size, conjugate=True, center_trim=True,
+            method=self._stft_method,
+        )
+        return est * stft_gain(cfg), coef_masks.argmax(dim=0).to(torch.int32)
+
+    def _reconstruct_planes(self, sre, sim, cre, cim, w, h, targets):
+        """Batched reconstruction tail on planes → ``(estimates (B, N, 2,
+        n_out), winner (B, T, K) int32)``. On the synthesis kernel the
+        flat-GEMM attribution argmax feeds it directly: neither one-hot masks
+        nor complex estimates exist."""
+        cfg = self.config
+        t = sre.shape[-2]
+        h_stereo = torch.stack([h[..., :t, :], h[..., t:, :]], dim=-3)
+        if self._synthesis_backend == "cuda":
+            winner = masks.attribution_winner_planes(cre, cim, self._cos, self._sin, targets, w)
+            est = masked_synthesis_cuda(
+                sre, sim, winner, w, h_stereo, self._idft_basis,
+                num_targets=targets.shape[-1], hop_size=cfg.hop_size,
+                matmul_dtype=gemm_dtype(cfg),
+            )
+            return est, winner
+        f = cfg.num_freq
+        spec = torch.complex(sre[..., :f].float(), sim[..., :f].float())
+        coh = torch.complex(cre[..., :f].float(), cim[..., :f].float())
+        outs = [
+            self._reconstruct_one(spec[i], coh[i], w[i], h_stereo[i], targets[i])
+            for i in range(spec.shape[0])
+        ]
+        return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+    def _stereo(self, x) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+
+    # ---- public API -------------------------------------------------------
+
+    @torch.inference_mode()
+    def separate(self, stereo: np.ndarray, num_sources: int | None = None):
+        """Separate a (2, n) float32 mixture → dict with ``estimates``
+        (num_targets, 2, n_out), ``target_tdoa_indexes``, ``angular``,
+        ``w``, ``h``, ``coefficient_masks`` (num_targets, T, K), as NumPy.
+        With no source count (here or in the config) the count comes from
+        2-means on the angular-spectrum peak heights."""
+        num_sources = self.config.num_sources if num_sources is None else num_sources
+        x = self._stereo(stereo)[None]
+        w0, h0 = self._init_nmf(x.shape[-1], (1,))
+        sre, sim, w, h, cre, cim, ang = self._analyze_planes(x, w0, h0)
+        mean_ang = gcc.mean_angular_spectrum(ang[0]).cpu().numpy()
+        targets = localize.estimate_target_tdoa_indexes(mean_ang, num_sources)
+        targets_t = torch.tensor([targets], dtype=torch.int32, device=self.device)
+        est, winner = self._reconstruct_planes(sre, sim, cre, cim, w, h, targets_t)
+        return dict(
+            estimates=est[0].cpu().numpy(),
+            target_tdoa_indexes=targets,
+            angular=ang[0].cpu().numpy(),
+            w=w[0].cpu().numpy(),
+            h=h[0].cpu().numpy(),
+            coefficient_masks=masks.winner_one_hot(winner[0], len(targets)).cpu().numpy(),
+        )
+
+    def separate_file(
+        self,
+        mixture_path: str,
+        output_prefix: str | None = None,
+        audio: tuple[np.ndarray, int] | None = None,
+    ):
+        """Separate ``<prefix>_mix.wav`` → ``<prefix>_sim_<n>.wav`` files
+        (naming per reference gccNMFFunctions.py:43-45). Pass ``audio`` as
+        ``(stereo, sample_rate)`` to skip re-reading an already-loaded
+        file."""
+        stereo, sr = audio if audio is not None else wav.read_wav(mixture_path)
+        sep = self
+        if sr != self.config.sample_rate:
+            sep = GCCNMFSeparator(replace(self.config, sample_rate=sr), device=self.device)
+        result = sep.separate(stereo)
+        prefix = output_prefix or wav.default_output_prefix(mixture_path)
+        paths = []
+        for i, est in enumerate(result["estimates"]):
+            path = f"{prefix}_sim_{i + 1}.wav"
+            wav.write_wav(est, path, sr)
+            paths.append(path)
+        result["paths"] = paths
+        return result
+
+    def _separate_batch_core(self, stereo, w0, h0, num_sources: int):
+        """The whole path on planes for a batch ``(B, 2, n)``, peak picking
+        on the device: ``(estimates, targets (B, N), peak counts (B,))``."""
+        sre, sim, w, h, cre, cim, ang = self._analyze_planes(stereo, w0, h0)
+        mean_ang = gcc.mean_angular_spectrum(ang)
+        targets = localize.top_k_peaks(mean_ang, num_sources)
+        peaks = localize.peak_count(mean_ang)
+        est, _ = self._reconstruct_planes(sre, sim, cre, cim, w, h, targets)
+        return est, targets, peaks
+
+    @torch.inference_mode()
+    def separate_batch(
+        self,
+        stereo_batch: np.ndarray,
+        num_sources: int | None = None,
+        max_sources: int = 4,
+    ):
+        """Separate a batch ``(B, 2, n)`` with a fixed source count (given
+        here or via the config) and device top-k peak picking; returns
+        ``(estimates (B, N, 2, n_out), targets (B, N))`` as NumPy.
+
+        Utterances with fewer angular-spectrum peaks than ``num_sources``
+        get duplicated targets (the host path raises instead) and are
+        reported with a warning. Auto source counting
+        (``num_sources=None``) is not ported yet and raises."""
+        num_sources = self.config.num_sources if num_sources is None else num_sources
+        if not num_sources:
+            raise NotImplementedError(
+                "separate_batch auto source counting (num_sources=None, "
+                f"max_sources={max_sources}) is not ported yet: ROADMAP.md, "
+                "'Still to port' item 3"
+            )
+        x = self._stereo(stereo_batch)
+        w0, h0 = self._init_nmf(x.shape[-1], (x.shape[0],))
+        est, targets, peaks = self._separate_batch_core(x, w0, h0, num_sources)
+        short = np.flatnonzero(peaks.cpu().numpy() < num_sources)
+        if short.size:
+            logger.warning(
+                "separate_batch: %d utterance(s) (e.g. index %d) had fewer "
+                "than %d angular-spectrum peaks; their missing targets "
+                "duplicate the dominant peak",
+                short.size, int(short[0]), num_sources,
+            )
+        return est.cpu().numpy(), targets.cpu().numpy()
+
+    def separate_batches(self, batches, num_sources: int | None = None,
+                         io_dtype: str = "float32"):
+        """Pipelined separation over chunks (and its int16 program): not
+        ported yet."""
+        raise NotImplementedError(
+            "separate_batches and its int16 program are not ported yet: "
+            "ROADMAP.md, 'Still to port' item 3"
+        )

@@ -1,0 +1,107 @@
+"""Atom-to-TDOA attribution, hard coefficient masks and masked
+reconstruction (counterpart of ``gccnmf_tpu/ops/masks.py``, offline path).
+
+Per-(atom, frame) attribution scores for each target TDOA, argmax over
+targets → binary coefficient masks → masked ``W·H`` magnitudes with the
+mixture phase (reference: gccNMF/gccNMFFunctions.py:118-151). Layouts are
+time-major: scores ``(N, T, K)``, masks ``(N, T, K)``.
+
+``torch.argmax`` treats NaN as the maximum; the JAX package maps NaN to
+−inf before every argmax, and so does this module.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "target_attribution",
+    "attribution_winner",
+    "attribution_winner_planes",
+    "hard_coefficient_masks",
+    "winner_one_hot",
+    "masked_reconstruction",
+]
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _nan_to_neginf(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isnan(x), -torch.inf, x)
+
+
+def target_attribution(coh, cos_m, sin_m, target_indexes, w) -> torch.Tensor:
+    """Per-target atom attribution scores ``(N, T, K)``:
+    ``Re( Σ_f W[f,k] · coh[t,f] · exp(-i 2π f τ_n) )`` as real GEMMs
+    (reference gccNMFFunctions.py:132-133)."""
+    idx = torch.as_tensor(target_indexes, dtype=torch.long, device=coh.device)
+    cos_sel = _f32(cos_m, coh.device)[:, idx]  # (F, N)
+    sin_sel = _f32(sin_m, coh.device)[:, idx]
+    re = (
+        coh.real[..., None, :, :] * cos_sel.T[:, None, :]
+        + coh.imag[..., None, :, :] * sin_sel.T[:, None, :]
+    )  # (N, T, F)
+    return re @ w
+
+
+def attribution_winner(coh, cos_m, sin_m, target_indexes, w) -> torch.Tensor:
+    """Batched per-(frame, atom) winning-target index ``(B, T, K)`` int32.
+
+    ``coh``: (B, T, F) complex; ``target_indexes``: (B, N); ``w``: (B, F, K).
+    """
+    return attribution_winner_planes(
+        coh.real, coh.imag, cos_m, sin_m, target_indexes, w
+    )
+
+
+def attribution_winner_planes(coh_re, coh_im, cos_m, sin_m, target_indexes, w) -> torch.Tensor:
+    """:func:`attribution_winner` on coherence planes ``(B, T, Fp)`` (f32
+    or bf16, ``Fp >= F``; bins past F must be zero). The steering columns
+    are folded into the dictionary, so the scores are two flat GEMMs
+    ``(T, F) x (F, N·K)`` in fp32 and the (B, N, T, F) broadcast never
+    exists."""
+    dev = coh_re.device
+    idx = torch.as_tensor(target_indexes, dtype=torch.long, device=dev)
+    cos_sel = _f32(cos_m, dev).T[idx].transpose(-1, -2)  # (B, F, N)
+    sin_sel = _f32(sin_m, dev).T[idx].transpose(-1, -2)
+    b, f, n = cos_sel.shape
+    k = w.shape[-1]
+    w = w.to(torch.float32)
+    cw = (cos_sel[..., None] * w[..., None, :]).reshape(b, f, n * k)
+    sw = (sin_sel[..., None] * w[..., None, :]).reshape(b, f, n * k)
+    fp = coh_re.shape[-1]
+    if fp != f:
+        cw = torch.nn.functional.pad(cw, (0, 0, 0, fp - f))
+        sw = torch.nn.functional.pad(sw, (0, 0, 0, fp - f))
+    flat = coh_re.to(torch.float32) @ cw + coh_im.to(torch.float32) @ sw
+    scores = flat.reshape(*coh_re.shape[:-1], n, k)  # (B, T, N, K)
+    return torch.argmax(_nan_to_neginf(scores), dim=-2).to(torch.int32)
+
+
+def hard_coefficient_masks(scores: torch.Tensor) -> torch.Tensor:
+    """Binary one-hot masks over the leading target axis, NaN-tolerant like
+    the reference's ``nanargmax`` (gccNMFFunctions.py:138)."""
+    winner = torch.argmax(_nan_to_neginf(scores), dim=0)
+    return winner_one_hot(winner, scores.shape[0]).to(scores.dtype)
+
+
+def winner_one_hot(winner: torch.Tensor, num_targets: int) -> torch.Tensor:
+    """``(..., T, K)`` winner indexes → ``(N, ..., T, K)`` float32 one-hot
+    over a new leading target axis."""
+    oh = torch.nn.functional.one_hot(winner.long(), num_targets)
+    return oh.movedim(-1, 0).to(torch.float32)
+
+
+def masked_reconstruction(masks, spec, w, h_stereo) -> torch.Tensor:
+    """Per-target complex spectrogram estimates ``(N, 2, T, F)``.
+
+    ``masks``: (N, T, K) shared across channels; ``spec``: (2, T, F);
+    ``h_stereo``: (2, T, K). Magnitudes ``(H ⊙ mask) Wᵀ`` carry the mixture
+    phase ``exp(i·angle(X))``, which is 1 where X == 0
+    (reference gccNMFFunctions.py:145-151)."""
+    masked_h = h_stereo[None] * masks[:, None]  # (N, 2, T, K)
+    mags = masked_h @ w.transpose(-1, -2)
+    phase = torch.polar(torch.ones_like(spec.real), torch.angle(spec))
+    return mags.to(torch.complex64) * phase[None]

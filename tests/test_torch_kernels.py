@@ -1,0 +1,172 @@
+"""The plain versions of the synthesis and front-end kernels against the
+Pallas kernels in interpret mode, on the CPU (the CUDA kernels themselves
+are held against these plain versions in ``test_torch_cuda.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gccnmf_tpu.ops import gcc as jgcc
+from gccnmf_tpu.ops import masks as jmasks
+from gccnmf_tpu.ops import windows as jwin
+from gccnmf_tpu.ops.frontend_pallas import stft_gcc_frontend_pallas
+from gccnmf_tpu.ops.synthesis_pallas import masked_synthesis_pallas
+from gccnmf_torch.convert import from_numpy_state
+from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_plain
+from gccnmf_torch.ops.synthesis_cuda import (
+    masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
+)
+
+torch.set_num_threads(1)  # Tier-1 runs several xdist workers
+
+SR, WIN, HOP, F, D = 16000.0, 1024, 128, 513, 128
+
+
+def _synth_problem(t=20, f=17, k=6, seed=0, batch=1):
+    """test_synthesis_pallas.py's problem: complex mixture with exact-zero
+    bins (angle(0) == 0), random coherence, positive W and H."""
+    rng = np.random.default_rng(seed)
+    spec = (rng.standard_normal((batch, 2, t, f))
+            + 1j * rng.standard_normal((batch, 2, t, f))).astype(np.complex64)
+    spec[0, 0, 3, 5] = 0.0
+    spec[0, 1, 7, 0] = 0.0
+    coh = (rng.standard_normal((batch, t, f))
+           + 1j * rng.standard_normal((batch, t, f))).astype(np.complex64)
+    w = (rng.random((batch, f, k)) + 0.05).astype(np.float32)
+    h = (rng.random((batch, 2, t, k)) + 0.01).astype(np.float32)
+    cos_m, sin_m = jgcc.steering_cos_sin(16000.0, f, 1.0, 12)
+    targets = np.tile(np.array([2, 5, 9], np.int32), (batch, 1))
+    winner = np.array(jmasks.attribution_winner(
+        jnp.asarray(coh), cos_m, sin_m, jnp.asarray(targets), jnp.asarray(w)))
+    return spec, w, h, winner
+
+
+def _planes(spec):
+    return torch.from_numpy(spec.real.copy()), torch.from_numpy(spec.imag.copy())
+
+
+class TestSynthesisPlain:
+    @pytest.mark.parametrize("t,batch,hop,tile,seed", [
+        (20, 1, 8, 8, 0),    # test_synthesis_pallas.py: matches_xla_path
+        (37, 2, 8, 4, 7),    # several tiles: the TPU carry crosses tiles
+        (40, 1, 2, 16, 0),   # window/hop = 16
+    ])
+    def test_float32_matches_pallas(self, t, batch, hop, tile, seed):
+        spec, w, h, winner = _synth_problem(t=t, seed=seed, batch=batch)
+        window = jwin.hann_symmetric(32)
+        gain = 0.25
+        want = np.asarray(masked_synthesis_pallas(
+            jnp.asarray(spec), jnp.asarray(winner), jnp.asarray(w), jnp.asarray(h), window,
+            num_targets=3, hop_size=hop, gain=gain, matmul_dtype="float32", tile_t=tile,
+            interpret=True))
+        st = from_numpy_state({"window": window})
+        basis = synthesis_basis(st["window"].numpy(), gain)
+        got = masked_synthesis_plain(
+            *_planes(spec), torch.from_numpy(winner), torch.from_numpy(w),
+            torch.from_numpy(h), basis, num_targets=3, hop_size=hop, matmul_dtype="float32")
+        assert got.shape == want.shape
+        # fp32 products in another summation order: rtol 1e-4 / atol 1e-5
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+    def test_bfloat16_matches_pallas(self):
+        spec, w, h, winner = _synth_problem(t=37, seed=2)
+        window = jwin.hann_symmetric(32)
+        want = np.asarray(masked_synthesis_pallas(
+            jnp.asarray(spec), jnp.asarray(winner), jnp.asarray(w), jnp.asarray(h), window,
+            num_targets=3, hop_size=8, gain=0.5, matmul_dtype="bfloat16", tile_t=8,
+            interpret=True))
+        got = masked_synthesis_plain(
+            *_planes(spec), torch.from_numpy(winner), torch.from_numpy(w),
+            torch.from_numpy(h), synthesis_basis(window, 0.5), num_targets=3, hop_size=8,
+            matmul_dtype="bfloat16")
+        # same bf16 rounding points; a product landing on the other side of
+        # a bf16 rounding boundary moves it by one bf16 step (2^-8 relative)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-2 * np.abs(want).max())
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        spec, w, h, winner = _synth_problem()
+        args = (*_planes(spec), torch.from_numpy(winner), torch.from_numpy(w),
+                torch.from_numpy(h), synthesis_basis(jwin.hann_symmetric(32), 0.25))
+        kw = dict(num_targets=3, hop_size=8, matmul_dtype="float32")
+        before = masked_synthesis_cuda.launches
+        got = masked_synthesis_cuda(*args, **kw)
+        assert masked_synthesis_cuda.launches == before
+        np.testing.assert_array_equal(got.numpy(), masked_synthesis_plain(*args, **kw).numpy())
+
+
+def _signal(b=2, t_frames=77, seed=0):
+    rng = np.random.default_rng(seed)
+    n = WIN + HOP * (t_frames - 1)
+    return (rng.standard_normal((b, 2, n)) * 0.1).astype(np.float32)
+
+
+def _frontend_state():
+    cos_m, sin_m = jgcc.steering_cos_sin(SR, F, 1.0, D)
+    window = jwin.hann_symmetric(WIN)
+    return window, cos_m, sin_m, from_numpy_state({"cos": cos_m, "sin": sin_m, "window": window})
+
+
+class TestFrontendPlain:
+    @pytest.mark.parametrize("conjugate", [True, False])
+    def test_float32_matches_pallas(self, conjugate):
+        x = _signal(t_frames=77 if conjugate else 32, b=2 if conjugate else 1)
+        window, cos_m, sin_m, st = _frontend_state()
+        want = stft_gcc_frontend_pallas(
+            jnp.asarray(x), jnp.asarray(window), jnp.asarray(cos_m), jnp.asarray(sin_m),
+            hop_size=HOP, conjugate=conjugate, matmul_dtype="float32", tile_t=32,
+            interpret=True)
+        got = stft_gcc_frontend_plain(
+            torch.from_numpy(x), frontend_basis(st["window"].numpy(), conjugate), st["cos"],
+            st["sin"], hop_size=HOP, matmul_dtype="float32", plane_dtype="float32")
+        # equality on [..., :F]; the Pallas planes carry zero lanes past F.
+        # 1024-term fp32 sums of O(0.1) samples: atol 1e-4
+        for g, wnt in zip(got[:3], want[:3]):
+            np.testing.assert_allclose(g.numpy(), np.asarray(wnt)[..., :F], atol=1e-4)
+        # coherence is X0·conj(X1)/(|X0||X1|): the ~1e-5 fp32 error in X
+        # moves it by up to 1e-5/min|X|, so it is held at 1e-4 where
+        # min(|X0|, |X1|) >= 0.1 and at the JAX suite's own coherence bar
+        # (2e-3, test_frontend_pallas.py:55) on the quieter bins
+        well = (torch.minimum(got[2][..., 0, :, :], got[2][..., 1, :, :]) >= 0.1).numpy()
+        assert well.mean() > 0.5
+        for g, wnt in zip(got[3:5], want[3:5]):
+            g, wnt = g.numpy(), np.asarray(wnt)[..., :F]
+            np.testing.assert_allclose(g[well], wnt[well], atol=1e-4)
+            np.testing.assert_allclose(g, wnt, atol=2e-3)
+        # the angular spectrogram sums 2·513 coherence terms of magnitude ≤ 1
+        np.testing.assert_allclose(got[5].numpy(), np.asarray(want[5]),
+                                   atol=1e-4 * float(jnp.max(jnp.abs(want[5]))))
+
+    def test_bf16_planes_match_pallas(self):
+        x = _signal(b=1, t_frames=40)
+        window, cos_m, sin_m, st = _frontend_state()
+        want = stft_gcc_frontend_pallas(
+            jnp.asarray(x), jnp.asarray(window), jnp.asarray(cos_m), jnp.asarray(sin_m),
+            hop_size=HOP, matmul_dtype="bfloat16", plane_dtype="bfloat16", tile_t=32,
+            interpret=True)
+        got = stft_gcc_frontend_plain(
+            torch.from_numpy(x), frontend_basis(window), st["cos"], st["sin"], hop_size=HOP,
+            matmul_dtype="bfloat16", plane_dtype="bfloat16")
+        for i, (g, wnt) in enumerate(zip(got, want)):
+            assert g.dtype == (torch.float32 if i == 5 else torch.bfloat16)
+            wnt = np.asarray(jnp.asarray(wnt, jnp.float32))[..., : g.shape[-1]]
+            # bf16 storage: one bf16 step (2^-8 relative) of the plane's scale
+            np.testing.assert_allclose(g.float().numpy(), wnt,
+                                       atol=8e-3 * (np.abs(wnt).max() + 1e-12))
+
+
+def test_jax_planes_pass_through_unchanged():
+    """The planes the Pallas front-end emits (F padded to 640 with zeros)
+    are valid synthesis input for the port: the extra lanes are ignored."""
+    spec, w, h, winner = _synth_problem(t=12, seed=4)
+    pad = np.zeros((1, 2, 12, 24), np.complex64)
+    pad[..., :17] = spec
+    basis = synthesis_basis(jwin.hann_symmetric(32), 0.25)
+    args = (torch.from_numpy(winner), torch.from_numpy(w), torch.from_numpy(h), basis)
+    kw = dict(num_targets=3, hop_size=8, matmul_dtype="float32")
+    a = masked_synthesis_plain(*_planes(spec), *args, **kw)
+    b = masked_synthesis_plain(*_planes(pad), *args, **kw)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert jax.default_backend() == "cpu"
