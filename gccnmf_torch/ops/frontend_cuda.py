@@ -21,8 +21,8 @@ import numpy as np
 import torch
 
 from gccnmf_torch import _build
-from gccnmf_torch.ops.nmf_cuda import round_bf16
 from gccnmf_torch.ops.stft import dft_matrices, frame_signal, num_frames
+from gccnmf_torch.precision import round_bf16
 
 __all__ = [
     "frontend_basis",

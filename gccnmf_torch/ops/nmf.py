@@ -17,9 +17,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["nmf_init_numpy", "kl_nmf", "kl_divergence", "safe_div"]
+from gccnmf_torch.precision import round_bf16
+
+__all__ = ["nmf_init_numpy", "kl_nmf", "kl_divergence", "safe_div", "MATMUL_DTYPES"]
 
 _TINY = 1e-30
+
+# Operand rounding of the products; the fused kernel's modes (ops/nmf_cuda.py)
+MATMUL_DTYPES = ("float32", "bfloat16", "bfloat16_q")
 
 
 def nmf_init_numpy(
@@ -57,24 +62,42 @@ def kl_nmf(
     sparsity_alpha: float = 0.0,
     epsilon: float = 1e-16,
     guard: bool = False,
+    matmul_dtype: str = "float32",
 ):
-    """Run ``num_iterations`` multiplicative KL updates in fp32.
+    """Run ``num_iterations`` multiplicative KL updates, accumulating in fp32.
 
     ``v``: (..., T, F) nonneg; ``w0``: (..., F, K); ``h0``: (..., T, K).
     Returns ``(W, H)`` float32. ``guard=False`` is the reference-exact divide
     discipline (0/0 → NaN on digital silence); ``guard=True`` takes the
     double-``where`` divides, identical wherever the unguarded result is
     finite.
+
+    ``matmul_dtype`` rounds the products' operands as the fused kernel's
+    modes do: ``"float32"`` not at all; ``"bfloat16"`` every GEMM operand to
+    bf16; ``"bfloat16_q"`` also forms Q = bf16(bf16(V) · bf16(1/WH)), 0
+    where WH <= 1e-30 whatever ``guard`` says (nmf_pallas.py:147-160).
     """
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}: want {list(MATMUL_DTYPES)}")
+    r = (lambda x: x) if matmul_dtype == "float32" else round_bf16
     v = v.to(torch.float32)
+    vq = v.to(torch.bfloat16) if matmul_dtype == "bfloat16_q" else None
     div = safe_div if guard else torch.div
+
+    def ratio(h, w):
+        wh = r(h) @ r(w).transpose(-1, -2)
+        if vq is None:
+            return div(v, wh)
+        ok = wh > _TINY
+        rec = (1.0 / torch.where(ok, wh, 1.0)).to(torch.bfloat16)
+        return torch.where(ok, vq * rec, 0.0).to(torch.float32)
+
     w, h = w0.to(torch.float32), h0.to(torch.float32)
     for _ in range(num_iterations):
-        wt = w.transpose(-1, -2)
-        q = div(v, h @ wt)
-        h = h * (q @ w) / (w.sum(dim=-2, keepdim=True) + sparsity_alpha + epsilon)
-        q = div(v, h @ wt)
-        w = w * div(q.transpose(-1, -2) @ h, h.sum(dim=-2, keepdim=True))
+        q = ratio(h, w)
+        h = h * (r(q) @ r(w)) / (w.sum(dim=-2, keepdim=True) + sparsity_alpha + epsilon)
+        q = ratio(h, w)
+        w = w * div(r(q).transpose(-1, -2) @ r(h), h.sum(dim=-2, keepdim=True))
         norms = torch.sqrt((w * w).sum(dim=-2, keepdim=True))
         w, h = div(w, norms), h * norms
     return w, h
@@ -82,7 +105,8 @@ def kl_nmf(
 
 def kl_divergence(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                   epsilon: float = 1e-12) -> torch.Tensor:
-    """Generalized KL divergence D(V ‖ HWᵀ) (scalar, for tests/telemetry)."""
+    """Generalized KL divergence D(V ‖ HWᵀ) (scalar, for tests/telemetry),
+    in the dtype of ``w`` and ``h`` (pass float64 for a tight reading)."""
     rec = h @ w.transpose(-1, -2)
-    v = v.to(torch.float32)
+    v = v.to(rec.dtype)
     return torch.sum(v * (torch.log(v + epsilon) - torch.log(rec + epsilon)) - v + rec)

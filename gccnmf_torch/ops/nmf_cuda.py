@@ -19,12 +19,12 @@ from __future__ import annotations
 import torch
 
 from gccnmf_torch import _build
-from gccnmf_torch.ops.nmf import safe_div
+from gccnmf_torch.ops.nmf import MATMUL_DTYPES, kl_nmf
 
-__all__ = ["kl_nmf_cuda", "kl_nmf_plain", "NMF_MODES", "nmf_mode", "round_bf16"]
+__all__ = ["kl_nmf_cuda", "kl_nmf_plain", "NMF_MODES", "nmf_mode"]
 
 # matmul_dtype → kernel mode (csrc/nmf.cu)
-NMF_MODES = {"float32": 0, "bfloat16": 1, "bfloat16_q": 2}
+NMF_MODES = {md: i for i, md in enumerate(MATMUL_DTYPES)}
 
 _TURBO_MSG = (
     "nmf_matmul_dtype='bfloat16_q_simul' (the turbo NMF mode) is not ported "
@@ -41,12 +41,6 @@ def nmf_mode(matmul_dtype: str) -> int:
     return NMF_MODES[matmul_dtype]
 
 
-def round_bf16(x: torch.Tensor) -> torch.Tensor:
-    """fp32 values rounded to the nearest bf16 (even on ties), kept fp32: a
-    GEMM operand in the bf16 modes."""
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
 def kl_nmf_plain(
     v: torch.Tensor,
     w0: torch.Tensor,
@@ -56,34 +50,13 @@ def kl_nmf_plain(
     epsilon: float = 1e-16,
     matmul_dtype: str = "bfloat16_q",
 ):
-    """Plain torch version of :func:`kl_nmf_cuda`: guarded multiplicative
-    updates with the mode's bf16 rounding points. ``v`` may be wider than
-    F (the columns past F are ignored) and fp32 or bf16."""
-    mode = nmf_mode(matmul_dtype)
-    r = round_bf16 if mode else (lambda x: x)
-    f = w0.shape[-2]
-    v = v[..., :f]
-    vq = v.to(torch.bfloat16)
-    vf = v.to(torch.float32)
-
-    def ratio(h, w):
-        wh = r(h) @ r(w).transpose(-1, -2)
-        if mode == 2:  # Q = bf16(V · bf16(1/WH)), 0 where WH <= 1e-30
-            ok = wh > 1e-30
-            rec = (1.0 / torch.where(ok, wh, 1.0)).to(torch.bfloat16)
-            return torch.where(ok, vq * rec, 0.0).to(torch.float32)
-        return safe_div(vf, wh)
-
-    w, h = w0.to(torch.float32), h0.to(torch.float32)
-    for _ in range(num_iterations):
-        q = ratio(h, w)
-        h = h * (r(q) @ r(w)) / (w.sum(dim=-2, keepdim=True) + sparsity_alpha + epsilon)
-        q = ratio(h, w)
-        num = r(q).transpose(-1, -2) @ r(h)
-        w = w * safe_div(num, h.sum(dim=-2, keepdim=True))
-        norms = torch.sqrt((w * w).sum(dim=-2, keepdim=True))
-        w, h = safe_div(w, norms), h * norms
-    return w, h
+    """Plain torch version of :func:`kl_nmf_cuda`: the guarded
+    :func:`~gccnmf_torch.ops.nmf.kl_nmf` with the mode's bf16 rounding
+    points. ``v`` may be wider than F (the columns past F are ignored) and
+    fp32 or bf16."""
+    nmf_mode(matmul_dtype)  # raises for the turbo mode
+    return kl_nmf(v[..., : w0.shape[-2]], w0, h0, num_iterations, sparsity_alpha, epsilon,
+                  guard=True, matmul_dtype=matmul_dtype)
 
 
 def _splits(t: int) -> tuple[int, int]:

@@ -20,8 +20,8 @@ import numpy as np
 import torch
 
 from gccnmf_torch import _build
-from gccnmf_torch.ops.nmf_cuda import round_bf16
 from gccnmf_torch.ops.stft import idft_matrices, overlap_add
+from gccnmf_torch.precision import round_bf16
 
 __all__ = ["synthesis_basis", "masked_synthesis_cuda", "masked_synthesis_plain"]
 

@@ -33,9 +33,8 @@ def _problem(t=48, f=33, k=8, seed=0, lowrank=False):
 
 
 def _kl(v, w, h):
-    wh = np.asarray(h, np.float64) @ np.asarray(w, np.float64).T + 1e-12
-    v = np.asarray(v, np.float64)
-    return float(np.sum(v * np.log(v / wh + 1e-12) - v + wh))
+    w, h = (torch.as_tensor(np.asarray(a, np.float64)) for a in (w, h))
+    return float(nmf.kl_divergence(torch.as_tensor(v), w, h))
 
 
 @pytest.mark.parametrize("f,k,t,seed", [(33, 8, 48, 0), (513, 128, 2486, 0), (17, 4, 9, 3)])
