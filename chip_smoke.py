@@ -14,16 +14,28 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    kernel and plain version and the card's bound for the same work; then
    the default config's modes again at batch 16, the NMF at its full 100
    iterations, which are the shapes ``separate_batch`` gives them.
+   The enhancement kernels (soft mask, Wiener synthesis) are held the same
+   way on the enhancement configuration of ``bench.py`` (10 cm spacing,
+   128 TDOAs, K = 128), with a dictionary learned by the NMF kernel
+   (float32, 100 iterations) on the first mixture's |X|.
 4. ``separate``: the default ``GCCNMFSeparator()`` (``bfloat16_q``) through
-   ``separate`` (3 sources) and ``separate_batch`` (16 utterances), with the
-   kernels' launch counters set to 0 just before each path and read just
-   after it; every utterance of the batch is held against ``separate`` of
-   it alone. ``mode``: the same ``separate`` with
-   ``nmf_matmul_dtype="bfloat16"``.
+   ``separate`` (3 sources) and ``separate_batch`` (16 utterances), each
+   timed as the median of 5 calls after a warm-up, with the kernels' launch
+   counters set to 0 just before each call and read just after it; every
+   utterance of the batch is held against ``separate`` of it alone.
+   ``mode``: the same ``separate`` with ``nmf_matmul_dtype="bfloat16"``.
 5. ``parity``: float32 mode, all kernels against the plain torch path on the
    card: equal targets and > 25 dB SNR per target.
-6. ``profile``: one default ``separate_batch`` under ``torch.profiler``:
-   device time by stage, the top kernels, and the device's idle share.
+6. ``enhance``: the default-mode ``GCCNMFEnhancer`` through ``enhance`` of
+   one mixture and of the batch of 16, counted per path like ``separate``,
+   every utterance of the batch held against ``enhance`` of it alone; then
+   ``num_h_updates=2`` once. ``tdoa_split``: the soft mask and ``enhance``
+   of one mixture with the soft mask's TDOAs split across blocks and
+   unsplit. ``enhance_parity``: float32 mode, the kernels
+   against the plain torch path on the card, with and without H updates.
+7. ``profile``: one default ``separate_batch`` and one default batched
+   ``enhance`` under ``torch.profiler``: device time by stage, the top
+   kernels, and the device's idle share.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -34,7 +46,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -51,8 +65,23 @@ KERNEL_BATCH, MAIN_BATCH, NMF_CHECK_ITERS, NMF_ITERS = 2, 16, 15, 100
 # separate_batch(mix)[i] against separate(mix[i]), max |diff| over max
 # |separate|: the same kernels at B = 16 and B = 1 (the NMF's split sums
 # depend on T only), so only the attribution GEMM's summation order may
-# differ; on an H100 the two read bit-equal
+# differ; on an H100 the two read bit-equal. The enhancer's batch is held
+# to the same bar.
 BATCH_TOL = 1e-5
+# the enhancement configuration of bench.py's enhancement bench: 10 cm
+# spacing, 128 TDOAs, K = 128, and the enhancer's default mask parameters
+ENH_MIC_M, ENH_EPS, ENH_BETA, ENH_FLOOR = 0.1, 5.0, 2.0, 0.0
+# soft mask: an argmax may flip where two TDOAs score within rounding of
+# each other; the plain score at the kernel's TDOA must lie within
+# TIE_TOL x max|plain maximum| of the plain maximum, the masks must agree
+# within MASK_ULPS fp32 ulps wherever the argmax agrees, and the masks
+# must agree (argmax flips included) on these shares of (t, k)
+TIE_TOL = 1e-5
+MASK_ULPS = 2
+MASK_AGREE = {"float32": 0.999, "bfloat16": 0.99}
+# each main path's wall time is the median of this many calls after a
+# warm-up: a single call of `separate` varied by a third between runs
+TIMED_CALLS = 5
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
 # limit): 3.35 TB/s of HBM, 67 TFLOP/s fp32 on the SIMT cores, 989 TFLOP/s
@@ -103,6 +132,24 @@ def bound(flops: float, nbytes: float, mode: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def dft_flops(frames: int, mode: str) -> tuple[float, str]:
+    """Least operations of a real DFT (or its inverse) of ``frames`` windows
+    of WIN samples, F = WIN/2 + 1 bins, and how they were counted. In
+    float32 an FFT computes the same function: 2.5·N·log2 N flop a frame. In
+    the bf16 modes the JAX package rounds the windowed DFT basis to bf16,
+    which no FFT reproduces, so the least work under its rounding points is
+    the GEMM against the basis: 4·N·F flop a frame (real and imaginary)."""
+    if mode == "float32":
+        return frames * 2.5 * WIN * math.log2(WIN), "DFTs as FFTs (2.5·N·log2 N)"
+    return frames * 4 * WIN * (WIN // 2 + 1), "DFTs as GEMMs on the bf16-rounded basis"
+
+
+def basis_len(mode: str) -> int:
+    """fp32 words of transform constants the DFT of :func:`dft_flops` must
+    read: the window for an FFT, the two (N, F) basis planes for the GEMM."""
+    return WIN if mode == "float32" else 2 * WIN * (WIN // 2 + 1)
+
+
 def max_err(torch, got, want) -> tuple[float, float]:
     got, want = got.float(), want.float()
     return float((got - want).abs().max()), float(want.abs().max())
@@ -124,8 +171,13 @@ def main() -> int:
         return 1
 
     from gccnmf_torch import _build
-    from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+    from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
     from gccnmf_torch.ops import gcc, localize, masks
+    from gccnmf_torch.models import offline as offline_mod
+    from gccnmf_torch.ops.enhance_cuda import (
+        argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain, tf_synthesis_basis,
+        tf_synthesis_cuda, tf_synthesis_plain,
+    )
     from gccnmf_torch.ops.frontend_cuda import (
         frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
     )
@@ -138,7 +190,8 @@ def main() -> int:
     from gccnmf_torch.precision import set_fp32_precision
 
     wrappers = {"stft_gcc_frontend_cuda": stft_gcc_frontend_cuda,
-                "kl_nmf_cuda": kl_nmf_cuda, "masked_synthesis_cuda": masked_synthesis_cuda}
+                "kl_nmf_cuda": kl_nmf_cuda, "masked_synthesis_cuda": masked_synthesis_cuda,
+                "soft_mask_cuda": soft_mask_cuda, "tf_synthesis_cuda": tf_synthesis_cuda}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -180,10 +233,11 @@ def main() -> int:
     rows = []
 
     def record(name, mode, b, source, replaces, got, want, tol, kernel_fn, plain_fn,
-               flops, nbytes, check_fn=None, err=None, note="", **extra):
+               flops, nbytes, check_fn=None, err=None, note="", counted="", **extra):
         """Check ``got`` (a tuple of the kernel's outputs) against the plain
         version's ``want``, rerun the kernel (``check_fn``, default
-        ``kernel_fn``) for bit-identity, time both, and keep the row."""
+        ``kernel_fn``) for bit-identity, time both, and keep the row;
+        ``counted`` says how ``flops`` was counted."""
         label = f"{name}[{mode}]" + ("" if b == KERNEL_BATCH else f"@B{b}")
         again = (check_fn or kernel_fn)()
         torch.cuda.synchronize()
@@ -196,10 +250,12 @@ def main() -> int:
         row = dict(name=label, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err, ms=time_ms(torch, kernel_fn),
                    plain_ms=time_ms(torch, plain_fn), bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None, tolerance=note, bit_identical=True, batch=b,
+                   library_ms=None, library_note="no single PyTorch call computes this "
+                   "function", tolerance=note, bit_identical=True, batch=b,
                    kernel=name, mode=mode,
-                   bound_basis=(f"{flops:.4g} flop at {PEAK_FLOP_S[mode] / 1e12:g} TFLOP/s, "
-                                f"{nbytes:.4g} B at 3.35 TB/s (H100 SXM data sheet)"),
+                   bound_basis=(f"{flops:.4g} flop ({counted}) at "
+                                f"{PEAK_FLOP_S[mode] / 1e12:g} TFLOP/s, {nbytes:.4g} B at "
+                                "3.35 TB/s (H100 SXM data sheet)"),
                    **extra)
         emit("kernel", **row)
         rows.append(row)
@@ -218,12 +274,13 @@ def main() -> int:
             got, want = kfn(), pfn()
             planes[md] = got
             psize = 4 if md == "float32" else 2
+            dft, counted = dft_flops(b * 2 * t, md)
             record(
                 "stft_gcc_frontend_cuda", md, b, "gccnmf_torch/csrc/frontend.cu",
                 "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
                 1e-4 if md == "float32" else 8e-3, kfn, pfn,
-                flops=b * (8 * t * WIN * f + 4 * t * f * D),
-                nbytes=b * 2 * n * 4 + 4 * (2 * WIN * f + 2 * f * D)
+                flops=dft + b * 4 * t * f * D, counted=counted + ", angular GEMM",
+                nbytes=b * 2 * n * 4 + 4 * (basis_len(md) + 2 * f * D)
                 + b * psize * (3 * 2 * t * f + 2 * t * f) + b * t * D * 4,
                 note=("1e-4" if md == "float32" else "8e-3 (one bf16 step)") + " x max|plain|",
             )
@@ -263,6 +320,7 @@ def main() -> int:
                 lambda md=md: kl_nmf_cuda(v, w0, h0, NMF_ITERS, matmul_dtype=md),
                 lambda md=md: kl_nmf_plain(v, w0, h0, NMF_ITERS, matmul_dtype=md),
                 flops=8 * b * 2 * t * f * K * NMF_ITERS,
+                counted=f"4 GEMMs of 2·M·F·K per iteration, {NMF_ITERS} iterations",
                 nbytes=b * 2 * t * f * v.element_size() + 2 * 4 * b * (f * K + 2 * t * K),
                 check_fn=lambda md=md: kl_nmf_cuda(v, w0, h0, nmf_check_iters,
                                                    matmul_dtype=md),
@@ -283,12 +341,13 @@ def main() -> int:
                 sre, sim, winner, w_nmf, h_st, sbasis, **kw)
             tol = 1e-4 if md == "float32" else 1e-2
             psize = 4 if md == "float32" else 2
+            dft, counted = dft_flops(b * SOURCES * 2 * t, md)
             record(
                 "masked_synthesis_cuda", md, b, "gccnmf_torch/csrc/synthesis.cu",
                 "gccnmf_tpu/ops/synthesis_pallas.py:140", (kfn(),), (pfn(),), tol, kfn, pfn,
-                flops=2 * b * SOURCES * 2 * t * f * (K + 2 * WIN),
+                flops=2 * b * SOURCES * 2 * t * f * K + dft, counted="W·H GEMM, " + counted,
                 nbytes=b * (2 * 2 * t * f * psize + t * K * 4 + f * K * 4 + 2 * t * K * 4)
-                + 2 * f * WIN * 4 + b * SOURCES * 2 * (t - 1) * HOP * 4,
+                + 4 * basis_len(md) + b * SOURCES * 2 * (t - 1) * HOP * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
             )
@@ -301,39 +360,129 @@ def main() -> int:
     check_kernels(MAIN_BATCH, ("bfloat16",), ("bfloat16_q",), ("bfloat16",), NMF_ITERS)
     torch.cuda.empty_cache()
 
+    # the enhancement kernels on bench.py's enhancement configuration, with
+    # a dictionary that the NMF kernel learns on the first mixture's |X|
+    cos_e, sin_e = (torch.as_tensor(m, device=dev)
+                    for m in gcc.steering_cos_sin(float(SR), f, ENH_MIC_M, D))
+    fe32 = stft_gcc_frontend_cuda(torch.as_tensor(mix[:1], device=dev), fbasis, cos_e, sin_e,
+                                  hop_size=HOP, matmul_dtype="float32", plane_dtype="float32")
+    w_enh = kl_nmf_cuda(fe32[2].reshape(1, 2 * t, f), torch.as_tensor(w0_np, device=dev)[None],
+                        torch.as_tensor(h0_np, device=dev)[None], NMF_ITERS,
+                        matmul_dtype="float32")[0][0]
+    require(bool(torch.isfinite(w_enh).all()), "the learned dictionary is not finite")
+    tbasis = tf_synthesis_basis(w_enh, window, HOP / WIN * 2.0, device=dev)
+
+    def check_enhance_kernels(b, modes):
+        """The soft mask and the Wiener synthesis at batch ``b`` against
+        their plain versions, on the front-end kernel's planes in each mode
+        and the utterances' own target TDOAs, as the enhancer feeds them."""
+        x = torch.as_tensor(mix[:b], device=dev)
+        for md in modes:
+            sre, sim, _, cre, cim, ang = stft_gcc_frontend_cuda(
+                x, fbasis, cos_e, sin_e, hop_size=HOP, matmul_dtype=md, plane_dtype=md)
+            tgt = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
+            mb = soft_mask_basis(cos_e, sin_e, w_enh, md)
+            margs = (cre, cim, mb, tgt, ENH_EPS, ENH_BETA, ENH_FLOOR)
+            kfn = lambda margs=margs, md=md: soft_mask_cuda(*margs, matmul_dtype=md,
+                                                            return_argmax=True)
+            got = kfn()
+            want = soft_mask_plain(*margs, matmul_dtype=md)
+            flipped, gap, scale = argmax_flips(cre, cim, mb, got[1], matmul_dtype=md)
+            flips = int(flipped.sum())
+            require(gap <= TIE_TOL * scale,
+                    f"soft_mask_cuda[{md}]@B{b}: an argmax flip {gap} > {TIE_TOL} x {scale}")
+            ulps = int((got[0].view(torch.int32).long() - want.view(torch.int32).long())
+                       .abs()[~flipped].max())
+            require(ulps <= MASK_ULPS,
+                    f"soft_mask_cuda[{md}]@B{b}: masks {ulps} ulps apart where the argmax "
+                    "agrees")
+            agree = float(torch.isclose(got[0], want, rtol=1e-6, atol=0.0).float().mean())
+            require(agree >= MASK_AGREE[md],
+                    f"soft_mask_cuda[{md}]@B{b}: masks agree on {agree} < {MASK_AGREE[md]}")
+            psize = 4 if md == "float32" else 2
+            if md == "float32":  # Re c·cos_d + Im c·sin_d, then one GEMM against W
+                flops, counted = 2 * b * t * f * D * K + 3 * b * t * f * D, "Y_d, then Y_d·W"
+            else:  # JAX rounds the folded product bf16(cos_d·W): no cheaper form
+                flops, counted = 4 * b * t * f * D * K, "GEMMs on the bf16-rounded fold"
+            record(
+                "soft_mask_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
+                "gccnmf_tpu/ops/enhance_pallas.py:111", got, None, 0.0,
+                lambda margs=margs, md=md: soft_mask_cuda(*margs, matmul_dtype=md),
+                lambda margs=margs, md=md: soft_mask_plain(*margs, matmul_dtype=md),
+                flops=flops, counted=counted,
+                nbytes=b * 2 * t * f * psize + 4 * (f * K + 2 * f * D) + b * 16 + b * t * K * 4,
+                check_fn=kfn, err=max_err(torch, got[0], want)[0],
+                note=(f"argmax flips only at near-ties ({flips} of {flipped.numel()}; plain "
+                      f"score at the kernel's TDOA within {gap:.3g} <= {TIE_TOL} x {scale:.4g} "
+                      f"of the plain max); masks within {ulps} <= {MASK_ULPS} fp32 ulps where "
+                      f"the argmax agrees, and agree on {agree:.6f} >= {MASK_AGREE[md]} of "
+                      "(t, k) at rtol 1e-6; max_abs_err is over all (t, k), flips included"),
+                argmax_flips=flips, mask_ulps=ulps, mask_agreement=agree,
+            )
+            hm = got[0]
+            kfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_cuda(
+                sre, sim, hm, tbasis, hop_size=HOP, matmul_dtype=md)
+            pfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_plain(
+                sre, sim, hm, tbasis, hop_size=HOP, matmul_dtype=md)
+            dft, counted = dft_flops(b * 2 * t, md)
+            record(
+                "tf_synthesis_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
+                "gccnmf_tpu/ops/enhance_pallas.py:356", (kfn(),), (pfn(),),
+                1e-4 if md == "float32" else 1e-2, kfn, pfn,
+                flops=2 * b * t * K * f + dft, counted="Wiener GEMM, " + counted,
+                nbytes=b * 2 * 2 * t * f * psize + b * t * K * 4 + K * f * 4
+                + 4 * basis_len(md) + b * 2 * (t - 1) * HOP * 4,
+                check_fn=lambda kfn=kfn: (kfn(),),
+                note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
+            )
+
+    check_enhance_kernels(KERNEL_BATCH, ("float32", "bfloat16"))
+    check_enhance_kernels(MAIN_BATCH, ("bfloat16",))
+    torch.cuda.empty_cache()
+
     # ---- 4. the main path: GCCNMFSeparator() -------------------------------
+    sep_kernels = ("stft_gcc_frontend_cuda", "kl_nmf_cuda", "masked_synthesis_cuda")
+
+    def run_paths(paths):
+        """Each ``(name, fn)`` of ``paths`` after a warm-up call, then
+        TIMED_CALLS times with the launch counters set to 0 just before each
+        call and read just after it: per path the last result, the median
+        wall seconds (``s_<name>``), every call's seconds and the launches
+        of one call, which every call must repeat."""
+        for _, fn in paths:
+            fn()  # warm-up: allocator, cuBLAS handles
+        out = dict(counts={}, seconds={})
+        for path, fn in paths:
+            times, per_call = [], []
+            for _ in range(TIMED_CALLS):
+                reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out[path] = fn()
+                times.append(time.perf_counter() - t1)
+                per_call.append(counts())
+            require(all(c == per_call[0] for c in per_call),
+                    f"{path}: launch counts differ between calls: {per_call}")
+            out["s_" + path], out["seconds"][path] = statistics.median(times), times
+            out["counts"][path] = per_call[0]
+        return out
+
     def drive(cfg, batch: bool):
-        """``separate`` (and ``separate_batch`` when ``batch``), each after
-        a warm-up, with the launch counts set to 0 just before each path
-        and read just after it."""
+        """``separate`` (and ``separate_batch`` when ``batch``), timed and
+        counted by :func:`run_paths`."""
         sep = GCCNMFSeparator(cfg)
-        sep.separate(mix[0])  # warm-up: allocator, cuBLAS handles
-        if batch:
-            sep.separate_batch(mix)
-        out = dict(counts={})
-        reset_counts()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out["single"] = sep.separate(mix[0])
-        out["s_single"] = time.perf_counter() - t1
-        out["counts"]["separate"] = counts()
-        if batch:
-            reset_counts()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out["batch"] = sep.separate_batch(mix)
-            out["s_batch"] = time.perf_counter() - t1
-            out["counts"]["separate_batch"] = counts()
+        out = run_paths([("separate", lambda: sep.separate(mix[0]))]
+                        + ([("separate_batch", lambda: sep.separate_batch(mix))] if batch else []))
         for path, c in out["counts"].items():
-            require(all(v > 0 for v in c.values()),
+            require(all(c[k] > 0 for k in sep_kernels),
                     f"{cfg.nmf_matmul_dtype} {path}: a kernel never launched: {c}")
         out["sep"], out["mode"] = sep, cfg.nmf_matmul_dtype
         return out
 
     n_out = (t - 1) * HOP
     main = drive(OfflineConfig(), batch=True)
-    est, targets = main["batch"]
-    single = main["single"]
+    est, targets = main["separate_batch"]
+    single = main["separate"]
     require(single["estimates"].shape == (SOURCES, 2, n_out), "separate: wrong shape")
     require(est.shape == (MAIN_BATCH, SOURCES, 2, n_out), "separate_batch: wrong shape")
     require(np.isfinite(single["estimates"]).all() and np.isfinite(est).all(),
@@ -354,17 +503,18 @@ def main() -> int:
             f"{BATCH_TOL} x {scale}")
     emit("separate", device=kind, nvidia_smi=smi, config="OfflineConfig() (bfloat16_q)",
          targets=single["target_tdoa_indexes"], launches=main["counts"],
-         separate_s=main["s_single"], separate_audio_s_per_s=SECONDS / main["s_single"],
-         batch=MAIN_BATCH, separate_batch_s=main["s_batch"],
-         separate_batch_audio_s_per_s=MAIN_BATCH * SECONDS / main["s_batch"],
+         separate_s=main["s_separate"], separate_audio_s_per_s=SECONDS / main["s_separate"],
+         batch=MAIN_BATCH, separate_batch_s=main["s_separate_batch"],
+         separate_batch_audio_s_per_s=MAIN_BATCH * SECONDS / main["s_separate_batch"],
+         seconds_per_call=main["seconds"],
          batch_vs_separate=dict(max_abs_err=batch_err, bar=f"{BATCH_TOL} x {scale}",
                                 min_snr_db=min(batch_snr)))
 
     bf16 = drive(OfflineConfig(nmf_matmul_dtype="bfloat16"), batch=False)
-    require(bf16["single"]["target_tdoa_indexes"] == single["target_tdoa_indexes"],
+    require(bf16["separate"]["target_tdoa_indexes"] == single["target_tdoa_indexes"],
             "bfloat16 mode picks other targets")
     emit("mode", nmf_matmul_dtype="bfloat16", launches=bf16["counts"],
-         separate_s=bf16["s_single"], targets=bf16["single"]["target_tdoa_indexes"])
+         separate_s=bf16["s_separate"], targets=bf16["separate"]["target_tdoa_indexes"])
     del main["sep"], bf16["sep"]
 
     # ---- 5. float32 parity: kernels against the plain torch path ----------
@@ -374,7 +524,7 @@ def main() -> int:
     plain = GCCNMFSeparator(dataclasses.replace(
         cfg32, nmf_backend="torch", synthesis_backend="torch", frontend_backend="torch"
     )).separate(mix[0])
-    got, want = f32["single"], plain
+    got, want = f32["separate"], plain
     require(got["target_tdoa_indexes"] == want["target_tdoa_indexes"],
             f"parity targets {got['target_tdoa_indexes']} != {want['target_tdoa_indexes']}")
     snrs = [snr_db(r, e) for r, e in zip(want["estimates"], got["estimates"])]
@@ -383,47 +533,165 @@ def main() -> int:
          snr_db=snrs, launches=f32["counts"],
          mask_agreement=float((got["coefficient_masks"] == want["coefficient_masks"]).mean()))
 
-    # ---- 6. where the time goes: one separate_batch under torch.profiler --
+    # ---- 6. enhancement: GCCNMFEnhancer ------------------------------------
+    cfg_enh = OfflineConfig(mic_separation_m=ENH_MIC_M, num_tdoas=D, dictionary_size=K)
+    w_enh_np = w_enh.cpu().numpy()
+    enh_kernels = ("stft_gcc_frontend_cuda", "soft_mask_cuda", "tf_synthesis_cuda")
+
+    def drive_enhance(cfg, batch: bool, num_h_updates: int = 0):
+        """``enhance`` of one mixture (and of the batch when ``batch``),
+        timed and counted by :func:`run_paths`."""
+        enh = GCCNMFEnhancer(w_enh_np, cfg, num_h_updates=num_h_updates)
+        out = run_paths([("enhance", lambda: enh.enhance(mix[0]))]
+                        + ([("enhance_batch", lambda: enh.enhance(mix))] if batch else []))
+        out.update(enh=enh, mode=cfg.nmf_matmul_dtype)
+        return out
+
+    n_enh = (t - 1) * HOP
+    enh_main = drive_enhance(cfg_enh, batch=True)
+    one, many = enh_main["enhance"], enh_main["enhance_batch"]
+    for path, c in enh_main["counts"].items():
+        require(all(c[k] > 0 for k in enh_kernels), f"{path}: a kernel never launched: {c}")
+    require(one["enhanced"].shape == (2, n_enh) and many["enhanced"].shape
+            == (MAIN_BATCH, 2, n_enh), "enhance: wrong shape")
+    require(np.isfinite(one["enhanced"]).all() and np.isfinite(many["enhanced"]).all(),
+            "enhance: non-finite output")
+    enh_err, enh_scale = 0.0, 0.0
+    for i in range(MAIN_BATCH):
+        single_i = one if i == 0 else enh_main["enh"].enhance(mix[i])
+        require(int(many["target_tdoa_index"][i]) == int(single_i["target_tdoa_index"]),
+                f"enhance batch[{i}] target {many['target_tdoa_index'][i]} != "
+                f"{single_i['target_tdoa_index']}")
+        enh_err = max(enh_err, float(np.abs(many["enhanced"][i] - single_i["enhanced"]).max()))
+        enh_scale = max(enh_scale, float(np.abs(single_i["enhanced"]).max()))
+    require(enh_err <= BATCH_TOL * enh_scale,
+            f"enhance batch against single: max abs err {enh_err} > {BATCH_TOL} x {enh_scale}")
+    # the soft mask's TDOA split: at B = 1 the (rows × atoms) tiles alone
+    # give too few blocks to fill the card, so the wrapper splits the TDOAs
+    # across blocks. The kernel at B = 1 and enhance(mix[0]) with the split
+    # and with one chunk of all D TDOAs, in the order split, whole, whole,
+    # split; both give the same mask
+    _, _, _, cre1, cim1, ang1 = stft_gcc_frontend_cuda(
+        torch.as_tensor(mix[:1], device=dev), fbasis, cos_e, sin_e, hop_size=HOP,
+        matmul_dtype="bfloat16", plane_dtype="bfloat16")
+    margs1 = (cre1, cim1, soft_mask_basis(cos_e, sin_e, w_enh, "bfloat16"),
+              torch.argmax(gcc.mean_angular_spectrum(ang1), dim=-1), ENH_EPS, ENH_BETA,
+              ENH_FLOOR)
+    require(torch.equal(soft_mask_cuda(*margs1), soft_mask_cuda(*margs1, tdoa_chunk=D)),
+            "soft_mask_cuda: the TDOA split changes the mask")
+    split = {"split": [], "whole": []}
+    for name, chunk in (("split", None), ("whole", D), ("whole", D), ("split", None)):
+        offline_mod.soft_mask_cuda = functools.partial(soft_mask_cuda, tdoa_chunk=chunk)
+        try:
+            split[name].append((
+                time_ms(torch, lambda chunk=chunk: soft_mask_cuda(*margs1, tdoa_chunk=chunk)),
+                run_paths([("enhance", lambda: enh_main["enh"].enhance(mix[0]))])["s_enhance"]
+                * 1e3))
+        finally:
+            offline_mod.soft_mask_cuda = soft_mask_cuda
+    emit("tdoa_split", device=kind, nvidia_smi=smi, batch=1, order="split, whole, whole, split",
+         soft_mask_ms={k: [r[0] for r in v] for k, v in split.items()},
+         enhance_ms={k: [r[1] for r in v] for k, v in split.items()})
+    del enh_main["enh"], margs1
+    enh_h = drive_enhance(cfg_enh, batch=False, num_h_updates=2)
+    del enh_h["enh"]
+    hc = enh_h["counts"]["enhance"]
+    require(hc["soft_mask_cuda"] > 0 and hc["tf_synthesis_cuda"] == 0,
+            f"enhance with H updates: launches {hc}")
+    require(np.isfinite(enh_h["enhance"]["enhanced"]).all(), "enhance with H updates: non-finite")
+    emit("enhance", device=kind, nvidia_smi=smi,
+         config=f"OfflineConfig(mic_separation_m={ENH_MIC_M}, num_tdoas={D}, "
+                f"dictionary_size={K}) (bfloat16_q)",
+         target=int(one["target_tdoa_index"]), launches=enh_main["counts"],
+         enhance_s=enh_main["s_enhance"],
+         enhance_audio_s_per_s=SECONDS / enh_main["s_enhance"], batch=MAIN_BATCH,
+         enhance_batch_s=enh_main["s_enhance_batch"],
+         enhance_batch_audio_s_per_s=MAIN_BATCH * SECONDS / enh_main["s_enhance_batch"],
+         seconds_per_call=enh_main["seconds"],
+         batch_vs_single=dict(max_abs_err=enh_err, bar=f"{BATCH_TOL} x {enh_scale}"),
+         h_updates=dict(num_h_updates=2, launches=hc, enhance_s=enh_h["s_enhance"]))
+
+    # float32: the kernels against the plain torch path on the card
+    cfg_enh32 = dataclasses.replace(cfg_enh, nmf_matmul_dtype="float32")
+    enh32 = {}
+    for nh in (0, 2):
+        enh32[nh] = drive_enhance(cfg_enh32, batch=False, num_h_updates=nh)
+        del enh32[nh]["enh"]
+        got = enh32[nh]["enhance"]
+        want = GCCNMFEnhancer(w_enh_np, dataclasses.replace(
+            cfg_enh32, synthesis_backend="torch", frontend_backend="torch"),
+            num_h_updates=nh).enhance(mix[0])
+        require(int(got["target_tdoa_index"]) == int(want["target_tdoa_index"]),
+                f"enhance parity (H updates {nh}): target {got['target_tdoa_index']} != "
+                f"{want['target_tdoa_index']}")
+        snrs = [snr_db(r, e) for r, e in zip(want["enhanced"], got["enhanced"])]
+        require(min(snrs) > 25.0, f"enhance parity (H updates {nh}): SNR {snrs}")
+        emit("enhance_parity", nmf_matmul_dtype="float32", num_h_updates=nh,
+             target=int(got["target_tdoa_index"]), snr_db=snrs,
+             launches=enh32[nh]["counts"]["enhance"])
+
+    # ---- 7. where the time goes: torch.profiler ---------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sep = GCCNMFSeparator(OfflineConfig())
-    sep.separate_batch(mix)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        sep.separate_batch(mix)
+    def profile_call(call, fn, stages):
+        """Device time by stage, the top kernels and the idle share of one
+        ``fn()`` after a warm-up; ``stages`` maps a stage to substrings of
+        its kernels' names."""
+        fn()  # warm-up
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    stages = {"kl_nmf_cuda": ("wh_ratio", "h_update", "qth_split", "w_update",
-                              "col_reduce", "renorm"),
-              "stft_gcc_frontend_cuda": ("dft_coherence", "angular_kernel"),
-              "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel")}
-    device_ms = dict.fromkeys([*stages, "other"], 0.0)
-    top = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        ms = ev.device_time_total / 1e3
-        stage = next((s for s, keys in stages.items() if any(k in ev.key for k in keys)),
-                     "other")
-        device_ms[stage] += ms
-        top.append((ms, ev.key[:80], ev.count))
-    busy = sum(device_ms.values())
-    emit("profile", call=f"separate_batch (B={MAIN_BATCH}, OfflineConfig())",
-         wall_ms=wall_ms, device_busy_ms=busy if busy else "not measured",
-         device_ms_by_stage=device_ms,
-         idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
-         top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:12]])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        device_ms = dict.fromkeys([*stages, "other"], 0.0)
+        top = []
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            ms = ev.device_time_total / 1e3
+            stage = next((s for s, keys in stages.items() if any(k in ev.key for k in keys)),
+                         "other")
+            device_ms[stage] += ms
+            top.append((ms, ev.key[:80], ev.count))
+        busy = sum(device_ms.values())
+        emit("profile", call=call, wall_ms=wall_ms,
+             device_busy_ms=busy if busy else "not measured", device_ms_by_stage=device_ms,
+             idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
+             top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:12]])
+
+    frontend_stage = ("dft_coherence", "angular_kernel")
+    sep = GCCNMFSeparator(OfflineConfig())
+    profile_call(
+        f"separate_batch (B={MAIN_BATCH}, OfflineConfig())", lambda: sep.separate_batch(mix),
+        {"kl_nmf_cuda": ("wh_ratio", "h_update", "qth_split", "w_update", "col_reduce",
+                         "renorm"),
+         "stft_gcc_frontend_cuda": frontend_stage,
+         "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel")})
+    del sep
+    enh = GCCNMFEnhancer(w_enh_np, cfg_enh)
+    profile_call(
+        f"enhance (B={MAIN_BATCH}, OfflineConfig(mic_separation_m={ENH_MIC_M}, "
+        f"num_tdoas={D}, dictionary_size={K}))", lambda: enh.enhance(mix),
+        {"stft_gcc_frontend_cuda": frontend_stage,
+         "soft_mask_cuda": ("score_argmax_kernel", "mask_kernel"),
+         "tf_synthesis_cuda": ("wiener_spectra_kernel", "frames_kernel", "ola_kernel")})
+    del enh
 
     # launches of each kernel on the main path that runs it at its mode and
-    # batch: separate_batch for the B = 16 rows, separate for the B = 2 rows;
-    # bf16 front-end and synthesis GEMMs belong to the default config
+    # batch: separate_batch / enhance of the batch for the B = 16 rows,
+    # separate / enhance of one mixture for the B = 2 rows; bf16 front-end
+    # and synthesis GEMMs belong to the default config
     runs = {"float32": f32, "bfloat16": bf16, "bfloat16_q": main}
     for row in rows:
         name, mode = row["kernel"], row["mode"]
-        run = main if (mode == "bfloat16" and name != "kl_nmf_cuda") else runs[mode]
-        path = "separate_batch" if row["batch"] == MAIN_BATCH else "separate"
+        if name in ("soft_mask_cuda", "tf_synthesis_cuda"):
+            run = enh32[0] if mode == "float32" else enh_main
+            path = "enhance_batch" if row["batch"] == MAIN_BATCH else "enhance"
+        else:
+            run = main if (mode == "bfloat16" and name != "kl_nmf_cuda") else runs[mode]
+            path = "separate_batch" if row["batch"] == MAIN_BATCH else "separate"
         row["launches"] = run["counts"][path][name]
         row["launches_on"] = f"{path}, nmf_matmul_dtype={run['mode']!r}"
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")

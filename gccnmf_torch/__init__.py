@@ -15,5 +15,6 @@ lazily. Entry points run on the card unless the caller passes
 __version__ = "0.1.0"
 
 from gccnmf_torch.defs import SPEED_OF_SOUND_M_S
+from gccnmf_torch.models.offline import GCCNMFEnhancer
 
-__all__ = ["SPEED_OF_SOUND_M_S", "__version__"]
+__all__ = ["GCCNMFEnhancer", "SPEED_OF_SOUND_M_S", "__version__"]

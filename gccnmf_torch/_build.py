@@ -54,6 +54,18 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B S C T F K win hop rnd
         _P,  # stream
     ],
+    "gccnmf_soft_mask": [
+        _P, _P, _I, _I, _P, _P, _I, _P,  # cre cim plane_bf16 ldf cw sw dict_bf16 params
+        _P, _P, _P, _P,  # pmax parg hmask argout
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B T F K D splits chunk rnd
+        _P,  # stream
+    ],
+    "gccnmf_tf_synthesis": [
+        _P, _P, _I, _I, _P, _P, _P, _P,  # sre sim plane_bf16 ldf hmask wn a b
+        _P, _P, _P, _P,  # xr xi frames out
+        _I, _I, _I, _I, _I, _I, _I, _I,  # B C T F K win hop rnd
+        _P,  # stream
+    ],
 }
 
 _lock = threading.Lock()

@@ -16,11 +16,9 @@
 //   1. spectra_kernel: the mag GEMM with the winner mask applied as H is
 //      staged (the one-hot mask never exists) and the mixture phase applied
 //      in the epilogue, in fp32 even for bf16 planes; writes Re X, Im X.
-//   2. frames_kernel: the iDFT GEMM against [A; −B] (gain hop/window·2 and
-//      the synthesis window folded into the host-built basis).
-//   3. ola_kernel: the gather form of overlap-add — output sample i sums
-//      the window/hop frames that cover it, in a fixed order — with the
-//      window/2 center trim folded into its indexing.
+//   2. frames_kernel and 3. ola_kernel (istft.cuh, shared with enhance.cu):
+//      the iDFT GEMM against [A; −B], then the gather form of overlap-add
+//      with the window/2 center trim.
 //
 // Time rows past T do not exist here: staging masks them to 0, which is the
 // TPU kernel's padded rows (winner −1, H 0), and the gather never reads them.
@@ -32,6 +30,7 @@
 // JAX's make_mm does: the mag operands, the iDFT operands and the frames
 // that enter the overlap-add).
 #include "common.cuh"
+#include "istft.cuh"
 
 using namespace gccnmf;
 
@@ -93,64 +92,6 @@ spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
   }
 }
 
-// frames[z,t,j] = Σ_f Re X[t,f]·A[f,j] + Im X[t,f]·Bneg[f,j]
-template <typename TX, typename TF>
-__global__ void __launch_bounds__(NTHREADS)
-frames_kernel(const TX* __restrict__ xr, const TX* __restrict__ xi,
-              const float* __restrict__ basis_a, const float* __restrict__ basis_b,
-              TF* __restrict__ frames, int T, int F, int win, bool rnd) {
-  __shared__ __align__(16) TileA Ar, Ai;
-  __shared__ __align__(16) TileB Ba, Bb;
-  const int z = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const TX* xrb = xr + (long)z * T * F;
-  const TX* xib = xi + (long)z * T * F;
-  float acc[4][4];
-  zero(acc);
-  for (int f0 = 0; f0 < F; f0 += BK) {
-    stage_a<true>(Ar, xrb, F, 1, m0, f0, T, F, rnd);        // (t, f) at X[t*F + f]
-    stage_a<true>(Ai, xib, F, 1, m0, f0, T, F, rnd);
-    stage_b<true>(Ba, basis_a, win, 1, f0, n0, F, win, rnd);  // (f, j) at A[f*win + j]
-    stage_b<true>(Bb, basis_b, win, 1, f0, n0, F, win, rnd);
-    __syncthreads();
-    tile_fma(Ar, Ba, acc);
-    tile_fma(Ai, Bb, acc);
-    __syncthreads();
-  }
-  TF* fb = frames + (long)z * T * win;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = out_row(m0, i);
-    if (t >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = out_col(n0, j);
-      if (col < win) fb[(long)t * win + col] = from_f32<TF>(acc[i][j]);
-    }
-  }
-}
-
-// out[z,i] = Σ_{k=0}^{ratio-1} frames[z, q-k, k*hop + r] over frames that
-// exist, with g = i + win/2 = q*hop + r (center trim) and ratio = win/hop.
-template <typename TF>
-__global__ void ola_kernel(const TF* __restrict__ frames, float* __restrict__ out,
-                           long Z, int T, int win, int hop, long n_out) {
-  const int ratio = win / hop, half = win / 2;
-  for (long idx = blockIdx.x * (long)blockDim.x + threadIdx.x; idx < Z * n_out;
-       idx += (long)gridDim.x * blockDim.x) {
-    const long z = idx / n_out, i = idx % n_out;
-    const long g = i + half;
-    const long q = g / hop;
-    const int r = (int)(g % hop);
-    const TF* fz = frames + z * T * win;
-    float acc = 0.0f;
-    for (int k = 0; k < ratio; ++k) {
-      const long t = q - k;
-      if (t >= 0 && t < T) acc += to_f32(fz[t * win + (long)k * hop + r]);
-    }
-    out[idx] = acc;
-  }
-}
-
 template <typename TP, typename TX>
 cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const float* w,
                 const float* h, const float* basis_a, const float* basis_b, TX* xr,
@@ -161,15 +102,7 @@ cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const 
       sre, sim, ldf, winner, w, h, xr, xi, S, C, T, F, K, rnd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  frames_kernel<TX, TX><<<tile_grid(T, win, Z), NTHREADS, 0, st>>>(
-      xr, xi, basis_a, basis_b, frames, T, F, win, rnd);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const long n_out = (long)(T - 1) * hop, total = (long)Z * n_out;
-  const long blocks = (total + 255) / 256, cap = 132L * 16;
-  ola_kernel<TX><<<(int)(blocks < cap ? blocks : cap), 256, 0, st>>>(frames, out, Z, T,
-                                                                     win, hop, n_out);
-  return cudaGetLastError();
+  return run_istft<TX>(xr, xi, basis_a, basis_b, frames, out, Z, T, F, win, hop, rnd, st);
 }
 
 }  // namespace

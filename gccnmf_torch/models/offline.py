@@ -1,17 +1,22 @@
-"""Offline GCC-NMF blind separation on PyTorch (counterpart of
-``gccnmf_tpu/models/offline.py``, the reference's ``runGCCNMF.py``).
+"""Offline GCC-NMF blind separation and enhancement on PyTorch (counterpart
+of ``gccnmf_tpu/models/offline.py``, the reference's ``runGCCNMF.py``).
 
 Separation (reference: gccNMF/runGCCNMF.py:30-54): stereo mixture → STFT →
 unsupervised KL-NMF on concatenated |X| → GCC-PHAT angular spectrogram →
 TDOA peak picking → per-atom attribution → hard coefficient masks → masked
 reconstruction with mixture phase → ISTFT.
 
-On a CUDA device the three heavy stages run through the port's hand-written
+Enhancement (``GCCNMFEnhancer``, a pre-learned dictionary): STFT and
+GCC-PHAT → target TDOA at the peak of the mean angular spectrum → each
+atom's argmax TDOA per frame → soft coefficient mask around the target →
+Wiener TF mask → ISTFT.
+
+On a CUDA device the heavy stages run through the port's hand-written
 kernels (``ops/frontend_cuda.py``, ``ops/nmf_cuda.py``,
-``ops/synthesis_cuda.py``) and the batched core stays on planes, with no
-complex intermediates. On the CPU the plain torch path mirrors the JAX
-package's XLA path. Peak picking and the attribution winner are torch ops
-on either device, as they are XLA ops in JAX.
+``ops/synthesis_cuda.py``, ``ops/enhance_cuda.py``) and the batched core
+stays on planes, with no complex intermediates. On the CPU the plain torch
+path mirrors the JAX package's XLA path. Peak picking and the attribution
+winner are torch ops on either device, as they are XLA ops in JAX.
 """
 
 from __future__ import annotations
@@ -25,8 +30,11 @@ import torch
 from gccnmf_torch.convert import from_numpy_state
 from gccnmf_torch.device import resolve_device
 from gccnmf_torch.ops import gcc, localize, masks, stft as stft_ops
+from gccnmf_torch.ops.enhance_cuda import (
+    soft_mask_basis, soft_mask_cuda, tf_synthesis_basis, tf_synthesis_cuda,
+)
 from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_cuda
-from gccnmf_torch.ops.nmf import kl_nmf, nmf_init_numpy
+from gccnmf_torch.ops.nmf import h_infer, kl_nmf, nmf_init_numpy
 from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, nmf_mode
 from gccnmf_torch.ops.synthesis_cuda import masked_synthesis_cuda, synthesis_basis
 from gccnmf_torch.ops.windows import hann_symmetric
@@ -35,7 +43,10 @@ from gccnmf_torch.utils import wav
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["OfflineConfig", "GCCNMFSeparator", "stft_gain", "gemm_dtype", "plane_dtype"]
+__all__ = [
+    "OfflineConfig", "GCCNMFSeparator", "GCCNMFEnhancer", "stft_gain", "gemm_dtype",
+    "plane_dtype",
+]
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -341,4 +352,135 @@ class GCCNMFSeparator:
         raise NotImplementedError(
             "separate_batches and its int16 program are not ported yet: "
             "ROADMAP.md, 'Still to port' item 3"
+        )
+
+
+class GCCNMFEnhancer:
+    """Offline speech enhancement with a pre-learned dictionary ``w``
+    (F, K): a soft generalized-Gaussian coefficient mask around the
+    localized target TDOA and a Wiener TF mask give one enhanced stereo
+    output (the offline analogue of the reference's realtime path,
+    gccNMFProcessor.py:259-269).
+
+    ``device=None`` means CUDA, and raises when there is no card; pass
+    ``device="cpu"`` to run the plain torch path on the CPU. The backend
+    switches are the separator's: on CUDA, ``"auto"`` runs the front-end
+    kernel, ``soft_mask_cuda`` for the coefficient mask and
+    ``tf_synthesis_cuda`` for the Wiener-masked ISTFT.
+
+    With ``num_h_updates > 0`` the Wiener mask weighs each atom by H
+    inferred against the frozen W (``nmf.h_infer``), which the synthesis
+    kernel does not model, so the JAX package leaves both of its fused
+    kernels for its XLA tail there. The coefficient mask does not depend
+    on H, so on the card the port still takes it from ``soft_mask_cuda``,
+    which computes what ``argmax_tdoa`` and the soft mask compute without
+    building the (B, T, D, K) scores; the H inference, the H-aware Wiener
+    mask and the ISTFT then run as torch ops, as they are XLA ops in JAX.
+    """
+
+    def __init__(
+        self,
+        w: np.ndarray,
+        config: OfflineConfig = OfflineConfig(mic_separation_m=0.1, num_tdoas=64),
+        target_epsilon: float = 5.0,
+        target_beta: float = 2.0,
+        noise_floor: float = 0.0,
+        num_h_updates: int = 0,
+        device=None,
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        set_fp32_precision()
+        self.target_epsilon = target_epsilon
+        self.target_beta = target_beta
+        self.noise_floor = noise_floor
+        self.num_h_updates = num_h_updates
+        self._stft_method = config.resolved_stft_method()
+        self._synthesis_backend = config.resolved_synthesis_backend(self.device)
+        self._frontend_backend = config.resolved_frontend_backend(self.device)
+        window = hann_symmetric(config.window_size)
+        cos_m, sin_m = gcc.steering_cos_sin(
+            float(config.sample_rate), config.num_freq,
+            config.mic_separation_m, config.num_tdoas,
+        )
+        state = from_numpy_state({"w": np.asarray(w, np.float32), "window": window,
+                                  "cos": cos_m, "sin": sin_m}, self.device)
+        self.w, self._window = state["w"], state["window"]
+        self._cos, self._sin = state["cos"], state["sin"]
+        if self._frontend_backend == "cuda":
+            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
+        if self._synthesis_backend == "cuda":
+            self._mask_basis = soft_mask_basis(self._cos, self._sin, self.w, gemm_dtype(config))
+            self._tf_basis = tf_synthesis_basis(self.w, window, stft_gain(config),
+                                                device=self.device)
+        else:  # the folded operands depend only on constants: built once
+            self._cos_w, self._sin_w = masks.fold_steering_dictionary(
+                self._cos, self._sin, self.w)
+
+    def _analyze(self, stereo):
+        """``(spec planes, coherence planes, angular)`` for (B, 2, n): the
+        front-end kernel's planes as stored (fp32 or bf16), or the real and
+        imaginary parts of the plain path's complex spectra."""
+        cfg = self.config
+        if self._frontend_backend == "cuda":
+            sre, sim, _, cre, cim, ang = stft_gcc_frontend_cuda(
+                stereo, self._dft_basis, self._cos, self._sin, hop_size=cfg.hop_size,
+                matmul_dtype=gemm_dtype(cfg), plane_dtype=plane_dtype(cfg),
+            )
+            return (sre, sim), (cre, cim), ang
+        spec = stft_ops.stft(
+            stereo, self._window, cfg.hop_size, conjugate=True, method=self._stft_method
+        )  # (B, 2, T, F)
+        coh = gcc.coherence(spec)
+        ang = gcc.angular_spectrogram(coh, self._cos, self._sin)  # (B, T, D)
+        return (spec.real, spec.imag), (coh.real, coh.imag), ang
+
+    def _enhance_batch(self, stereo):
+        """(B, 2, n) → ``(enhanced (B, 2, n_out), target index (B,),
+        angular (B, T, D))``."""
+        cfg = self.config
+        spec, coh, ang = self._analyze(stereo)
+        target_idx = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
+        eps, beta, floor = self.target_epsilon, self.target_beta, self.noise_floor
+        f = cfg.num_freq  # the kernel's planes may be bf16
+        if self._synthesis_backend == "cuda":  # the mask does not depend on H
+            h_mask = soft_mask_cuda(*coh, self._mask_basis, target_idx, eps, beta, floor,
+                                    matmul_dtype=gemm_dtype(cfg))
+            if self.num_h_updates <= 0:
+                out = tf_synthesis_cuda(*spec, h_mask, self._tf_basis, hop_size=cfg.hop_size,
+                                        matmul_dtype=gemm_dtype(cfg))
+                return out, target_idx, ang
+        else:
+            argmax_d = masks.argmax_tdoa(coh[0][..., :f], coh[1][..., :f], self._cos_w,
+                                         self._sin_w, cfg.num_tdoas)  # (B, T, K)
+            h_mask = masks.soft_tdoa_coefficient_mask(
+                argmax_d, target_idx.to(torch.float32)[:, None, None], eps, beta, floor)
+        cspec = torch.complex(spec[0][..., :f].float(), spec[1][..., :f].float())
+        if self.num_h_updates > 0:
+            v = cspec.abs().mean(dim=-3)  # (B, T, F), channel average
+            h0 = torch.ones((*v.shape[:-1], self.w.shape[1]), device=v.device)
+            h = h_infer(v, self.w, h0, self.num_h_updates, epsilon=cfg.epsilon)
+            tf_mask = masks.wiener_tf_mask_h(self.w, h, h_mask, cfg.epsilon)
+        else:
+            tf_mask = masks.wiener_tf_mask(self.w, h_mask)  # (B, T, F)
+        out = stft_ops.istft(
+            tf_mask[:, None] * cspec, self._window, cfg.hop_size, conjugate=True,
+            center_trim=True, method=self._stft_method,
+        )
+        return out * stft_gain(cfg), target_idx, ang
+
+    @torch.inference_mode()
+    def enhance(self, stereo: np.ndarray):
+        """Enhance a (2, n) or (B, 2, n) mixture → dict of ``enhanced``
+        (same rank as the input), ``target_tdoa_index`` (a scalar or (B,))
+        and ``angular`` ((T, D) or (B, T, D)), as NumPy."""
+        x = torch.as_tensor(np.asarray(stereo, np.float32), device=self.device)
+        single = x.ndim == 2
+        out, target_idx, ang = self._enhance_batch(x[None] if single else x)
+        if single:
+            out, target_idx, ang = out[0], target_idx[0], ang[0]
+        return dict(
+            enhanced=out.cpu().numpy(),
+            target_tdoa_index=target_idx.to(torch.int32).cpu().numpy(),
+            angular=ang.cpu().numpy(),
         )

@@ -22,7 +22,7 @@ import torch
 
 from gccnmf_torch import _build
 from gccnmf_torch.ops.stft import dft_matrices, frame_signal, num_frames
-from gccnmf_torch.precision import round_bf16
+from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
     "frontend_basis",
@@ -47,11 +47,10 @@ def frontend_basis(window, conjugate: bool = True, device=None):
 
 
 def _check_dtypes(matmul_dtype: str, plane_dtype: str):
-    if matmul_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype!r}")
+    rnd = bf16_operands(matmul_dtype)
     if plane_dtype not in PLANE_DTYPES:
         raise ValueError(f"plane_dtype must be float32 or bfloat16, got {plane_dtype!r}")
-    return matmul_dtype == "bfloat16", PLANE_DTYPES[plane_dtype]
+    return rnd, PLANE_DTYPES[plane_dtype]
 
 
 def stft_gcc_frontend_plain(stereo, basis, cos_m, sin_m, *, hop_size,

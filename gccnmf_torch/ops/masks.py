@@ -1,10 +1,14 @@
-"""Atom-to-TDOA attribution, hard coefficient masks and masked
-reconstruction (counterpart of ``gccnmf_tpu/ops/masks.py``, offline path).
+"""Atom-to-TDOA attribution, coefficient masks and masked reconstruction
+(counterpart of ``gccnmf_tpu/ops/masks.py``).
 
-Per-(atom, frame) attribution scores for each target TDOA, argmax over
-targets → binary coefficient masks → masked ``W·H`` magnitudes with the
-mixture phase (reference: gccNMF/gccNMFFunctions.py:118-151). Layouts are
-time-major: scores ``(N, T, K)``, masks ``(N, T, K)``.
+Separation: per-(atom, frame) attribution scores for each target TDOA,
+argmax over targets → binary coefficient masks → masked ``W·H`` magnitudes
+with the mixture phase (reference: gccNMF/gccNMFFunctions.py:118-151).
+Enhancement: the per-(frame, atom) argmax over all TDOAs from a
+steering-folded dictionary → a soft (generalized-Gaussian) or boxcar
+coefficient mask around the target → a Wiener TF mask (reference:
+gccNMF/realtime/gccNMFProcessor.py:259-269). Layouts are time-major:
+scores ``(N, T, K)``, masks ``(N, T, K)``, TF masks ``(..., T, F)``.
 
 ``torch.argmax`` treats NaN as the maximum; the JAX package maps NaN to
 −inf before every argmax, and so does this module.
@@ -21,6 +25,12 @@ __all__ = [
     "hard_coefficient_masks",
     "winner_one_hot",
     "masked_reconstruction",
+    "fold_steering_dictionary",
+    "argmax_tdoa",
+    "soft_tdoa_coefficient_mask",
+    "boxcar_tdoa_coefficient_mask",
+    "wiener_tf_mask",
+    "wiener_tf_mask_h",
 ]
 
 
@@ -105,3 +115,58 @@ def masked_reconstruction(masks, spec, w, h_stereo) -> torch.Tensor:
     mags = masked_h @ w.transpose(-1, -2)
     phase = torch.polar(torch.ones_like(spec.real), torch.angle(spec))
     return mags.to(torch.complex64) * phase[None]
+
+
+def fold_steering_dictionary(cos_m, sin_m, w) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold steering ⊗ dictionary into flat ``(F, D·K)`` GEMM operands, so
+    the score ``s[t,d,k] = Σ_f (Re c·cos_d + Im c·sin_d)[t,f]·W[f,k]`` is two
+    flat GEMMs against them."""
+    w = torch.as_tensor(w, dtype=torch.float32)
+    cos_m, sin_m = _f32(cos_m, w.device), _f32(sin_m, w.device)
+    f, d = cos_m.shape
+    k = w.shape[-1]
+    cos_w = (cos_m[:, :, None] * w[:, None, :]).reshape(f, d * k)
+    sin_w = (sin_m[:, :, None] * w[:, None, :]).reshape(f, d * k)
+    return cos_w, sin_w
+
+
+def argmax_tdoa(coh_re, coh_im, cos_w, sin_w, num_tdoas: int) -> torch.Tensor:
+    """Per-(frame, atom) argmax-TDOA ``(..., T, K)`` int32 from coherence
+    planes ``(..., T, F)`` (f32 or bf16) and the folded operands of
+    :func:`fold_steering_dictionary`. NaN scores are −inf before the argmax,
+    so they never win; an all-NaN column gives TDOA 0."""
+    flat = coh_re.to(torch.float32) @ cos_w + coh_im.to(torch.float32) @ sin_w
+    scores = flat.reshape(*coh_re.shape[:-1], num_tdoas, -1)
+    return torch.argmax(_nan_to_neginf(scores), dim=-2).to(torch.int32)
+
+
+def soft_tdoa_coefficient_mask(argmax_tdoa, target_tdoa_index, epsilon, beta,
+                               noise_floor) -> torch.Tensor:
+    """Generalized-Gaussian soft mask over the argmax-TDOA distance,
+    ``exp(-(|d - target|/ε)^β) / (1 + floor) + floor`` (reference
+    TARGET_MODE_WINDOW_FUNCTION, gccNMFProcessor.py:265). Like the JAX
+    function it takes ``0**β`` literally (``0**0 = 1``); the fused kernel
+    pins distance 0 to a mask of 1 instead (``ops/enhance_cuda.py``)."""
+    dist = torch.abs(argmax_tdoa.to(torch.float32) - target_tdoa_index)
+    return torch.exp(-((dist / epsilon) ** beta)) / (1.0 + noise_floor) + noise_floor
+
+
+def boxcar_tdoa_coefficient_mask(argmax_tdoa, target_tdoa_index, epsilon) -> torch.Tensor:
+    """Hard boxcar mask: 1 within ε of the target TDOA index, else 0
+    (reference TARGET_MODE_BOXCAR, gccNMFProcessor.py:263)."""
+    dist = torch.abs(argmax_tdoa.to(torch.float32) - target_tdoa_index)
+    return torch.where(dist < epsilon, 1.0, 0.0).to(torch.float32)
+
+
+def wiener_tf_mask(w, h_mask) -> torch.Tensor:
+    """Wiener-style TF mask ``(..., T, F)`` from a coefficient mask
+    ``(..., T, K)``: ``(h_mask Wᵀ) / Σ_k W[f,k]`` (reference
+    gccNMFProcessor.py:267-269)."""
+    return (h_mask @ w.transpose(-1, -2)) / w.sum(dim=-1)
+
+
+def wiener_tf_mask_h(w, h, h_mask, epsilon: float = 1e-16) -> torch.Tensor:
+    """H-aware Wiener mask ``W·(H⊙mask) / (W·H + ε)``: the coefficient
+    energies that :func:`wiener_tf_mask` replaces with a flat prior."""
+    wt = w.transpose(-1, -2)
+    return ((h * h_mask) @ wt) / ((h @ wt) + epsilon)

@@ -19,7 +19,9 @@ import torch
 
 from gccnmf_torch.precision import round_bf16
 
-__all__ = ["nmf_init_numpy", "kl_nmf", "kl_divergence", "safe_div", "MATMUL_DTYPES"]
+__all__ = [
+    "nmf_init_numpy", "kl_nmf", "h_infer", "kl_divergence", "safe_div", "MATMUL_DTYPES",
+]
 
 _TINY = 1e-30
 
@@ -101,6 +103,30 @@ def kl_nmf(
         norms = torch.sqrt((w * w).sum(dim=-2, keepdim=True))
         w, h = div(w, norms), h * norms
     return w, h
+
+
+def h_infer(
+    v: torch.Tensor,
+    w: torch.Tensor,
+    h0: torch.Tensor,
+    num_updates: int,
+    sparsity_alpha: float = 0.0,
+    epsilon: float = 1e-16,
+) -> torch.Tensor:
+    """H-only multiplicative updates against a frozen dictionary ``w``
+    (F, K): ``H ← H ⊙ (Q·W) / (Σ_f W + α + ε)`` with ``Q = V/(H·Wᵀ)``.
+
+    ``v``: (..., T, F); ``h0``: (..., T, K). The ratio takes the guarded
+    divide, so an all-zero frame collapses H to exactly 0 after the first
+    update and stays finite (an unguarded 0/0 would make it NaN); frames
+    with a positive reconstruction never reach the guard."""
+    v = v.to(torch.float32)
+    wsum = w.sum(dim=0) + sparsity_alpha + epsilon
+    h = h0
+    for _ in range(num_updates):
+        q = safe_div(v, h @ w.transpose(-1, -2))
+        h = h * (q @ w) / wsum
+    return h
 
 
 def kl_divergence(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor,

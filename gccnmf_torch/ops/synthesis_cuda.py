@@ -21,7 +21,7 @@ import torch
 
 from gccnmf_torch import _build
 from gccnmf_torch.ops.stft import idft_matrices, overlap_add
-from gccnmf_torch.precision import round_bf16
+from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = ["synthesis_basis", "masked_synthesis_cuda", "masked_synthesis_plain"]
 
@@ -37,16 +37,10 @@ def synthesis_basis(window, gain: float, device=None):
     return (torch.as_tensor(a, device=device), torch.as_tensor(-b, device=device))
 
 
-def _rounding(matmul_dtype: str) -> bool:
-    if matmul_dtype not in ("float32", "bfloat16"):
-        raise ValueError(f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype!r}")
-    return matmul_dtype == "bfloat16"
-
-
 def masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis, *,
                            num_targets, hop_size, matmul_dtype="bfloat16"):
     """Plain torch version of :func:`masked_synthesis_cuda`."""
-    r = round_bf16 if _rounding(matmul_dtype) else (lambda x: x)
+    r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
     a, b_neg = basis
     f, win = a.shape
     re = spec_re[..., :f].to(torch.float32)  # (B, C, T, F)
@@ -77,7 +71,7 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
     ``make_mm`` does: the mag operands, the iDFT operands and the frames
     entering the overlap-add. Launches the CUDA kernel for CUDA planes; CPU
     planes take :func:`masked_synthesis_plain`."""
-    rnd = _rounding(matmul_dtype)
+    rnd = bf16_operands(matmul_dtype)
     if spec_re.device.type == "cpu":
         return masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis,
                                       num_targets=num_targets, hop_size=hop_size,

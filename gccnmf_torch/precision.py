@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["set_fp32_precision", "round_bf16"]
+__all__ = ["set_fp32_precision", "round_bf16", "bf16_operands"]
 
 
 def set_fp32_precision() -> None:
@@ -25,3 +25,10 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
     GEMM operand in the bf16 modes."""
     return x.to(torch.bfloat16).to(torch.float32)
 
+
+def bf16_operands(matmul_dtype: str) -> bool:
+    """Whether a kernel's GEMM operands round to bf16: ``"float32"`` → no,
+    ``"bfloat16"`` → yes; any other mode raises."""
+    if matmul_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"matmul_dtype must be float32 or bfloat16, got {matmul_dtype!r}")
+    return matmul_dtype == "bfloat16"

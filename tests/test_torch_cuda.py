@@ -15,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
 from gccnmf_torch.ops import gcc
+from gccnmf_torch.ops.enhance_cuda import (
+    argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+    tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
+)
 from gccnmf_torch.ops.frontend_cuda import (
     frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
 )
@@ -161,3 +165,94 @@ def test_separator_on_card_matches_cpu(cuda):
     est, targets = GCCNMFSeparator(cfg, device=cuda).separate_batch(np.stack([mix, mix]))
     assert list(targets[0]) == got["target_tdoa_indexes"]
     np.testing.assert_allclose(est[0], got["estimates"], atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_soft_mask_kernel_matches_plain(cuda, mode):
+    """F = 17, K = 6, D = 10, T = 37, B = 2 (no tile or chunk divides
+    them), distinct targets and ε per utterance, and a NaN coherence frame,
+    whose every score is NaN, so TDOA 0 wins."""
+    rng = np.random.default_rng(6)
+    b, t, f, k, d = 2, 37, 17, 6, 10
+    pd = torch.float32 if mode == "float32" else torch.bfloat16
+    cre, cim = (torch.as_tensor(rng.standard_normal((b, t, f)), dtype=pd, device=cuda)
+                for _ in range(2))
+    cre[1, 5] = float("nan")
+    w = torch.as_tensor(rng.random((f, k)) + 0.05, dtype=torch.float32, device=cuda)
+    cos_m, sin_m = gcc.steering_cos_sin(16000.0, f, 1.0, d)
+    basis = soft_mask_basis(cos_m, sin_m, w, mode)
+    args = (cre, cim, basis, torch.tensor([2, 7], device=cuda),
+            torch.tensor([3.0, 2.0], device=cuda), 1.5, 0.1)
+    before = soft_mask_cuda.launches
+    got, arg = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
+    again, arg2 = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
+    assert soft_mask_cuda.launches == before + 2
+    assert torch.equal(got, again) and torch.equal(arg, arg2)
+    assert got.shape == (b, t, k) and (arg[1, 5] == 0).all()
+    # one TDOA per block here; a ragged split and no split give the same mask
+    for chunk in (3, d):
+        assert torch.equal(got, soft_mask_cuda(*args, matmul_dtype=mode, tdoa_chunk=chunk))
+    want = soft_mask_plain(*args, matmul_dtype=mode)
+    # the argmax may flip only at a near-tie: the plain score at the
+    # kernel's TDOA within 1e-5 x max|plain maximum| of the plain maximum;
+    # everywhere else the masks agree within 2 fp32 ulps; flips stay under
+    # 0.1 % (fp32) or 1 % (bf16) of (t, k)
+    flipped, gap, scale = argmax_flips(cre, cim, basis, arg, matmul_dtype=mode)
+    assert gap <= 1e-5 * scale
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps[~flipped].max()) <= 2
+    assert float(flipped.float().mean()) <= (1e-3 if mode == "float32" else 1e-2)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ratio", [4, 16])
+def test_tf_synthesis_kernel_matches_plain(cuda, mode, ratio):
+    """Window 32 (F = 17), K = 6, T = 37, B = 2, hop 8 or 2; bf16 planes
+    in the bf16 mode."""
+    rng = np.random.default_rng(7)
+    b, t, f, k = 2, 37, 17, 6
+    pd = torch.float32 if mode == "float32" else torch.bfloat16
+    sre, sim = (torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
+                for _ in range(2))
+    h_mask = torch.as_tensor(rng.random((b, t, k)), dtype=torch.float32, device=cuda)
+    w = torch.as_tensor(rng.random((f, k)) + 1e-3, dtype=torch.float32, device=cuda)
+    basis = tf_synthesis_basis(w, hann_symmetric(32), 0.5)
+    kw = dict(hop_size=32 // ratio, matmul_dtype=mode)
+    before = tf_synthesis_cuda.launches
+    got = tf_synthesis_cuda(sre, sim, h_mask, basis, **kw)
+    assert torch.equal(got, tf_synthesis_cuda(sre, sim, h_mask, basis, **kw))
+    assert tf_synthesis_cuda.launches == before + 2
+    want = tf_synthesis_plain(sre, sim, h_mask, basis, **kw)
+    assert got.shape == want.shape == (b, 2, (t - 1) * (32 // ratio))
+    # fp32 sums in another order (1e-4); bf16 operands (1e-2) of the scale
+    tol = 1e-4 if mode == "float32" else 1e-2
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_enhancer_on_card_matches_cpu(cuda):
+    """The enhancer through the front-end, soft-mask and Wiener-synthesis
+    kernels (float32) against the plain path on the CPU: same target,
+    > 25 dB per channel; with H updates the synthesis kernel stays out."""
+    rng = np.random.default_rng(8)
+    s = rng.standard_normal((2, 16000)).astype(np.float32) * 0.1
+    mix = np.stack([s.sum(0), np.roll(s[0], 3) + np.roll(s[1], -5)])
+    w = rng.random((513, 16)).astype(np.float32) + 1e-3
+    cfg = OfflineConfig(mic_separation_m=0.1, num_tdoas=32, dictionary_size=16,
+                        nmf_matmul_dtype="float32")
+    for nh in (0, 2):
+        counts = (stft_gcc_frontend_cuda.launches, soft_mask_cuda.launches,
+                  tf_synthesis_cuda.launches)
+        got = GCCNMFEnhancer(w, cfg, num_h_updates=nh, device=cuda).enhance(mix)
+        assert (stft_gcc_frontend_cuda.launches, soft_mask_cuda.launches,
+                tf_synthesis_cuda.launches) == (counts[0] + 1, counts[1] + 1,
+                                                counts[2] + (nh == 0))
+        want = GCCNMFEnhancer(w, cfg, num_h_updates=nh, device="cpu").enhance(mix)
+        assert int(got["target_tdoa_index"]) == int(want["target_tdoa_index"])
+        for ref, est in zip(want["enhanced"], got["enhanced"]):
+            assert 10 * np.log10((ref**2).sum() / ((ref - est) ** 2).sum()) > 25.0
+    enh = GCCNMFEnhancer(w, cfg, device=cuda)
+    batch = enh.enhance(np.stack([mix, mix[::-1].copy()]))
+    one = enh.enhance(mix)
+    assert int(batch["target_tdoa_index"][0]) == int(one["target_tdoa_index"])
+    np.testing.assert_allclose(batch["enhanced"][0], one["enhanced"],
+                               atol=1e-5 * np.abs(one["enhanced"]).max())

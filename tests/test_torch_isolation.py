@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
 from gccnmf_torch.ops.frontend_cuda import (
     frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
 )
@@ -68,12 +68,19 @@ def test_default_device_is_cuda_and_raises_without_one():
         GCCNMFSeparator()
     with pytest.raises(RuntimeError, match="CUDA"):
         GCCNMFSeparator(OfflineConfig(), device="cuda")
+    w = np.ones((513, 8), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GCCNMFEnhancer(w)
 
 
 def test_asking_for_kernels_on_cpu_raises():
     for field in ("nmf_backend", "synthesis_backend", "frontend_backend"):
         with pytest.raises(ValueError, match="CUDA kernel"):
             GCCNMFSeparator(OfflineConfig(**{field: "cuda"}), device="cpu")
+    for field in ("synthesis_backend", "frontend_backend"):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            GCCNMFEnhancer(np.ones((513, 8), np.float32), OfflineConfig(**{field: "cuda"}),
+                           device="cpu")
 
 
 def test_wrapper_on_cpu_tensor_runs_plain_version():
