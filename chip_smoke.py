@@ -7,13 +7,20 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
 
 1. ``device``: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions; asserts TF32 is off for matmuls and cuDNN.
-2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``.
+2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``,
+   and reads the library's SASS with ``cuobjdump -sass`` from the same
+   toolkit: each tensor-core NMF kernel must hold HGMMA (``wgmma``)
+   instructions.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
    kernel and plain version and the card's bound for the same work; then
    the default config's modes again at batch 16, the NMF at its full 100
-   iterations, which are the shapes ``separate_batch`` gives them.
+   iterations, which are the shapes ``separate_batch`` gives them. Each NMF
+   row names its product design (``wgmma`` in the bf16 modes, ``simt`` in
+   float32) and carries ``gemm_library_ms``: the same iteration's four
+   products as ``torch.matmul`` calls at the row's batch and operand type,
+   times 100 (a yardstick only; the port never calls it).
    The enhancement kernels (soft mask, Wiener synthesis) are held the same
    way on the enhancement configuration of ``bench.py`` (10 cm spacing,
    128 TDOAs, K = 128), with a dictionary learned by the NMF kernel
@@ -34,8 +41,9 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    unsplit. ``enhance_parity``: float32 mode, the kernels
    against the plain torch path on the card, with and without H updates.
 7. ``profile``: one default ``separate_batch`` and one default batched
-   ``enhance`` under ``torch.profiler``: device time by stage, the top
-   kernels, and the device's idle share.
+   ``enhance`` under ``torch.profiler``: device time by stage (the NMF's
+   three products apart from its small launches), the top kernels, and the
+   device's idle share.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -64,9 +72,10 @@ SR, SECONDS, WIN, HOP, K, D, SOURCES = 16000, 10, 1024, 128, 128, 128, 3
 KERNEL_BATCH, MAIN_BATCH, NMF_CHECK_ITERS, NMF_ITERS = 2, 16, 15, 100
 # separate_batch(mix)[i] against separate(mix[i]), max |diff| over max
 # |separate|: the same kernels at B = 16 and B = 1 (the NMF's split sums
-# depend on T only), so only the attribution GEMM's summation order may
-# differ; on an H100 the two read bit-equal. The enhancer's batch is held
-# to the same bar.
+# depend on T only), and the attribution GEMM runs one utterance at a time
+# (a batched cuBLAS product once flipped an argmax at a near-tie), so on an
+# H100 the two read bit-equal. The enhancer's batch is held to the same
+# bar.
 BATCH_TOL = 1e-5
 # the enhancement configuration of bench.py's enhancement bench: 10 cm
 # spacing, 128 TDOAs, K = 128, and the enhancer's default mask parameters
@@ -150,6 +159,37 @@ def basis_len(mode: str) -> int:
     return WIN if mode == "float32" else 2 * WIN * (WIN // 2 + 1)
 
 
+# the tensor-core NMF kernels (csrc/nmf.cu) whose SASS must hold HGMMA
+TC_KERNELS = ("tc_wh_ratio_kernel", "tc_h_update_kernel", "tc_qth_split_kernel")
+
+
+def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
+    """HGMMA instructions per tensor-core NMF kernel (all instantiations of
+    a kernel together) in the SASS of ``library``, read with the
+    ``cuobjdump`` of ``nvcc``'s toolkit."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts = dict.fromkeys(TC_KERNELS, 0)
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0]
+        for k in TC_KERNELS:
+            if k in name:
+                counts[k] += section.count("HGMMA")
+    return counts
+
+
+def ptxas_summary(build_log: str) -> dict[str, str]:
+    """Registers and spills that ``ptxas -v`` reported for each
+    instantiation of the tensor-core NMF kernels."""
+    lines, out = build_log.splitlines(), {}
+    for i, line in enumerate(lines[:-2]):
+        if "Function properties for" in line and any(k in line for k in TC_KERNELS):
+            name = line.split("Function properties for")[1].strip()
+            out[name] = f"{lines[i + 2].split(':', 1)[1].strip()}; {lines[i + 1].strip()}"
+    return out
+
+
 def max_err(torch, got, want) -> tuple[float, float]:
     got, want = got.float(), want.float()
     return float((got - want).abs().max()), float(want.abs().max())
@@ -216,8 +256,11 @@ def main() -> int:
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.library()
-    emit("build", seconds=round(time.perf_counter() - t0, 3), library=os.path.relpath(
-        lib._name, ROOT))
+    build_s = time.perf_counter() - t0
+    hgmma = hgmma_counts(_build._nvcc(), lib._name)
+    require(all(n > 0 for n in hgmma.values()), f"a tensor-core NMF kernel has no HGMMA: {hgmma}")
+    emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
+         nmf_hgmma=hgmma, nmf_ptxas=ptxas_summary(_build.build_log))
 
     # ---- 3. kernels against their plain versions ---------------------------
     mix = make_mixture(args.seed, MAIN_BATCH)
@@ -247,8 +290,9 @@ def main() -> int:
             err, scale = max(max_err(torch, g, w) for g, w in zip(got, want))
             require(err <= tol * scale, f"{label} max abs err {err} > {tol} x {scale}")
         b_ms, b_by = bound(flops, nbytes, mode)
+        ms = time_ms(torch, kernel_fn)
         row = dict(name=label, route="cuda", source=source, replaces=replaces,
-                   launches=0, max_abs_err=err, ms=time_ms(torch, kernel_fn),
+                   launches=0, max_abs_err=err, ms=ms, tflop_s=flops / ms / 1e9,
                    plain_ms=time_ms(torch, plain_fn), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, library_note="no single PyTorch call computes this "
                    "function", tolerance=note, bit_identical=True, batch=b,
@@ -314,6 +358,16 @@ def main() -> int:
                         f"({w_rel[0] / w_rel[1]:.2e}), max|dH| <= 1 % of max|H| "
                         f"({h_rel[0] / h_rel[1]:.2e})")
             del want
+            # the yardstick: one iteration's four products as torch.matmul
+            # at this batch, in the mode's operand type, times NMF_ITERS
+            dt = torch.float32 if md == "float32" else torch.bfloat16
+            hb_, wb_, q_ = (torch.rand(shape, device=dev).to(dt)
+                            for shape in ((b, 2 * t, K), (b, f, K), (b, 2 * t, f)))
+            products = lambda hb_=hb_, wb_=wb_, q_=q_: (  # noqa: E731
+                hb_ @ wb_.transpose(-1, -2), q_ @ wb_, hb_ @ wb_.transpose(-1, -2),
+                q_.transpose(-1, -2) @ hb_)
+            gemm_library_ms = time_ms(torch, products) * NMF_ITERS
+            del hb_, wb_, q_, products
             record(
                 "kl_nmf_cuda", md, b, "gccnmf_torch/csrc/nmf.cu",
                 "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
@@ -325,6 +379,11 @@ def main() -> int:
                 check_fn=lambda md=md: kl_nmf_cuda(v, w0, h0, nmf_check_iters,
                                                    matmul_dtype=md),
                 err=err, note=note, iterations_timed=NMF_ITERS,
+                design="simt" if md == "float32" else "wgmma",
+                gemm_library_ms=gemm_library_ms,
+                gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on {dt} operands "
+                                   f"at B = {b}, times {NMF_ITERS}; not the same function "
+                                   "(no ratio, updates or sums), so library_ms stays null"),
             )
 
         # synthesis on those planes, W and H, and the device peak picking
@@ -665,8 +724,8 @@ def main() -> int:
     sep = GCCNMFSeparator(OfflineConfig())
     profile_call(
         f"separate_batch (B={MAIN_BATCH}, OfflineConfig())", lambda: sep.separate_batch(mix),
-        {"kl_nmf_cuda": ("wh_ratio", "h_update", "qth_split", "w_update", "col_reduce",
-                         "renorm"),
+        {"kl_nmf_cuda products": ("wh_ratio", "h_update", "qth_split"),
+         "kl_nmf_cuda small launches": ("w_update", "col_reduce", "renorm"),
          "stft_gcc_frontend_cuda": frontend_stage,
          "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel")})
     del sep

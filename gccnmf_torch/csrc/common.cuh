@@ -1,16 +1,20 @@
-// Shared tile machinery for the port's hand-written Hopper kernels.
+// Shared SIMT tile machinery for the port's hand-written Hopper kernels.
 //
-// Every product the Pallas kernels compute in their bodies is computed here
-// by a plain tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a
-// 16-deep contraction slice staged in shared memory, a 4x4 register
-// micro-tile per thread, fp32 fused multiply-adds. The bf16 modes round
-// each GEMM operand to bf16 (round-to-nearest-even) as it is staged, which
-// is exactly JAX's "bf16 operands, fp32 accumulation" contract (the product
-// of two bf16 values is exact in fp32). Sums run in a fixed order, with no
-// atomics, so two runs give bit-identical results.
+// The front-end, synthesis, soft-mask and Wiener kernels, and the NMF in
+// its float32 mode, compute their products here with a plain tiled SIMT
+// GEMM: a 64x64 output tile per 256-thread block, a 16-deep contraction
+// slice staged in shared memory, a 4x4 register micro-tile per thread, fp32
+// fused multiply-adds. The bf16 modes round each GEMM operand to bf16
+// (round-to-nearest-even) as it is staged, which is exactly JAX's "bf16
+// operands, fp32 accumulation" contract (the product of two bf16 values is
+// exact in fp32). Sums run in a fixed order, with no atomics, so two runs
+// give bit-identical results.
 //
-// Tensor cores (wgmma) and TMA staging are later work; this is the simple,
-// correct first version.
+// What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
+// staging loads with a bf16 round at each. No tensor-core path is exact
+// fp32, so the float32 modes stay here. The NMF's bf16 products moved to
+// the tensor cores (tc_gemm.cuh); the soft mask's score GEMM and the
+// synthesis iDFT are the next candidates for that core.
 #pragma once
 
 #include <cuda_bf16.h>

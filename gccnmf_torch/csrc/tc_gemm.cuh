@@ -1,0 +1,343 @@
+// Tensor-core product core for the NMF's bf16 GEMMs on Hopper (sm_90a).
+//
+// One block of 256 threads computes a 128 x BN fp32 output tile (BN = 128
+// or 64) as two consumer warpgroups of 64 rows each, with
+// wgmma.mma_async.m64nBNk16.f32.bf16.bf16: both operands read from shared
+// memory through matrix descriptors, the sums kept in BN / 2 fp32
+// registers a thread. The contraction runs in 64-deep slices through a ring
+// of STAGES stages in dynamic shared memory, each an A tile (128 x 64 bf16,
+// 16 KiB) and a B tile (BN x 64 bf16). Every thread of the block fills the
+// ring with cp.async 16-byte copies; a copy past the ragged edge reads
+// nothing and writes zeros (src-size 0), so a contraction never sees
+// garbage and K need not divide the slice. Tile shapes (Tile<BN, STAGES>):
+//   Tile<128, 3>: 96 KiB ring (+1 KiB alignment slack), 64 accumulators,
+//     two blocks an SM: the long contractions over F and t.
+//   Tile<64, 3>: 72 KiB ring, 32 accumulators, three blocks an SM: the
+//     ratio's short contraction over K (two slices, both loaded at once),
+//     whose epilogue (a guarded divide per output) costs more than its
+//     products, so more blocks in flight hide it; 64-wide tiles also waste
+//     less of F = 513 (576 columns against 640).
+//
+// Operands live in device memory as bf16 rows padded to a multiple of 8
+// elements (16 bytes), the padding zero, so every copy is one aligned
+// 16-byte vector. An operand is either K-major (element (mn, k) at
+// p[mn*ld + k]) or MN-major (at p[k*ld + mn]); wgmma's transpose bits take
+// the MN-major ones as they lie, so no product materialises a transpose.
+//
+// Shared-memory layout: the 128-byte swizzle (layout type 1), which lets
+// the tensor cores read every core matrix without bank conflicts (the
+// unswizzled layout, where the 8 core matrices of a 64-row operand sit
+// 1024 bytes apart in the same banks, ran each 64-deep slice several times
+// slower on the card). BK = 64 bf16 is one 128-byte swizzle row, and a
+// swizzle atom is 8 such rows (1024 bytes, 1024-byte aligned) in which
+// 16-byte chunk c of row r sits at chunk c ^ r.
+//   K-major tile (R x 64): row mn at mn x 128 bytes, its chunk kc at
+//     kc ^ (mn % 8); stride byte offset 1024 (8-row groups); a k16 step
+//     moves the start address 32 bytes along the row.
+//   MN-major tile (R x 64): atom (K group kg, MN atom ma) of 8 K rows x 64
+//     MN elements at (kg x R/64 + ma) x 1024; leading byte offset 1024
+//     (MN atoms), stride byte offset R/64 x 1024 (K groups); a k16 step
+//     moves the start two K groups on.
+// Copies map 8 consecutive threads to the 8 chunks of one swizzle row, so
+// they land in 8 distinct bank groups and read 128 contiguous bytes.
+//
+// Epilogues do not walk the accumulator fragment (pairs of columns in rows
+// 8 apart, which made each thread's loads of V or H a chain of scattered
+// accesses): stage_acc writes the tile to shared memory, and each warp then
+// takes whole rows, so its reads and writes of device memory coalesce and
+// a thread issues a batch of loads before it uses one.
+//
+// wgmma discipline: wgmma.fence before a slice's first mma_async, the
+// accumulators fenced against compiler reordering around each batch, and
+// wait_group 0 before the __syncthreads that lets any thread refill the
+// stage just read. fence.proxy.async makes the cp.async writes (generic
+// proxy) visible to wgmma's reads (async proxy).
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_bf16.h>
+
+namespace gccnmf {
+namespace tc {
+
+constexpr int BM = 128;      // output rows per block: two warpgroups of 64
+constexpr int BK = 64;       // contraction slice per ring stage
+constexpr int THREADS = 256; // two warpgroups
+constexpr int TILE_A = BM * BK * 2;  // bytes of an A stage
+
+// The shapes of one kernel's tiles: BN output columns a block (the wgmma
+// N), STAGES ring stages.
+template <int BN_, int STAGES_>
+struct Tile {
+  static constexpr int BN = BN_, STAGES = STAGES_;
+  static constexpr int ACC = BN / 2;  // fp32 accumulators a thread
+  static constexpr int STAGE_BYTES = TILE_A + BN * BK * 2;
+  // the epilogue's fp32 output tile: rows of LDS = BN + 8 floats (the
+  // fragment's float2 writes of a half-warp then hit 32 distinct banks);
+  // each thread takes EPI items of 4 adjacent columns
+  static constexpr int LDS = BN + 8;
+  static constexpr int EPI = BM * BN / 4 / THREADS;
+  static constexpr int RING = STAGES * STAGE_BYTES, OUT = BM * LDS * 4;
+  // the ring or the output tile, plus the slack that aligns the ring to a
+  // swizzle atom
+  static constexpr int SMEM_BYTES = (RING > OUT ? RING : OUT) + 1024;
+  static_assert(BN == 64 || BN == 128, "wgmma shapes instantiated: n64, n128");
+  static_assert(THREADS % (BN / 4) == 0, "an item's column must not depend on i");
+};
+static_assert(BK == 64, "one 64-deep bf16 slice is one 128-byte swizzle row");
+
+// A bf16 operand in device memory: element (mn, k) at p[mn*ld + k]
+// (K-major) or p[k*ld + mn] (MN-major), ld a multiple of 8. The block's
+// tile starts at MN index mn0 (a multiple of 8); a copy stages zeros where
+// its MN index is at or past mn_lim or its K index at or past k_lim (for
+// the contiguous dimension, where the 16-byte chunk starts).
+struct Operand {
+  const __nv_bfloat16* p;
+  long ld;
+  int mn0, mn_lim, k_lim;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&acc)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) asm volatile("" : "+f"(acc[r])::"memory");
+}
+
+// Descriptor of k16 step j of the 64 MN rows from row mn (a multiple of
+// 64) of the swizzled R x BK tile at shared address tile.
+template <bool MN_MAJOR, int R>
+__device__ __forceinline__ uint64_t tile_desc(uint32_t tile, int mn, int j) {
+  uint32_t addr, lbo, sbo;
+  if (MN_MAJOR) {
+    sbo = (R / 64) * 1024;
+    lbo = 1024;
+    addr = tile + (mn / 64) * 1024 + j * 2 * sbo;
+  } else {
+    sbo = 1024;
+    lbo = 16;  // unused by a swizzled K-major operand
+    addr = tile + mn * 128 + j * 32;
+  }
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d += A·B for one 64 x N x 16 step; TA / TB = 1 reads that operand
+// MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// Copy the R x BK slice [mn0, mn0 + R) x [k0, k0 + BK) of op into the
+// swizzled tile at shared address dst, one 16-byte chunk (8 elements along
+// the contiguous dimension) per copy.
+template <bool MN_MAJOR, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Operand& op, int k0) {
+  constexpr int CHUNKS = R * BK / 8;
+#pragma unroll
+  for (int e = threadIdx.x; e < CHUNKS; e += THREADS) {
+    int mn, k;
+    uint32_t off;
+    const __nv_bfloat16* src;
+    if (MN_MAJOR) {  // BK rows along K of R / 8 chunks along MN
+      const int mc = e % (R / 8);
+      k = e / (R / 8);
+      mn = mc * 8;
+      off = ((k / 8) * (R / 64) + mc / 8) * 1024 + (k % 8) * 128 + ((mc % 8) ^ (k % 8)) * 16;
+      src = op.p + (long)(k0 + k) * op.ld + op.mn0 + mn;
+    } else {  // R rows along MN of BK / 8 chunks along K
+      const int kc = e % 8;
+      mn = e / 8;
+      k = kc * 8;
+      off = mn * 128 + (kc ^ (mn % 8)) * 16;
+      src = op.p + (long)(op.mn0 + mn) * op.ld + k0 + k;
+    }
+    const bool ok = op.mn0 + mn < op.mn_lim && k0 + k < op.k_lim;
+    cp_async16(dst + off, ok ? src : op.p, ok);
+  }
+}
+
+// acc = A·B over K indices [k_begin, k_end): A is this block's BM rows
+// (K-major unless A_MN), B its BN columns (K-major unless B_MN). Each
+// warpgroup keeps its 64 rows of the tile in acc, laid out as
+// acc_row / acc_col say. smem: TL::SMEM_BYTES of dynamic shared memory.
+template <class TL, bool A_MN, bool B_MN>
+__device__ __forceinline__ void gemm(float (&acc)[TL::ACC], unsigned char* smem,
+                                     const Operand& a, const Operand& b, int k_begin,
+                                     int k_end) {
+  constexpr int S = TL::STAGES, SB = TL::STAGE_BYTES;
+#pragma unroll
+  for (int r = 0; r < TL::ACC; ++r) acc[r] = 0.0f;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // swizzle atoms
+  const int nk = (k_end - k_begin + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) {
+      load_tile<A_MN, BM>(base + s * SB, a, k_begin + s * BK);
+      load_tile<B_MN, TL::BN>(base + s * SB + TILE_A, b, k_begin + s * BK);
+    }
+    cp_async_commit();
+  }
+  const int a_rows = (threadIdx.x / 128) * 64;  // this warpgroup's rows of A
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<S - 2>();  // slice kt has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();  // everyone's copies landed; slice kt - 1 fully read
+    const int next = kt + S - 1;  // refills the stage slice kt - 1 used
+    if (next < nk) {
+      const uint32_t sn = base + (next % S) * SB;
+      load_tile<A_MN, BM>(sn, a, k_begin + next * BK);
+      load_tile<B_MN, TL::BN>(sn + TILE_A, b, k_begin + next * BK);
+    }
+    cp_async_commit();
+    const uint32_t sa = base + (kt % S) * SB;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j)
+      wgmma<A_MN, B_MN>(acc, tile_desc<A_MN, BM>(sa, a_rows, j),
+                        tile_desc<B_MN, TL::BN>(sa + TILE_A, 0, j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+  }
+  cp_async_wait<0>();
+}
+
+// Row within the block's BM rows, and column within its BN, of accumulator
+// r (the m64nNk16 fp32 fragment: warp w of the block owns rows 16w..16w+15;
+// a thread holds pairs of adjacent columns, every 8 columns, in two rows 8
+// apart).
+__device__ __forceinline__ int acc_row(int r) {
+  return (threadIdx.x / 32) * 16 + (threadIdx.x % 32) / 4 + 8 * ((r / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int r) {
+  return 8 * (r / 4) + 2 * (threadIdx.x % 4) + (r % 2);
+}
+
+// Item i of this thread's EPI epilogue items: row epi_row(i) of the tile
+// and columns epi_col() .. + 3, so a warp covers whole rows.
+template <class TL>
+__device__ __forceinline__ int epi_row(int i) {
+  return (threadIdx.x + i * THREADS) / (TL::BN / 4);
+}
+template <class TL>
+__device__ __forceinline__ int epi_col() { return (threadIdx.x % (TL::BN / 4)) * 4; }
+
+// Write acc to the fp32 tile s[BM][LDS] (over the ring, once every
+// warpgroup is done with it).
+template <class TL>
+__device__ __forceinline__ void stage_acc(const float (&acc)[TL::ACC], float* s) {
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < TL::ACC; r += 2)
+    *reinterpret_cast<float2*>(s + acc_row(r) * TL::LDS + acc_col(r)) =
+        make_float2(acc[r], acc[r + 1]);
+  __syncthreads();
+}
+
+// Ask L2 for the rows [r0, r0 + BM) x bytes [c0, c0 + 4 x 128) of a
+// row-major plane with rows of ld bytes, rows < rows and bytes < width
+// only, so that an epilogue's loads of them hit L2: one 128-byte line per
+// request, issued when the block starts. On an H100 it takes the ratio's
+// launch at B = 16 from about 97 to 86 us (chip_nmf_phases.py
+// --no-prefetch); in the H update, where it competes with the slice
+// copies, it was slower, so only the ratio asks.
+__device__ __forceinline__ void prefetch_tile_l2(const void* p, long ld, int r0, int rows,
+                                                 long c0, long width) {
+  for (int i = threadIdx.x; i < BM * 4; i += THREADS) {
+    const int r = r0 + i / 4;
+    const long c = c0 + (i % 4) * 128;
+    if (r < rows && c < width)
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(static_cast<const char*>(p) + r * ld + c));
+  }
+}
+
+// Four floats as four bf16 (round to nearest even), for one 8-byte store.
+__device__ __forceinline__ uint2 pack_bf16x4(float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                    *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+template <class TL>
+inline dim3 grid(int rows, int cols, int batch) {
+  return dim3((cols + TL::BN - 1) / TL::BN, (rows + BM - 1) / BM, batch);
+}
+
+}  // namespace tc
+}  // namespace gccnmf

@@ -330,7 +330,7 @@ class GCCNMFSeparator:
             raise NotImplementedError(
                 "separate_batch auto source counting (num_sources=None, "
                 f"max_sources={max_sources}) is not ported yet: ROADMAP.md, "
-                "'Still to port' item 3"
+                "'Still to port' item 6"
             )
         x = self._stereo(stereo_batch)
         w0, h0 = self._init_nmf(x.shape[-1], (x.shape[0],))
@@ -351,7 +351,7 @@ class GCCNMFSeparator:
         ported yet."""
         raise NotImplementedError(
             "separate_batches and its int16 program are not ported yet: "
-            "ROADMAP.md, 'Still to port' item 3"
+            "ROADMAP.md, 'Still to port' item 6"
         )
 
 

@@ -71,9 +71,21 @@ def attribution_winner_planes(coh_re, coh_im, cos_m, sin_m, target_indexes, w) -
     or bf16, ``Fp >= F``; bins past F must be zero). The steering columns
     are folded into the dictionary, so the scores are two flat GEMMs
     ``(T, F) x (F, N·K)`` in fp32 and the (B, N, T, F) broadcast never
-    exists."""
+    exists.
+
+    A batch runs one utterance at a time, each through the call a batch of
+    one makes, on tensors of its own: cuBLAS may sum a batched product in
+    another order than a single one, and where two targets score within
+    rounding of each other the argmax then flips, so a batch element would
+    not give what it gives alone."""
     dev = coh_re.device
     idx = torch.as_tensor(target_indexes, dtype=torch.long, device=dev)
+    if coh_re.dim() == 3 and coh_re.shape[0] > 1:
+        return torch.cat([
+            attribution_winner_planes(coh_re[i:i + 1].clone(), coh_im[i:i + 1].clone(), cos_m,
+                                      sin_m, idx[i:i + 1], w[i:i + 1].clone())
+            for i in range(coh_re.shape[0])
+        ])
     cos_sel = _f32(cos_m, dev).T[idx].transpose(-1, -2)  # (B, F, N)
     sin_sel = _f32(sin_m, dev).T[idx].transpose(-1, -2)
     b, f, n = cos_sel.shape

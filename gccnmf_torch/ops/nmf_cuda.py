@@ -1,12 +1,21 @@
 """Kernel 1: batched KL-NMF on Hopper (``csrc/nmf.cu``) and its plain twin.
 
 Replaces ``gccnmf_tpu/ops/nmf_pallas.py::kl_nmf_pallas``. The TPU kernel
-keeps the whole problem resident in VMEM; on the card V alone (≈5.1 MB per
-utterance at the reference shape) dwarfs a block's 227 KB of shared memory,
-so each iteration is a few launches over the batch, each a tiled GEMM with
-its update fused into the epilogue, and Q = V/WH goes through device memory.
-The products bound it (1.31 GFLOP per iteration per utterance); see the
-source for the launch sequence.
+keeps the whole problem resident in VMEM; on the card V alone (≈2.5 MB of
+bf16 per utterance at the reference shape) dwarfs a block's 227 KB of
+shared memory, so each iteration is a few launches over the batch, each a
+tiled GEMM with its update fused into the epilogue, and Q = V/WH goes
+through device memory. The products are 1.31 GFLOP per iteration per
+utterance. In the bf16 modes they run on the tensor cores (``wgmma``, see
+``csrc/tc_gemm.cuh``), which leaves this design bound by the bytes of V
+and Q and by its 9 launches per iteration; in float32 they stay fp32 FMAs
+on the SIMT cores, since no tensor-core path is exact fp32.
+
+In the bf16 modes the wrapper hands the kernel bf16 operand planes with
+rows padded by zeros to a multiple of 8 elements (16 bytes), as
+:func:`bf16_rows` builds them: Q (T, ldq) and the shadows Wb (F, ldk), Hb
+(T, ldk) of the fp32 W and H, which the kernel keeps equal to
+``round_bf16`` of them. W, H and every sum stay fp32.
 
 ``kl_nmf_cuda`` launches the kernel for a CUDA tensor and takes
 :func:`kl_nmf_plain` only for a CPU tensor. ``kl_nmf_plain`` computes the
@@ -21,7 +30,7 @@ import torch
 from gccnmf_torch import _build
 from gccnmf_torch.ops.nmf import MATMUL_DTYPES, kl_nmf
 
-__all__ = ["kl_nmf_cuda", "kl_nmf_plain", "NMF_MODES", "nmf_mode"]
+__all__ = ["kl_nmf_cuda", "kl_nmf_plain", "NMF_MODES", "nmf_mode", "bf16_rows", "row_pad"]
 
 # matmul_dtype → kernel mode (csrc/nmf.cu)
 NMF_MODES = {md: i for i, md in enumerate(MATMUL_DTYPES)}
@@ -68,6 +77,21 @@ def _splits(t: int) -> tuple[int, int]:
     return -(-t // rows), rows
 
 
+def row_pad(n: int) -> int:
+    """``n`` rounded up to a multiple of 8: a bf16 row of 16-byte chunks."""
+    return -(-n // 8) * 8
+
+
+def bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., R, C) in bf16 with rows of :func:`row_pad` ``(C)``
+    elements, the padding zero: the layout of the kernel's operand
+    planes."""
+    out = torch.zeros((*x.shape[:-1], row_pad(x.shape[-1])), device=x.device,
+                      dtype=torch.bfloat16)
+    out[..., : x.shape[-1]] = x
+    return out
+
+
 def kl_nmf_cuda(
     v: torch.Tensor,
     w0: torch.Tensor,
@@ -101,14 +125,19 @@ def kl_nmf_cuda(
     w.copy_(w0.expand(*batch, f, k))
     h.copy_(h0.expand(*batch, t, k))
     splits, split_rows = _splits(t)
-    q = torch.empty((b, t, f), device=dev,
-                    dtype=torch.bfloat16 if mode == 2 else torch.float32)
+    if mode == 0:  # SIMT products on fp32 Q
+        wb = hb = None
+        q = torch.empty((b, t, f), device=dev, dtype=torch.float32)
+    else:  # tensor-core products on bf16 planes of 16-byte rows
+        wb, hb = bf16_rows(w), bf16_rows(h)
+        q = torch.zeros((b, t, row_pad(f)), device=dev, dtype=torch.bfloat16)
     part = torch.empty((b, splits, f, k), device=dev, dtype=torch.float32)
     stats = torch.empty((3, b, k), device=dev, dtype=torch.float32)
     _build.launch(
         "gccnmf_kl_nmf", dev,
         v3.data_ptr(), int(v3.dtype == torch.bfloat16), fv, w.data_ptr(), h.data_ptr(),
-        q.data_ptr(), part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+        0 if wb is None else wb.data_ptr(), 0 if hb is None else hb.data_ptr(), row_pad(k),
+        q.data_ptr(), q.shape[-1], part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
         stats[2].data_ptr(), b, t, f, k, int(num_iterations), splits, split_rows,
         float(sparsity_alpha), float(epsilon), mode,
     )

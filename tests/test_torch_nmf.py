@@ -152,3 +152,20 @@ class TestPlainKernelVersion:
             kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="bfloat16_q_simul")
         with pytest.raises(ValueError, match="matmul_dtype"):
             kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="float16")
+
+
+@pytest.mark.parametrize("rows,cols", [(300, 65), (96, 513), (517, 24), (33, 136), (5, 8)])
+def test_operand_planes_hold_the_plain_rounding(rows, cols):
+    """The tensor-core kernel's bf16 operand planes (Q, and the shadows of
+    W and H): rows padded with zeros to 16 bytes, and in the columns that
+    count exactly the bf16 values the plain version multiplies."""
+    from gccnmf_torch.ops.nmf_cuda import bf16_rows, row_pad
+    from gccnmf_torch.precision import round_bf16
+
+    x = torch.as_tensor(np.random.default_rng(rows).random((2, rows, cols), np.float32) + 1e-3)
+    plane = bf16_rows(x)
+    assert plane.dtype == torch.bfloat16 and plane.is_contiguous()
+    assert plane.shape == (2, rows, row_pad(cols))
+    assert row_pad(cols) % 8 == 0 and cols <= row_pad(cols) < cols + 8
+    assert torch.equal(plane[..., :cols].float(), round_bf16(x))
+    assert not plane[..., cols:].any()

@@ -212,6 +212,25 @@ class TestMasks:
             np.asarray(jmasks.hard_coefficient_masks(jnp.asarray(scores))),
         )
 
+    def test_winner_planes_batch_equals_each_alone_and_jax(self):
+        """A batch of three utterances (own targets, own W) gives each
+        utterance's winners bit for bit as a batch of one does, and JAX's
+        batched winners."""
+        rng = np.random.default_rng(11)
+        b, t, f, k = 3, 20, 17, 6
+        re, im = (rng.standard_normal((b, t, f)).astype(np.float32) for _ in range(2))
+        w = (rng.random((b, f, k)) + 0.05).astype(np.float32)
+        tg = np.array([[2, 5, 9], [1, 7, 11], [0, 3, 4]], np.int32)
+        cos_m, sin_m = jgcc.steering_cos_sin(16000.0, f, 1.0, 12)
+        got = masks.attribution_winner_planes(_t(re), _t(im), cos_m, sin_m, _t(tg), _t(w))
+        for i in range(b):
+            one = masks.attribution_winner_planes(_t(re[i:i + 1]), _t(im[i:i + 1]), cos_m, sin_m,
+                                                  _t(tg[i:i + 1]), _t(w[i:i + 1]))
+            np.testing.assert_array_equal(got[i:i + 1].numpy(), one.numpy())
+        want = np.asarray(jmasks.attribution_winner_planes(
+            jnp.asarray(re), jnp.asarray(im), cos_m, sin_m, jnp.asarray(tg), jnp.asarray(w)))
+        np.testing.assert_array_equal(got.numpy(), want)
+
 
 def test_wav_round_trip_and_naming_match_jax(tmp_path, rng):
     x = (rng.standard_normal((2, 800)) * 0.3).astype(np.float32)
