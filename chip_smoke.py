@@ -9,8 +9,9 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    CUDA versions; asserts TF32 is off for matmuls and cuDNN.
 2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``,
    and reads the library's SASS with ``cuobjdump -sass`` from the same
-   toolkit: each tensor-core NMF kernel must hold HGMMA (``wgmma``)
-   instructions.
+   toolkit: each tensor-core kernel (the NMF's three, the soft mask's
+   scores) must hold HGMMA (``wgmma``) instructions; their ptxas registers
+   and spills are printed.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
@@ -24,7 +25,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    The enhancement kernels (soft mask, Wiener synthesis) are held the same
    way on the enhancement configuration of ``bench.py`` (10 cm spacing,
    128 TDOAs, K = 128), with a dictionary learned by the NMF kernel
-   (float32, 100 iterations) on the first mixture's |X|.
+   (float32, 100 iterations) on the first mixture's |X|. Each soft-mask row
+   names its design too and carries ``gemm_library_ms``: the same scores as
+   one ``torch.matmul`` of the ``[Re c | Im c]`` rows against the (2F, D·K)
+   fold, in the row's operand type and batch (a yardstick only).
 4. ``separate``: the default ``GCCNMFSeparator()`` (``bfloat16_q``) through
    ``separate`` (3 sources) and ``separate_batch`` (16 utterances), each
    timed as the median of 5 calls after a warm-up, with the kernels' launch
@@ -159,13 +163,15 @@ def basis_len(mode: str) -> int:
     return WIN if mode == "float32" else 2 * WIN * (WIN // 2 + 1)
 
 
-# the tensor-core NMF kernels (csrc/nmf.cu) whose SASS must hold HGMMA
-TC_KERNELS = ("tc_wh_ratio_kernel", "tc_h_update_kernel", "tc_qth_split_kernel")
+# the tensor-core kernels whose SASS must hold HGMMA: the NMF's three
+# products (csrc/nmf.cu) and the soft mask's scores (csrc/enhance.cu)
+TC_KERNELS = ("tc_wh_ratio_kernel", "tc_h_update_kernel", "tc_qth_split_kernel",
+              "tc_score_argmax_kernel")
 
 
 def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
-    """HGMMA instructions per tensor-core NMF kernel (all instantiations of
-    a kernel together) in the SASS of ``library``, read with the
+    """HGMMA instructions per tensor-core kernel (all instantiations of a
+    kernel together) in the SASS of ``library``, read with the
     ``cuobjdump`` of ``nvcc``'s toolkit."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
@@ -181,7 +187,7 @@ def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
 
 def ptxas_summary(build_log: str) -> dict[str, str]:
     """Registers and spills that ``ptxas -v`` reported for each
-    instantiation of the tensor-core NMF kernels."""
+    instantiation of the tensor-core kernels."""
     lines, out = build_log.splitlines(), {}
     for i, line in enumerate(lines[:-2]):
         if "Function properties for" in line and any(k in line for k in TC_KERNELS):
@@ -214,9 +220,10 @@ def main() -> int:
     from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
     from gccnmf_torch.ops import gcc, localize, masks
     from gccnmf_torch.models import offline as offline_mod
+    from gccnmf_torch.ops import enhance_cuda
     from gccnmf_torch.ops.enhance_cuda import (
-        argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain, tf_synthesis_basis,
-        tf_synthesis_cuda, tf_synthesis_plain,
+        argmax_flips, coherence_rows, fold_rows, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+        tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
     )
     from gccnmf_torch.ops.frontend_cuda import (
         frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
@@ -258,9 +265,9 @@ def main() -> int:
     lib = _build.library()
     build_s = time.perf_counter() - t0
     hgmma = hgmma_counts(_build._nvcc(), lib._name)
-    require(all(n > 0 for n in hgmma.values()), f"a tensor-core NMF kernel has no HGMMA: {hgmma}")
+    require(all(n > 0 for n in hgmma.values()), f"a tensor-core kernel has no HGMMA: {hgmma}")
     emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
-         nmf_hgmma=hgmma, nmf_ptxas=ptxas_summary(_build.build_log))
+         hgmma=hgmma, ptxas=ptxas_summary(_build.build_log))
 
     # ---- 3. kernels against their plain versions ---------------------------
     mix = make_mixture(args.seed, MAIN_BATCH)
@@ -459,6 +466,14 @@ def main() -> int:
             require(agree >= MASK_AGREE[md],
                     f"soft_mask_cuda[{md}]@B{b}: masks agree on {agree} < {MASK_AGREE[md]}")
             psize = 4 if md == "float32" else 2
+            # the yardstick: the same scores as one torch.matmul of the
+            # [Re c | Im c] rows against the (2F, D·K) fold, in the mode's
+            # operand type
+            dt = torch.float32 if md == "float32" else torch.bfloat16
+            rows_ = coherence_rows(cre, cim, f, dt)
+            fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt)).reshape(D * K, -1)
+            gemm_library_ms = time_ms(torch, lambda rows_=rows_, fold_=fold_: rows_ @ fold_.T)
+            del rows_, fold_
             if md == "float32":  # Re c·cos_d + Im c·sin_d, then one GEMM against W
                 flops, counted = 2 * b * t * f * D * K + 3 * b * t * f * D, "Y_d, then Y_d·W"
             else:  # JAX rounds the folded product bf16(cos_d·W): no cheaper form
@@ -477,6 +492,11 @@ def main() -> int:
                       f"the argmax agrees, and agree on {agree:.6f} >= {MASK_AGREE[md]} of "
                       "(t, k) at rtol 1e-6; max_abs_err is over all (t, k), flips included"),
                 argmax_flips=flips, mask_ulps=ulps, mask_agreement=agree,
+                design="simt" if md == "float32" else "wgmma",
+                gemm_library_ms=gemm_library_ms,
+                gemm_library_note=(f"[Re c | Im c] rows @ the (2F, D·K) fold as one torch.matmul "
+                                   f"on {dt} operands at B = {b}; the scores alone (no argmax, "
+                                   "no mask), so library_ms stays null"),
             )
             hm = got[0]
             kfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_cuda(
@@ -649,6 +669,9 @@ def main() -> int:
         finally:
             offline_mod.soft_mask_cuda = soft_mask_cuda
     emit("tdoa_split", device=kind, nvidia_smi=smi, batch=1, order="split, whole, whole, split",
+         split_chunk=enhance_cuda._tdoa_chunk(
+             cre1.shape[1], K, D, torch.cuda.get_device_properties(dev).multi_processor_count,
+             True),
          soft_mask_ms={k: [r[0] for r in v] for k, v in split.items()},
          enhance_ms={k: [r[1] for r in v] for k, v in split.items()})
     del enh_main["enh"], margs1
@@ -734,7 +757,7 @@ def main() -> int:
         f"enhance (B={MAIN_BATCH}, OfflineConfig(mic_separation_m={ENH_MIC_M}, "
         f"num_tdoas={D}, dictionary_size={K}))", lambda: enh.enhance(mix),
         {"stft_gcc_frontend_cuda": frontend_stage,
-         "soft_mask_cuda": ("score_argmax_kernel", "mask_kernel"),
+         "soft_mask_cuda": ("coherence_rows_kernel", "score_argmax_kernel", "mask_kernel"),
          "tf_synthesis_cuda": ("wiener_spectra_kernel", "frames_kernel", "ola_kernel")})
     del enh
 

@@ -56,9 +56,9 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "gccnmf_soft_mask": [
-        _P, _P, _I, _I, _P, _P, _I, _P,  # cre cim plane_bf16 ldf cw sw dict_bf16 params
-        _P, _P, _P, _P,  # pmax parg hmask argout
-        _I, _I, _I, _I, _I, _I, _I, _I,  # B T F K D splits chunk rnd
+        _P, _P, _I, _I, _P, _P, _P, _P, _I,  # cre cim plane_bf16 ldf cw sw fold rows ldj
+        _P, _P, _P, _P, _P,  # params pmax parg hmask argout
+        _I, _I, _I, _I, _I, _I, _I,  # B T F K D splits chunk
         _P,  # stream
     ],
     "gccnmf_tf_synthesis": [

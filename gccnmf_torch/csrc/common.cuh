@@ -1,7 +1,7 @@
 // Shared SIMT tile machinery for the port's hand-written Hopper kernels.
 //
-// The front-end, synthesis, soft-mask and Wiener kernels, and the NMF in
-// its float32 mode, compute their products here with a plain tiled SIMT
+// The front-end, synthesis and Wiener kernels, and the NMF and the soft
+// mask in their float32 mode, compute their products here with a plain tiled SIMT
 // GEMM: a 64x64 output tile per 256-thread block, a 16-deep contraction
 // slice staged in shared memory, a 4x4 register micro-tile per thread, fp32
 // fused multiply-adds. The bf16 modes round each GEMM operand to bf16
@@ -12,9 +12,9 @@
 //
 // What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
 // staging loads with a bf16 round at each. No tensor-core path is exact
-// fp32, so the float32 modes stay here. The NMF's bf16 products moved to
-// the tensor cores (tc_gemm.cuh); the soft mask's score GEMM and the
-// synthesis iDFT are the next candidates for that core.
+// fp32, so the float32 modes stay here. The bf16 products of the NMF and
+// of the soft mask's scores moved to the tensor cores (tc_gemm.cuh); the
+// synthesis iDFT is the next candidate for that core.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -120,6 +120,13 @@ __device__ __forceinline__ void zero(float acc[4][4]) {
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+}
+
+// Blocks of 256 threads for a grid-stride loop over total items: one item
+// a thread, capped at 16 blocks an SM.
+inline int elementwise_blocks(long total) {
+  const long blocks = (total + 255) / 256, cap = 132L * 16;
+  return (int)(blocks < cap ? blocks : cap);
 }
 
 inline dim3 tile_grid(int rows, int cols, int batch) {

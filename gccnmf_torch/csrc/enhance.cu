@@ -17,20 +17,52 @@
 // across the batch, so the rows are the frames of all utterances together,
 // as the TPU kernel concatenates batch tiles into one row block.
 //
-//   1. score_argmax_kernel: a (64 rows × 64 atoms) block loops over its
-//      chunk of TDOAs; for each d it runs the tiled GEMM over F against
-//      cw[d] and sw[d] and folds the 4 × 4 scores of each thread into a
-//      running (max, argmax) held in registers. The (B, T, D, K) scores
-//      never reach device memory (1.3 GB at B = 16, T = 1,243, D = K = 128).
-//      When the frames alone give too few blocks to fill the card (one or
-//      two utterances), the TDOAs are split into chunks across blocks.
-//   2. mask_kernel: merges the chunks' (max, argmax) in chunk order with the
+// What bounds it: in the bf16 mode, where JAX rounds the folded product, the
+// soft mask needs 4·B·T·F·D·K flop (669 GFLOP at B = 16, T = 1,243,
+// F = 513, D = K = 128; 0.68 ms at the bf16 tensor-core peak) against tens
+// of MB of planes and dictionary, so the products bound it by far. In
+// float32, 2·B·T·F·D·K + 3·B·T·F·D (forming Re c·cos_d + Im c·sin_d first).
+//
+// bf16 mode, on the tensor cores (tc_gemm.cuh):
+//   1. coherence_rows_kernel packs the planes into bf16 rows
+//      A[m] = [Re c[m, :F] | Im c[m, :F] | 0] of ldj = 2F rounded up to 8
+//      (16-byte rows for cp.async; the planes themselves are F = 513 wide).
+//      The wrapper keeps the fold in the same layout, built once with the
+//      enhancer: B_d[k] = [cw[d, :, k] | sw[d, :, k] | 0], (D, K, ldj).
+//      Each score is then one 2F-deep product, s[m,d,k] = A[m]·B_d[k].
+//   2. tc_score_argmax_kernel: a block of 128 rows × 128 atoms walks its
+//      chunk of TDOAs. For each d it streams the
+//      64-deep slices of A and B_d (17 at F = 513) through a 4-stage
+//      cp.async ring of 128-byte-swizzled tiles into wgmma m64n128k16 (two
+//      warpgroups of 64 rows, fp32 accumulators), one continuous ring
+//      across the d's, so no d waits for its first slice. When d's last
+//      slice is in, each thread folds its accumulators into a running
+//      (max, argmax) in registers (the argmax as d − d0, a byte each) and
+//      zeroes them. That is 64 + 64 + 16 registers of state a thread, so
+//      one block an SM. The (B, T, D, K) scores never reach device memory
+//      (1.3 GB at B = 16).
+//      Traffic: A and B_d are both restreamed for every d, 64 flop per byte
+//      of L2, about 11 GB of L2 reads at B = 16: on the card the slice
+//      copies, not the products, take most of the time. Keeping A resident
+//      instead (a 64-row tile, 132 KB) would move the same bytes per
+//      output, since a 128 × 128 tile cannot stay in 227 KB; fewer bytes
+//      need larger tiles than the registers allow, or copies shared by a
+//      cluster of blocks (TMA multicast). The blocks of one row tile's TDOA
+//      chunks are launched next to each other (the chunk is the grid's
+//      fastest index), so the blocks in flight share their A tiles in L2.
+//   When the frames alone give too few blocks to fill the card (one or two
+//   utterances), the wrapper splits the TDOAs into chunks across blocks.
+//   3. mask_kernel: merges the chunks' (max, argmax) in chunk order with the
 //      same strict > (so the first maximum still wins) and applies the mask
 //      with the parameters of the row's utterance. It can also write the
 //      argmax, which only the checks read.
+// float32 mode keeps the SIMT tile of common.cuh (no tensor-core path is
+// exact fp32): score_argmax_kernel runs, for each d, the 64 × 64 tiled fp32
+// FMA GEMM over F against cw[d] and sw[d], then mask_kernel as above.
 //
-// Every score is the same fixed sequence of FMAs whatever the batch or the
-// split, so the argmax does not depend on either.
+// Every score is the same fixed sequence of operations whatever the batch,
+// the row's place in its tile, or the split, so the argmax depends on none
+// of them.
 //
 // Wiener synthesis. For z = (b, c):
 //
@@ -42,34 +74,33 @@
 //      multiply in its epilogue in fp32; writes Re X, Im X (bf16 in the bf16
 //      mode, which is where JAX's next make_mm rounds them).
 //   2. frames_kernel and 3. ola_kernel from istft.cuh, unchanged.
-//
-// What bounds them on the card: in the bf16 mode, where JAX rounds the folded
-// product, the soft mask needs 4·B·T·F·D·K flop (669 GFLOP at B = 16,
-// T = 1,243, F = 513, D = K = 128; in float32, 2·B·T·F·D·K + 3·B·T·F·D, by
-// forming Re c·cos_d + Im c·sin_d first) against tens of MB of planes, so
-// the products bound it by far. The synthesis as computed here is
-// 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16) against about 190 MB;
-// in float32 an FFT would need far fewer operations than its iDFT GEMM.
-// Both run as fp32 FMAs on the SIMT cores, with bf16-rounded operands in the
-// bf16 mode.
+// As computed here it is 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16)
+// against about 190 MB; in float32 an FFT would need far fewer operations
+// than its iDFT GEMM. It runs as fp32 FMAs on the SIMT tile of common.cuh,
+// with bf16-rounded operands in the bf16 mode.
 #include <math.h>
 
 #include "common.cuh"
 #include "istft.cuh"
+#include "tc_gemm.cuh"
 
 using namespace gccnmf;
 
+extern __shared__ __align__(128) unsigned char tc_smem[];  // a ScoreTile's SMEM_BYTES
+
 namespace {
+
+// ---- soft mask, float32: the SIMT products of common.cuh -----------------
 
 // Running (max, argmax) over d in [split·chunk, min(D, (split+1)·chunk)) of
 // s[m,d,k] for the block's (64 × 64) tile of (rows m, atoms k); written to
 // pmax/parg at [split, m, k].
-template <typename TP, typename TW>
+template <typename TP>
 __global__ void __launch_bounds__(NTHREADS)
 score_argmax_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim, int ldf,
-                    const TW* __restrict__ cw, const TW* __restrict__ sw,
+                    const float* __restrict__ cw, const float* __restrict__ sw,
                     float* __restrict__ pmax, int* __restrict__ parg, int M, int F, int K,
-                    int D, int chunk, bool rnd) {
+                    int D, int chunk) {
   __shared__ __align__(16) TileA Ar, Ai;
   __shared__ __align__(16) TileB Bc, Bs;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, split = blockIdx.z;
@@ -84,15 +115,15 @@ score_argmax_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim, int 
       arg[i][j] = d0;
     }
   for (int d = d0; d < d1; ++d) {
-    const TW* cwd = cw + (long)d * F * K;
-    const TW* swd = sw + (long)d * F * K;
+    const float* cwd = cw + (long)d * F * K;
+    const float* swd = sw + (long)d * F * K;
     float acc[4][4];
     zero(acc);
     for (int f0 = 0; f0 < F; f0 += BK) {
-      stage_a<true>(Ar, cre, ldf, 1, m0, f0, M, F, rnd);  // (m, f) at c[m*ldf + f]
-      stage_a<true>(Ai, cim, ldf, 1, m0, f0, M, F, rnd);
-      stage_b<true>(Bc, cwd, K, 1, f0, n0, F, K, rnd);    // (f, k) at cw[d][f*K + k]
-      stage_b<true>(Bs, swd, K, 1, f0, n0, F, K, rnd);
+      stage_a<true>(Ar, cre, ldf, 1, m0, f0, M, F, false);  // (m, f) at c[m*ldf + f]
+      stage_a<true>(Ai, cim, ldf, 1, m0, f0, M, F, false);
+      stage_b<true>(Bc, cwd, K, 1, f0, n0, F, K, false);    // (f, k) at cw[d][f*K + k]
+      stage_b<true>(Bs, swd, K, 1, f0, n0, F, K, false);
       __syncthreads();
       tile_fma(Ar, Bc, acc);
       tile_fma(Ai, Bs, acc);
@@ -118,6 +149,88 @@ score_argmax_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim, int 
       if (k >= K) continue;
       pmax[base + (long)m * K + k] = best[i][j];
       parg[base + (long)m * K + k] = arg[i][j];
+    }
+  }
+}
+
+// ---- soft mask, bf16: the tensor-core products of tc_gemm.cuh ------------
+
+// rows[m] = bf16([Re c[m, :F] | Im c[m, :F] | 0]), ldj elements (a
+// multiple of 8), one 16-byte chunk a thread.
+template <typename TP>
+__global__ void coherence_rows_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim,
+                                      int ldf, bf16* __restrict__ rows, int ldj, int M, int F) {
+  const int chunks = ldj / 8;
+  const long total = (long)M * chunks;
+  for (long idx = blockIdx.x * (long)blockDim.x + threadIdx.x; idx < total;
+       idx += (long)gridDim.x * blockDim.x) {
+    const long m = idx / chunks;
+    const int j0 = (int)(idx % chunks) * 8;
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int j = j0 + e;
+      v[e] = j < F ? to_f32(cre[m * ldf + j]) : j < 2 * F ? to_f32(cim[m * ldf + j - F]) : 0.0f;
+    }
+    const uint2 lo = tc::pack_bf16x4(v[0], v[1], v[2], v[3]);
+    const uint2 hi = tc::pack_bf16x4(v[4], v[5], v[6], v[7]);
+    *reinterpret_cast<uint4*>(rows + m * ldj + j0) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// The score tile: 128 atoms a block, a 4-stage ring (128 KiB). With 64
+// accumulators, 64 running maxima and 16 words of packed argmax a thread,
+// its registers allow one block an SM.
+using ScoreTile = tc::Tile<128, 4>;
+
+// Running (max, argmax) over d in [d0, d0 + chunk) ∩ [0, D), d0 = split·chunk
+// (chunk <= 256), of s[m,d,k] = rows[m]·fold[d,k] (J = 2F deep) for the
+// block's 128 rows and 128 atoms; written to pmax/parg at [split, m, k].
+// Grid: (splits, atom tiles, row tiles).
+__global__ void __launch_bounds__(tc::THREADS, 1)
+tc_score_argmax_kernel(const bf16* __restrict__ rows, const bf16* __restrict__ fold, int ldj,
+                       float* __restrict__ pmax, int* __restrict__ parg, int M, int J, int K,
+                       int D, int chunk) {
+  using TL = ScoreTile;
+  const int split = blockIdx.x, n0 = blockIdx.y * TL::BN, m0 = blockIdx.z * tc::BM;
+  const int d0 = split * chunk, nd = min(D, d0 + chunk) - d0;
+  const int nk = (J + tc::BK - 1) / tc::BK;  // slices per TDOA
+  const tc::Operand a{rows, ldj, m0, M, J};
+  float acc[TL::ACC], best[TL::ACC];
+  uint32_t arg[TL::ACC / 4];  // d − d0 of each running max, a byte each
+#pragma unroll
+  for (int r = 0; r < TL::ACC; ++r) {
+    acc[r] = 0.0f;
+    best[r] = -INFINITY;
+  }
+#pragma unroll
+  for (int r = 0; r < TL::ACC / 4; ++r) arg[r] = 0u;
+  tc::ring<TL>(
+      tc_smem, nd * nk,
+      [&](int i, uint32_t st) {  // slice i % nk of TDOA d0 + i / nk
+        const tc::Operand b{fold + (long)(d0 + i / nk) * K * ldj, ldj, n0, K, J};
+        tc::load_stage<TL, false, false>(st, a, b, (i % nk) * tc::BK);
+      },
+      [&](int i, uint32_t st) {
+        tc::mma_stage<TL, false, false>(acc, st);
+        if (i % nk != nk - 1) return;  // the TDOA's scores are complete: fold them
+        const uint32_t dl = i / nk;
+#pragma unroll
+        for (int r = 0; r < TL::ACC; ++r) {
+          if (acc[r] > best[r]) {  // strict: the first maximum wins; NaN never
+            best[r] = acc[r];
+            arg[r / 4] = (arg[r / 4] & ~(0xFFu << (8 * (r % 4)))) | (dl << (8 * (r % 4)));
+          }
+          acc[r] = 0.0f;
+        }
+      });
+  const long base = (long)split * M * K;
+#pragma unroll
+  for (int r = 0; r < TL::ACC; ++r) {
+    const int m = m0 + tc::acc_row(r), k = n0 + tc::acc_col(r);
+    if (m < M && k < K) {
+      pmax[base + (long)m * K + k] = best[r];
+      parg[base + (long)m * K + k] = d0 + (int)((arg[r / 4] >> (8 * (r % 4))) & 0xFFu);
     }
   }
 }
@@ -188,20 +301,47 @@ wiener_spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, in
   }
 }
 
-template <typename TP, typename TW>
-cudaError_t run_mask(const TP* cre, const TP* cim, int ldf, const TW* cw, const TW* sw,
-                     const float* params, float* pmax, int* parg, float* hmask, int* argout,
-                     int B, int T, int F, int K, int D, int splits, int chunk, bool rnd,
-                     cudaStream_t st) {
-  const int M = B * T;
-  score_argmax_kernel<TP, TW><<<tile_grid(M, K, splits), NTHREADS, 0, st>>>(
-      cre, cim, ldf, cw, sw, pmax, parg, M, F, K, D, chunk, rnd);
-  cudaError_t err = cudaGetLastError();
+// The bf16 scores' (max, argmax) per chunk on the tensor cores.
+cudaError_t run_tc_scores(const bf16* rows, const bf16* fold, int ldj, float* pmax, int* parg,
+                          int M, int F, int K, int D, int splits, int chunk, cudaStream_t st) {
+  using TL = ScoreTile;
+  const void* kernel = reinterpret_cast<const void*>(tc_score_argmax_kernel);
+  // dynamic shared memory past 48 KiB, and the carveout for it
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TL::SMEM_BYTES);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const long total = (long)M * K;
-  const long blocks = (total + 255) / 256, cap = 132L * 16;
-  mask_kernel<<<(int)(blocks < cap ? blocks : cap), 256, 0, st>>>(pmax, parg, params, hmask,
-                                                                  argout, M, T, K, splits);
+  const dim3 grid(splits, (K + TL::BN - 1) / TL::BN, (M + tc::BM - 1) / tc::BM);
+  tc_score_argmax_kernel<<<grid, tc::THREADS, TL::SMEM_BYTES, st>>>(
+      rows, fold, ldj, pmax, parg, M, 2 * F, K, D, chunk);
+  return cudaGetLastError();
+}
+
+// fold null: the float32 mode's SIMT scores from the planes and cw/sw;
+// else the bf16 mode's: the planes packed into rows, then the tensor cores.
+template <typename TP>
+cudaError_t run_mask(const TP* cre, const TP* cim, int ldf, const float* cw, const float* sw,
+                     const bf16* fold, bf16* rows, int ldj, const float* params, float* pmax,
+                     int* parg, float* hmask, int* argout, int B, int T, int F, int K, int D,
+                     int splits, int chunk, cudaStream_t st) {
+  const int M = B * T;
+  cudaError_t err;
+  if (fold) {
+    coherence_rows_kernel<TP><<<elementwise_blocks((long)M * (ldj / 8)), 256, 0, st>>>(
+        cre, cim, ldf, rows, ldj, M, F);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = run_tc_scores(rows, fold, ldj, pmax, parg, M, F, K, D, splits, chunk, st);
+  } else {
+    score_argmax_kernel<TP><<<tile_grid(M, K, splits), NTHREADS, 0, st>>>(
+        cre, cim, ldf, cw, sw, pmax, parg, M, F, K, D, chunk);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  mask_kernel<<<elementwise_blocks((long)M * K), 256, 0, st>>>(pmax, parg, params, hmask,
+                                                                argout, M, T, K, splits);
   return cudaGetLastError();
 }
 
@@ -221,27 +361,26 @@ cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const
 }  // namespace
 
 // cre/cim: (B, T, ldf) coherence planes, bf16 if plane_bf16 else f32,
-// ldf >= F; cw/sw: (D, F, K) folded dictionary, bf16 if dict_bf16 else f32;
-// params: (B, 4) f32; pmax/parg: (splits, B·T, K) scratch with
+// ldf >= F; params: (B, 4) f32; pmax/parg: (splits, B·T, K) scratch with
 // splits = ceil(D / chunk); hmask: (B, T, K) f32; argout: (B, T, K) int32
-// or null.
+// or null. float32 mode (fold null): cw/sw the (D, F, K) f32 folded
+// dictionary. bf16 mode: fold (D, K, ldj) bf16 with row (d, k) =
+// [cw[d,:,k] | sw[d,:,k] | 0], ldj >= 2F a multiple of 8; rows (B·T, ldj)
+// bf16 scratch; chunk <= 256; cw/sw unused.
 extern "C" int gccnmf_soft_mask(const void* cre, const void* cim, int plane_bf16, int ldf,
-                                const void* cw, const void* sw, int dict_bf16,
-                                const float* params, float* pmax, int* parg, float* hmask,
-                                int* argout, int B, int T, int F, int K, int D, int splits,
-                                int chunk, int rnd, void* stream) {
+                                const float* cw, const float* sw, const void* fold, void* rows,
+                                int ldj, const float* params, float* pmax, int* parg,
+                                float* hmask, int* argout, int B, int T, int F, int K, int D,
+                                int splits, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GCCNMF_RUN(TP, TW)                                                                \
-  return (int)run_mask<TP, TW>(static_cast<const TP*>(cre), static_cast<const TP*>(cim), \
-                               ldf, static_cast<const TW*>(cw),                          \
-                               static_cast<const TW*>(sw), params, pmax, parg, hmask,    \
-                               argout, B, T, F, K, D, splits, chunk, rnd != 0, st)
-  if (plane_bf16) {
-    if (dict_bf16) GCCNMF_RUN(bf16, bf16);
-    GCCNMF_RUN(bf16, float);
-  }
-  if (dict_bf16) GCCNMF_RUN(float, bf16);
-  GCCNMF_RUN(float, float);
+  if (fold && (ldj % 8 != 0 || ldj < 2 * F || chunk < 1 || chunk > 256))
+    return (int)cudaErrorInvalidValue;
+#define GCCNMF_RUN(TP)                                                                       \
+  return (int)run_mask<TP>(static_cast<const TP*>(cre), static_cast<const TP*>(cim), ldf, cw, \
+                           sw, static_cast<const bf16*>(fold), static_cast<bf16*>(rows), ldj, \
+                           params, pmax, parg, hmask, argout, B, T, F, K, D, splits, chunk, st)
+  if (plane_bf16) GCCNMF_RUN(bf16);
+  GCCNMF_RUN(float);
 #undef GCCNMF_RUN
 }
 

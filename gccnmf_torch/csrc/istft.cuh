@@ -89,9 +89,8 @@ cudaError_t run_istft(const TX* xr, const TX* xi, const float* basis_a,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long n_out = (long)(T - 1) * hop, total = (long)Z * n_out;
-  const long blocks = (total + 255) / 256, cap = 132L * 16;
-  ola_kernel<TX><<<(int)(blocks < cap ? blocks : cap), 256, 0, st>>>(frames, out, Z, T,
-                                                                     win, hop, n_out);
+  ola_kernel<TX><<<elementwise_blocks(total), 256, 0, st>>>(frames, out, Z, T, win, hop,
+                                                            n_out);
   return cudaGetLastError();
 }
 

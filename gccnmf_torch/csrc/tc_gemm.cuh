@@ -1,4 +1,5 @@
-// Tensor-core product core for the NMF's bf16 GEMMs on Hopper (sm_90a).
+// Tensor-core product core for the port's bf16 GEMMs on Hopper (sm_90a):
+// the NMF's three products (nmf.cu) and the soft mask's scores (enhance.cu).
 //
 // One block of 256 threads computes a 128 x BN fp32 output tile (BN = 128
 // or 64) as two consumer warpgroups of 64 rows each, with
@@ -17,6 +18,9 @@
 //     whose epilogue (a guarded divide per output) costs more than its
 //     products, so more blocks in flight hide it; 64-wide tiles also waste
 //     less of F = 513 (576 columns against 640).
+// A kernel whose contraction is not one product (the soft mask runs one
+// per TDOA back to back) streams its slices through ring() itself, with
+// load_stage and mma_stage; gemm is ring over one contraction.
 //
 // Operands live in device memory as bf16 rows padded to a multiple of 8
 // elements (16 bytes), the padding zero, so every copy is one aligned
@@ -231,6 +235,57 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const Operand& op, int k
   }
 }
 
+// Copy slice [k0, k0 + BK) of A's BM rows and B's BN columns into the ring
+// stage at shared address st.
+template <class TL, bool A_MN, bool B_MN>
+__device__ __forceinline__ void load_stage(uint32_t st, const Operand& a, const Operand& b,
+                                           int k0) {
+  load_tile<A_MN, BM>(st, a, k0);
+  load_tile<B_MN, TL::BN>(st + TILE_A, b, k0);
+}
+
+// acc += the 64-deep slice product of the stage at st, waited for: each
+// warpgroup multiplies its 64 rows of A by the stage's BN columns of B.
+template <class TL, bool A_MN, bool B_MN>
+__device__ __forceinline__ void mma_stage(float (&acc)[TL::ACC], uint32_t st) {
+  const int a_rows = (threadIdx.x / 128) * 64;  // this warpgroup's rows of A
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+    wgmma<A_MN, B_MN>(acc, tile_desc<A_MN, BM>(st, a_rows, j),
+                      tile_desc<B_MN, TL::BN>(st + TILE_A, 0, j));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// Stream n slices through the ring of TL::STAGES stages in smem (TL::SMEM_BYTES
+// of dynamic shared memory): load(i, st) issues slice i's copies into stage
+// st, use(i, st) runs once every thread's copies of slice i have landed.
+// A stage is refilled only after the __syncthreads that follows its use, so
+// use must be done reading it when it returns.
+template <class TL, class Load, class Use>
+__device__ __forceinline__ void ring(unsigned char* smem, int n, Load&& load, Use&& use) {
+  constexpr int S = TL::STAGES, SB = TL::STAGE_BYTES;
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // swizzle atoms
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n) load(s, base + s * SB);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<S - 2>();  // slice i has landed (this thread's copies)
+    fence_proxy_async();
+    __syncthreads();  // everyone's copies landed; slice i - 1 fully read
+    const int next = i + S - 1;  // refills the stage slice i - 1 used
+    if (next < n) load(next, base + (next % S) * SB);
+    cp_async_commit();
+    use(i, base + (i % S) * SB);
+  }
+  cp_async_wait<0>();
+}
+
 // acc = A·B over K indices [k_begin, k_end): A is this block's BM rows
 // (K-major unless A_MN), B its BN columns (K-major unless B_MN). Each
 // warpgroup keeps its 64 rows of the tile in acc, laid out as
@@ -239,43 +294,12 @@ template <class TL, bool A_MN, bool B_MN>
 __device__ __forceinline__ void gemm(float (&acc)[TL::ACC], unsigned char* smem,
                                      const Operand& a, const Operand& b, int k_begin,
                                      int k_end) {
-  constexpr int S = TL::STAGES, SB = TL::STAGE_BYTES;
 #pragma unroll
   for (int r = 0; r < TL::ACC; ++r) acc[r] = 0.0f;
-  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;  // swizzle atoms
-  const int nk = (k_end - k_begin + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < nk) {
-      load_tile<A_MN, BM>(base + s * SB, a, k_begin + s * BK);
-      load_tile<B_MN, TL::BN>(base + s * SB + TILE_A, b, k_begin + s * BK);
-    }
-    cp_async_commit();
-  }
-  const int a_rows = (threadIdx.x / 128) * 64;  // this warpgroup's rows of A
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S - 2>();  // slice kt has landed (this thread's copies)
-    fence_proxy_async();
-    __syncthreads();  // everyone's copies landed; slice kt - 1 fully read
-    const int next = kt + S - 1;  // refills the stage slice kt - 1 used
-    if (next < nk) {
-      const uint32_t sn = base + (next % S) * SB;
-      load_tile<A_MN, BM>(sn, a, k_begin + next * BK);
-      load_tile<B_MN, TL::BN>(sn + TILE_A, b, k_begin + next * BK);
-    }
-    cp_async_commit();
-    const uint32_t sa = base + (kt % S) * SB;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j)
-      wgmma<A_MN, B_MN>(acc, tile_desc<A_MN, BM>(sa, a_rows, j),
-                        tile_desc<B_MN, TL::BN>(sa + TILE_A, 0, j));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(acc);
-  }
-  cp_async_wait<0>();
+  ring<TL>(
+      smem, (k_end - k_begin + BK - 1) / BK,
+      [&](int i, uint32_t st) { load_stage<TL, A_MN, B_MN>(st, a, b, k_begin + i * BK); },
+      [&](int, uint32_t st) { mma_stage<TL, A_MN, B_MN>(acc, st); });
 }
 
 // Row within the block's BM rows, and column within its BN, of accumulator

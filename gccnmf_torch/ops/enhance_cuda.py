@@ -10,7 +10,13 @@ generalized-Gaussian mask around the utterance's target TDOA. The
 bound it: in float32, 2·B·T·F·D·K + 3·B·T·F·D flop (form
 ``Re c·cos_d + Im c·sin_d``, then one GEMM against W); in bf16, where the
 folded product ``cos_d·W`` is rounded, 4·B·T·F·D·K (669 GFLOP at 16 × 10 s
-with D = K = 128).
+with D = K = 128). In the bf16 mode the scores run on the tensor cores
+(``wgmma``, ``csrc/tc_gemm.cuh``) as one 2F-deep product per TDOA, between
+the coherence rows ``[Re c | Im c]`` (packed by the kernel, as
+:func:`coherence_rows` lays them out) and the fold ``[cw[d]; sw[d]]``
+(:func:`fold_rows`, built once with the basis), both bf16 on zero-padded
+16-byte rows. In float32 they stay fp32 FMAs on the SIMT cores, since no
+tensor-core path is exact fp32.
 
 ``tf_synthesis_cuda`` replaces ``::tf_synthesis_pallas``: the Wiener TF mask
 ``h_mask·(W/Σ_k W)ᵀ`` multiplied into both channels' planes, then the
@@ -28,16 +34,22 @@ takes ``0**β`` literally; the two differ only at β = 0.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from gccnmf_torch import _build
 from gccnmf_torch.ops import masks
+from gccnmf_torch.ops.nmf_cuda import row_pad
 from gccnmf_torch.ops.stft import overlap_add
 from gccnmf_torch.ops.synthesis_cuda import synthesis_basis
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
+    "SoftMaskBasis",
     "soft_mask_basis",
+    "fold_rows",
+    "coherence_rows",
     "soft_mask_cuda",
     "soft_mask_plain",
     "tdoa_argmax_plain",
@@ -51,16 +63,52 @@ __all__ = [
 _TINY = 1e-30
 
 
-def soft_mask_basis(cos_m, sin_m, w, matmul_dtype: str = "bfloat16", device=None):
-    """The steering-folded dictionary ``(cw, sw)``, each ``(D, F, K)``:
-    ``cw[d,f,k] = cos[f,d]·W[f,k]``, folded in fp32 and stored once in bf16
-    when ``matmul_dtype="bfloat16"`` (where JAX's ``make_mm`` rounds the
-    folded product, never ``bf16(cos)·bf16(W)``)."""
+class SoftMaskBasis(NamedTuple):
+    """The steering-folded dictionary of :func:`soft_mask_basis`: ``cw``,
+    ``sw`` (D, F, K), and in the bf16 mode ``fold``, the same values in the
+    tensor-core layout of :func:`fold_rows` (None in float32)."""
+
+    cw: torch.Tensor
+    sw: torch.Tensor
+    fold: torch.Tensor | None
+
+
+def soft_mask_basis(cos_m, sin_m, w, matmul_dtype: str = "bfloat16",
+                    device=None) -> SoftMaskBasis:
+    """The steering-folded dictionary: ``cw[d,f,k] = cos[f,d]·W[f,k]`` and
+    ``sw`` likewise, folded in fp32 and stored once in bf16 when
+    ``matmul_dtype="bfloat16"`` (where JAX's ``make_mm`` rounds the folded
+    product, never ``bf16(cos)·bf16(W)``), with the kernel's ``fold``."""
     w = torch.as_tensor(w, dtype=torch.float32, device=device)
     f, k = w.shape
-    store = torch.bfloat16 if bf16_operands(matmul_dtype) else torch.float32
-    return tuple(m.reshape(f, -1, k).transpose(0, 1).to(store).contiguous()
-                 for m in masks.fold_steering_dictionary(cos_m, sin_m, w))
+    bf16 = bf16_operands(matmul_dtype)
+    store = torch.bfloat16 if bf16 else torch.float32
+    cw, sw = (m.reshape(f, -1, k).transpose(0, 1).to(store).contiguous()
+              for m in masks.fold_steering_dictionary(cos_m, sin_m, w))
+    return SoftMaskBasis(cw, sw, fold_rows(cw, sw) if bf16 else None)
+
+
+def fold_rows(cw, sw):
+    """The fold as the tensor-core kernel's B operand: (D, K, J) in the
+    dtype of ``cw``, row (d, k) = ``[cw[d, :, k] | sw[d, :, k] | 0]`` with
+    J = :func:`row_pad` ``(2F)`` (16-byte bf16 rows), so that
+    ``coherence_rows(...) @ fold_rows(cw, sw)[d].T`` is the score of TDOA d."""
+    d, f, k = cw.shape
+    out = torch.zeros((d, k, row_pad(2 * f)), device=cw.device, dtype=cw.dtype)
+    out[..., :f] = cw.transpose(1, 2)
+    out[..., f : 2 * f] = sw.transpose(1, 2)
+    return out
+
+
+def coherence_rows(coh_re, coh_im, f, dtype=torch.bfloat16):
+    """The coherence planes (B, T, >= F) as the tensor-core kernel packs
+    them: (B·T, :func:`row_pad` ``(2F)``) rows ``[Re c[:F] | Im c[:F] | 0]``
+    in ``dtype`` (the plain twin of ``coherence_rows_kernel``)."""
+    rows = torch.zeros((coh_re.shape[0] * coh_re.shape[1], row_pad(2 * f)),
+                       device=coh_re.device, dtype=dtype)
+    rows[:, :f] = coh_re[..., :f].reshape(-1, f)
+    rows[:, f : 2 * f] = coh_im[..., :f].reshape(-1, f)
+    return rows
 
 
 def _mask_params(target_index, target_epsilon, target_beta, noise_floor, b, device):
@@ -87,7 +135,7 @@ def tdoa_argmax_plain(coh_re, coh_im, basis, *, matmul_dtype="bfloat16", chunk_d
     ``chunk_d`` TDOAs at a time and folded into the running (max, argmax)
     with a strict ``>``, so the first maximum wins and NaN never does."""
     r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
-    cw, sw = basis
+    cw, sw = basis[:2]
     d, f, k = cw.shape
     cre = r(coh_re[..., :f].to(torch.float32)).reshape(-1, f)
     cim = r(coh_im[..., :f].to(torch.float32)).reshape(-1, f)
@@ -136,7 +184,7 @@ def argmax_flips(coh_re, coh_im, basis, kernel_argmax, *, matmul_dtype="bfloat16
     gap = 0.0
     if bool(flipped.any()):
         rows, atoms = flipped.nonzero(as_tuple=True)
-        cw, sw = basis
+        cw, sw = basis[:2]
         f = cw.shape[1]
         at_kernel = 0.0
         for plane, fold in ((coh_re, cw), (coh_im, sw)):
@@ -146,26 +194,47 @@ def argmax_flips(coh_re, coh_im, basis, kernel_argmax, *, matmul_dtype="bfloat16
     return flipped.reshape(kernel_argmax.shape), gap, scale
 
 
+# the tensor-core score kernel's argmax is a byte a TDOA chunk
+_MAX_TC_CHUNK = 256
+
+
+def _tdoa_chunk(m, k, d, sms, tensor_cores):
+    """TDOAs a block scans: split over blocks when the (rows × atoms) tiles
+    alone would leave the card's SMs idle (one or two utterances). The SIMT
+    tile (64 × 64, float32) takes as many chunks as give two blocks an SM.
+    The tensor-core tile (128 rows × 128 atoms, one block an SM) takes the
+    fewest splits whose last wave is at least 90 % full."""
+    if not tensor_cores:
+        tiles = -(-m // 64) * -(-k // 64)
+        return -(-d // min(d, max(1, -(-2 * sms // tiles))))
+    tiles = -(-m // 128) * -(-k // 128)
+    splits = next((s for s in range(1, d + 1)
+                   if tiles * s >= 0.9 * sms * -(-tiles * s // sms)), d)
+    return min(_MAX_TC_CHUNK, -(-d // splits))
+
+
 def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_beta,
                    noise_floor, *, matmul_dtype="bfloat16", return_argmax=False,
                    tdoa_chunk=None):
     """Per-(frame, atom) soft target mask ``(B, T, K)`` fp32.
 
     ``coh_re``/``coh_im``: (B, T, Fp) fp32 or bf16 coherence planes,
-    ``Fp >= F``; ``basis``: from :func:`soft_mask_basis`; ``target_index``
-    (B,) and ``target_epsilon``/``target_beta``/``noise_floor`` (scalars or
-    (B,)). ``matmul_dtype="bfloat16"`` rounds the GEMM operands to bf16.
-    ``return_argmax=True`` also returns the (B, T, K) int32 argmax-TDOA.
-    ``tdoa_chunk`` is the number of TDOAs one block scans; ``None`` splits
-    them across blocks when the frames alone would leave SMs idle. Any
-    chunk gives the same result. Launches the CUDA kernel for CUDA planes;
-    CPU planes take :func:`soft_mask_plain`."""
+    ``Fp >= F``; ``basis``: from :func:`soft_mask_basis` in the same
+    ``matmul_dtype``; ``target_index`` (B,) and
+    ``target_epsilon``/``target_beta``/``noise_floor`` (scalars or (B,)).
+    ``matmul_dtype="bfloat16"`` rounds the GEMM operands to bf16 and runs
+    the scores on the tensor cores. ``return_argmax=True`` also returns the
+    (B, T, K) int32 argmax-TDOA. ``tdoa_chunk`` is the number of TDOAs one
+    block scans (at most 256 in bf16); ``None`` splits them across blocks
+    when the frames alone would leave SMs idle. Any chunk gives the same
+    result. Launches the CUDA kernel for CUDA planes; CPU planes take
+    :func:`soft_mask_plain`."""
     rnd = bf16_operands(matmul_dtype)
     if coh_re.device.type == "cpu":
         return soft_mask_plain(coh_re, coh_im, basis, target_index, target_epsilon,
                                target_beta, noise_floor, matmul_dtype=matmul_dtype,
                                return_argmax=return_argmax)
-    cw, sw = basis
+    cw, sw, fold = basis
     dev = _build.require_cuda("soft_mask_cuda", coh_re, coh_im, cw, sw)
     b, t, ldf = coh_re.shape
     d, f, k = cw.shape
@@ -175,20 +244,28 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
         raise ValueError("soft_mask_cuda: planes must be fp32/bf16 with >= F bins")
     if sw.shape != cw.shape or sw.dtype != cw.dtype:
         raise ValueError("soft_mask_cuda: folded dictionary halves disagree")
-    if cw.dtype == torch.bfloat16 and not rnd:
-        raise ValueError("soft_mask_cuda: a bf16 folded dictionary needs matmul_dtype bfloat16")
+    ldj = row_pad(2 * f)
+    # (cw, sw, fold, rows scratch): the SIMT kernel reads the first two, the
+    # tensor-core kernel the last two
+    if rnd:
+        if fold is None or fold.shape != (d, k, ldj) or fold.dtype != torch.bfloat16:
+            raise ValueError("soft_mask_cuda: matmul_dtype bfloat16 needs the (D, K, "
+                             "row_pad(2F)) bf16 fold of soft_mask_basis(..., 'bfloat16')")
+        _build.require_cuda("soft_mask_cuda", coh_re, fold)
+        dicts = (None, None, fold.contiguous(),
+                 torch.empty((b * t, ldj), device=dev, dtype=torch.bfloat16))
+    elif cw.dtype != torch.float32:
+        raise ValueError("soft_mask_cuda: matmul_dtype float32 needs a float32 folded dictionary")
+    else:
+        dicts = (cw.contiguous(), sw.contiguous(), None, None)
     cre, cim = coh_re.contiguous(), coh_im.contiguous()
-    cw, sw = cw.contiguous(), sw.contiguous()
     params = _mask_params(target_index, target_epsilon, target_beta, noise_floor, b, dev)
     m = b * t
-    # split the TDOAs over blocks when the (rows × atoms) tiles alone would
-    # leave the card's SMs idle (one or two utterances); any split gives the
-    # same argmax
-    chunk = tdoa_chunk
-    if chunk is None:
-        tiles = -(-m // 64) * -(-k // 64)
+    if tdoa_chunk is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        chunk = -(-d // min(d, max(1, -(-2 * sms // tiles))))
+        chunk = _tdoa_chunk(m, k, d, sms, rnd)
+    else:
+        chunk = min(tdoa_chunk, _MAX_TC_CHUNK) if rnd else tdoa_chunk
     splits = -(-d // chunk)
     pmax = torch.empty((splits, m, k), device=dev, dtype=torch.float32)
     parg = torch.empty((splits, m, k), device=dev, dtype=torch.int32)
@@ -197,9 +274,9 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     _build.launch(
         "gccnmf_soft_mask", dev,
         cre.data_ptr(), cim.data_ptr(), int(cre.dtype == torch.bfloat16), ldf,
-        cw.data_ptr(), sw.data_ptr(), int(cw.dtype == torch.bfloat16), params.data_ptr(),
+        *(0 if x is None else x.data_ptr() for x in dicts), ldj, params.data_ptr(),
         pmax.data_ptr(), parg.data_ptr(), out.data_ptr(), 0 if arg is None else arg.data_ptr(),
-        b, t, f, k, d, splits, chunk, int(rnd),
+        b, t, f, k, d, splits, chunk,
     )
     soft_mask_cuda.launches += 1
     return (out, arg) if return_argmax else out

@@ -37,7 +37,7 @@ NMF_MODES = {md: i for i, md in enumerate(MATMUL_DTYPES)}
 
 _TURBO_MSG = (
     "nmf_matmul_dtype='bfloat16_q_simul' (the turbo NMF mode) is not ported "
-    "yet: ROADMAP.md, 'Still to port' item 2"
+    "yet: ROADMAP.md, 'Still to port' item 5"
 )
 
 

@@ -196,13 +196,23 @@ def test_separator_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(est[0], got["estimates"], atol=1e-4)
 
 
+# (B, T, F, K, D) at the ragged edges of both score tiles (SIMT 64 × 64;
+# tensor cores 128 rows × 128 atoms, 64-deep slices of 2F): 2F = 34,
+# 66, 130 and 1,026 (none a multiple of 64), K = 6 and 72 (not multiples of
+# 8) and 130 (two 128-atom tiles), D against chunks of 3, T = 37, 150, 200
+# and 70 against 64 and 128 rows
+SOFT_MASK_SHAPES = [(2, 37, 17, 6, 10), (3, 150, 33, 6, 13), (3, 200, 65, 72, 9),
+                    (3, 70, 513, 130, 7)]
+
+
+@pytest.mark.parametrize("shape", SOFT_MASK_SHAPES, ids=lambda s: "b%d-t%d-f%d-k%d-d%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-def test_soft_mask_kernel_matches_plain(cuda, mode):
-    """F = 17, K = 6, D = 10, T = 37, B = 2 (no tile or chunk divides
-    them), distinct targets and ε per utterance, and a NaN coherence frame,
-    whose every score is NaN, so TDOA 0 wins."""
+def test_soft_mask_kernel_matches_plain(cuda, mode, shape):
+    """Distinct targets and ε per utterance, and a NaN coherence frame,
+    whose every score is NaN, so TDOA 0 wins; every batch element equals
+    the call of it alone, bit for bit."""
     rng = np.random.default_rng(6)
-    b, t, f, k, d = 2, 37, 17, 6, 10
+    b, t, f, k, d = shape
     pd = torch.float32 if mode == "float32" else torch.bfloat16
     cre, cim = (torch.as_tensor(rng.standard_normal((b, t, f)), dtype=pd, device=cuda)
                 for _ in range(2))
@@ -210,8 +220,9 @@ def test_soft_mask_kernel_matches_plain(cuda, mode):
     w = torch.as_tensor(rng.random((f, k)) + 0.05, dtype=torch.float32, device=cuda)
     cos_m, sin_m = gcc.steering_cos_sin(16000.0, f, 1.0, d)
     basis = soft_mask_basis(cos_m, sin_m, w, mode)
-    args = (cre, cim, basis, torch.tensor([2, 7], device=cuda),
-            torch.tensor([3.0, 2.0], device=cuda), 1.5, 0.1)
+    tgt, eps = rng.integers(0, d, b), rng.uniform(1.0, 4.0, b)
+    args = (cre, cim, basis, torch.as_tensor(tgt, device=cuda),
+            torch.as_tensor(eps, dtype=torch.float32, device=cuda), 1.5, 0.1)
     before = soft_mask_cuda.launches
     got, arg = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
     again, arg2 = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
@@ -221,6 +232,10 @@ def test_soft_mask_kernel_matches_plain(cuda, mode):
     # one TDOA per block here; a ragged split and no split give the same mask
     for chunk in (3, d):
         assert torch.equal(got, soft_mask_cuda(*args, matmul_dtype=mode, tdoa_chunk=chunk))
+    for i in range(b):  # each utterance's rows sit elsewhere in the tiles alone
+        one = soft_mask_cuda(cre[i:i + 1].clone(), cim[i:i + 1].clone(), basis, int(tgt[i]),
+                             float(np.float32(eps[i])), 1.5, 0.1, matmul_dtype=mode)
+        assert torch.equal(got[i:i + 1], one)
     want = soft_mask_plain(*args, matmul_dtype=mode)
     # the argmax may flip only at a near-tie: the plain score at the
     # kernel's TDOA within 1e-5 x max|plain maximum| of the plain maximum;
@@ -231,6 +246,23 @@ def test_soft_mask_kernel_matches_plain(cuda, mode):
     ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
     assert int(ulps[~flipped].max()) <= 2
     assert float(flipped.float().mean()) <= (1e-3 if mode == "float32" else 1e-2)
+
+
+def test_soft_mask_kernel_needs_its_modes_basis(cuda):
+    """bf16 runs on the tensor cores from the basis's bf16 fold, float32 on
+    the SIMT cores from an fp32 one; a basis of the other mode raises, and
+    nothing falls back to another kernel or to the plain version."""
+    rng = np.random.default_rng(10)
+    cre, cim = (torch.as_tensor(rng.standard_normal((1, 20, 17)), dtype=torch.float32,
+                                device=cuda) for _ in range(2))
+    w = torch.as_tensor(rng.random((17, 6)) + 0.05, dtype=torch.float32, device=cuda)
+    cos_m, sin_m = gcc.steering_cos_sin(16000.0, 17, 1.0, 8)
+    before = soft_mask_cuda.launches
+    for basis_mode, mode in (("float32", "bfloat16"), ("bfloat16", "float32")):
+        with pytest.raises(ValueError, match="soft_mask_cuda"):
+            soft_mask_cuda(cre, cim, soft_mask_basis(cos_m, sin_m, w, basis_mode), 3, 2.0, 2.0,
+                           0.0, matmul_dtype=mode)
+    assert soft_mask_cuda.launches == before
 
 
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])

@@ -22,8 +22,8 @@ from gccnmf_tpu.ops.enhance_pallas import soft_mask_pallas, tf_synthesis_pallas
 from gccnmf_torch.models.offline import GCCNMFEnhancer, OfflineConfig
 from gccnmf_torch.ops import masks, nmf
 from gccnmf_torch.ops.enhance_cuda import (
-    enhance_synthesis_cuda, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
-    tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
+    coherence_rows, enhance_synthesis_cuda, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+    tdoa_argmax_plain, tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
 )
 from gccnmf_torch.ops.frontend_cuda import frontend_basis
 from gccnmf_torch.ops.windows import hann_symmetric
@@ -164,6 +164,42 @@ class TestSoftMaskPlain:
         mask, arg = self._plain(coh, w, cos_m, sin_m, "float32")
         assert (arg[0, 3] == 0).all()
         np.testing.assert_array_max_ulp(mask, self._pallas(coh, w, cos_m, sin_m, "float32"), 2)
+
+    @pytest.mark.parametrize("f", [17, 41])  # 2F = 34 and 82: rows of 40 and 88
+    def test_tensor_core_layout_matches_plain_and_jax(self, f):
+        """The bf16 kernel's operands: coherence rows ``[Re c | Im c | 0]``
+        and the fold ``[cw[d]; sw[d]]`` on 16-byte rows. One 2F-deep
+        product per TDOA over them gives the argmax of tdoa_argmax_plain and
+        of JAX's argmax_tdoa on the same bf16-rounded values, a NaN frame
+        included."""
+        kw = dict(self.KW, f=f)
+        coh, w, cos_m, sin_m = _mask_problem(seed=5, **kw)
+        b, t, k, d = kw["b"], kw["t"], kw["k"], kw["num_tdoas"]
+        s = np.sort(_scores64(coh, w, cos_m, sin_m, bf16=True), axis=2)
+        assert ((s[:, :, -1] - s[:, :, -2]) / np.abs(s).max()).min() > 1e-5  # no near-tie
+        coh[1, 4] = np.nan
+        re, im = _planes(coh)
+        basis = soft_mask_basis(cos_m, sin_m, w, "bfloat16")
+        assert soft_mask_basis(cos_m, sin_m, w, "float32").fold is None
+        rows, fold = coherence_rows(re, im, f), basis.fold
+        j = -(-2 * f // 8) * 8
+        assert rows.dtype == fold.dtype == torch.bfloat16
+        assert rows.shape == (b * t, j) and fold.shape == (d, k, j)
+        same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        same(rows[:, :f], re.reshape(-1, f).to(torch.bfloat16))
+        same(rows[:, f : 2 * f], im.reshape(-1, f).to(torch.bfloat16))
+        assert torch.equal(fold[..., :f], basis.cw.transpose(1, 2))
+        assert torch.equal(fold[..., f : 2 * f], basis.sw.transpose(1, 2))
+        assert not rows[:, 2 * f :].any() and not fold[..., 2 * f :].any()
+        scores = (rows.double() @ fold.double().reshape(d * k, j).T).reshape(b, t, d, k)
+        got = torch.where(torch.isnan(scores), -torch.inf, scores).max(dim=2).indices
+        _, plain = tdoa_argmax_plain(re, im, basis, matmul_dtype="bfloat16")
+        r = lambda x: jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)
+        jcw, jsw = jmasks.fold_steering_dictionary(cos_m, sin_m, w)
+        want = np.asarray(jmasks.argmax_tdoa(r(coh.real), r(coh.imag), r(jcw), r(jsw), d))
+        np.testing.assert_array_equal(got.numpy(), plain.reshape(b, t, k).numpy())
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert (got[1, 4] == 0).all()
 
     def test_wrapper_takes_plain_version_on_cpu(self):
         coh, w, cos_m, sin_m = _mask_problem(b=2, seed=1)
