@@ -10,8 +10,9 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
 2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``,
    and reads the library's SASS with ``cuobjdump -sass`` from the same
    toolkit: each tensor-core kernel (the NMF's three, the soft mask's
-   scores) must hold HGMMA (``wgmma``) instructions; their ptxas registers
-   and spills are printed.
+   scores, and the iDFT of ``istft.cuh`` in both sources that include it)
+   must hold HGMMA (``wgmma``) instructions in each source that instantiates
+   it; their ptxas registers and spills are printed, by source.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
@@ -28,7 +29,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    (float32, 100 iterations) on the first mixture's |X|. Each soft-mask row
    names its design too and carries ``gemm_library_ms``: the same scores as
    one ``torch.matmul`` of the ``[Re c | Im c]`` rows against the (2F, D·K)
-   fold, in the row's operand type and batch (a yardstick only).
+   fold, in the row's operand type and batch (a yardstick only). The
+   synthesis rows (masked and Wiener) name their iDFT design (``wgmma`` in
+   bf16, ``simt`` in float32) and carry ``gemm_library_ms``: the iDFT alone
+   as one ``torch.matmul`` of the (Z·T, 2F) spectrum rows against the
+   (2F, win) basis, in the row's operand type and batch (a yardstick only).
 4. ``separate``: the default ``GCCNMFSeparator()`` (``bfloat16_q``) through
    ``separate`` (3 sources) and ``separate_batch`` (16 utterances), each
    timed as the median of 5 calls after a warm-up, with the kernels' launch
@@ -40,9 +45,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
 6. ``enhance``: the default-mode ``GCCNMFEnhancer`` through ``enhance`` of
    one mixture and of the batch of 16, counted per path like ``separate``,
    every utterance of the batch held against ``enhance`` of it alone; then
-   ``num_h_updates=2`` once. ``tdoa_split``: the soft mask and ``enhance``
-   of one mixture with the soft mask's TDOAs split across blocks and
-   unsplit. ``enhance_parity``: float32 mode, the kernels
+   ``num_h_updates=2`` once, which runs the front-end kernel alone and the
+   rest as torch ops, as the JAX enhancer leaves its fused kernels there.
+   ``tdoa_split``: the soft mask and ``enhance`` of one mixture with the
+   soft mask's TDOAs split across blocks and unsplit. ``enhance_parity``: float32 mode, the kernels
    against the plain torch path on the card, with and without H updates.
 7. ``profile``: one default ``separate_batch`` and one default batched
    ``enhance`` under ``torch.profiler``: device time by stage (the NMF's
@@ -163,36 +169,52 @@ def basis_len(mode: str) -> int:
     return WIN if mode == "float32" else 2 * WIN * (WIN // 2 + 1)
 
 
-# the tensor-core kernels whose SASS must hold HGMMA: the NMF's three
-# products (csrc/nmf.cu) and the soft mask's scores (csrc/enhance.cu)
-TC_KERNELS = ("tc_wh_ratio_kernel", "tc_h_update_kernel", "tc_qth_split_kernel",
-              "tc_score_argmax_kernel")
+# the tensor-core kernels whose SASS must hold HGMMA, with the sources that
+# instantiate each: the NMF's three products (csrc/nmf.cu), the soft mask's
+# scores (csrc/enhance.cu) and the iDFT of csrc/istft.cuh, which both
+# syntheses include (csrc/synthesis.cu, csrc/enhance.cu)
+TC_KERNELS = {"tc_wh_ratio_kernel": ("nmf.cu",), "tc_h_update_kernel": ("nmf.cu",),
+              "tc_qth_split_kernel": ("nmf.cu",), "tc_score_argmax_kernel": ("enhance.cu",),
+              "tc_frames_kernel": ("synthesis.cu", "enhance.cu")}
+# a kernel name that tells a source's SASS apart from the others', tried in
+# this order (synthesis.cu's spectra_kernel is also a substring of
+# enhance.cu's wiener_spectra_kernel)
+SOURCE_MARKERS = {"enhance.cu": "score_argmax_kernel", "nmf.cu": "tc_h_update_kernel",
+                  "frontend.cu": "angular_kernel", "synthesis.cu": "spectra_kernel"}
 
 
 def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
-    """HGMMA instructions per tensor-core kernel (all instantiations of a
-    kernel together) in the SASS of ``library``, read with the
-    ``cuobjdump`` of ``nvcc``'s toolkit."""
+    """HGMMA instructions per tensor-core kernel and source (``"kernel
+    (source)"``, all instantiations together) in the SASS of ``library``,
+    read with the ``cuobjdump`` of ``nvcc``'s toolkit: each source's
+    object keeps its own ELF in the library, named by its marker kernel."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                           timeout=300, check=True).stdout
-    counts = dict.fromkeys(TC_KERNELS, 0)
-    for section in sass.split("Function : ")[1:]:
-        name = section.split("\n", 1)[0]
-        for k in TC_KERNELS:
-            if k in name:
-                counts[k] += section.count("HGMMA")
+    counts = {f"{k} ({src})": 0 for k, srcs in TC_KERNELS.items() for src in srcs}
+    for elf in sass.split("Fatbin elf code")[1:]:
+        src = next((s for s, marker in SOURCE_MARKERS.items() if marker in elf), "?")
+        for section in elf.split("Function : ")[1:]:
+            name = section.split("\n", 1)[0]
+            for k in TC_KERNELS:
+                if k in name:
+                    key = f"{k} ({src})"
+                    counts[key] = counts.get(key, 0) + section.count("HGMMA")
     return counts
 
 
 def ptxas_summary(build_log: str) -> dict[str, str]:
     """Registers and spills that ``ptxas -v`` reported for each
-    instantiation of the tensor-core kernels."""
-    lines, out = build_log.splitlines(), {}
+    instantiation of the tensor-core kernels, by source (the build log's
+    ``== <source>`` lines)."""
+    lines, out, src = build_log.splitlines(), {}, "?"
     for i, line in enumerate(lines[:-2]):
+        if line.startswith("== "):
+            src = line[3:].strip()
         if "Function properties for" in line and any(k in line for k in TC_KERNELS):
             name = line.split("Function properties for")[1].strip()
-            out[name] = f"{lines[i + 2].split(':', 1)[1].strip()}; {lines[i + 1].strip()}"
+            out[f"{name} ({src})"] = (f"{lines[i + 2].split(':', 1)[1].strip()}; "
+                                      f"{lines[i + 1].strip()}")
     return out
 
 
@@ -222,7 +244,7 @@ def main() -> int:
     from gccnmf_torch.models import offline as offline_mod
     from gccnmf_torch.ops import enhance_cuda
     from gccnmf_torch.ops.enhance_cuda import (
-        argmax_flips, coherence_rows, fold_rows, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+        argmax_flips, fold_rows, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
         tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
     )
     from gccnmf_torch.ops.frontend_cuda import (
@@ -231,7 +253,7 @@ def main() -> int:
     from gccnmf_torch.ops.nmf import kl_divergence, nmf_init_numpy
     from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
     from gccnmf_torch.ops.synthesis_cuda import (
-        masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
+        idft_rows, masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
     )
     from gccnmf_torch.ops.windows import hann_symmetric
     from gccnmf_torch.precision import set_fp32_precision
@@ -266,8 +288,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     hgmma = hgmma_counts(_build._nvcc(), lib._name)
     require(all(n > 0 for n in hgmma.values()), f"a tensor-core kernel has no HGMMA: {hgmma}")
+    ptxas = ptxas_summary(_build.build_log)  # empty when the library was cached
+    spills = [k for k, v in ptxas.items()
+              if "tc_frames_kernel" in k and "0 bytes spill stores, 0 bytes spill loads" not in v]
+    require(not spills, f"the tensor-core iDFT spills: {spills}")
     emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
-         hgmma=hgmma, ptxas=ptxas_summary(_build.build_log))
+         hgmma=hgmma, ptxas=ptxas)
 
     # ---- 3. kernels against their plain versions ---------------------------
     mix = make_mixture(args.seed, MAIN_BATCH)
@@ -277,10 +303,24 @@ def main() -> int:
     cos_np, sin_np = gcc.steering_cos_sin(float(SR), f, 1.0, D)
     cos_m, sin_m = torch.as_tensor(cos_np, device=dev), torch.as_tensor(sin_np, device=dev)
     fbasis = frontend_basis(window, conjugate=True, device=dev)
-    sbasis = synthesis_basis(window, HOP / WIN * 2.0, device=dev)
+    # built for bf16: the fp32 A and −B that the float32 rows read, and the
+    # bf16 rows of the tensor-core iDFT
+    sbasis = synthesis_basis(window, HOP / WIN * 2.0, "bfloat16", device=dev)
     t = 1 + (n - WIN) // HOP
     w0_np, h0_np = nmf_init_numpy(f, K, 2 * t)
     rows = []
+
+    def idft_library_ms(md, rows):
+        """The yardstick for a synthesis row: its iDFT alone, as one
+        torch.matmul of ``rows`` (Z·T, 2F) spectrum rows against the (2F,
+        win) basis [A ; −B], in the mode's operand type."""
+        dt = torch.float32 if md == "float32" else torch.bfloat16
+        x_ = torch.rand((rows, 2 * f), device=dev).to(dt)
+        basis_ = torch.cat([sbasis.a, sbasis.b_neg]).to(dt)
+        ms = time_ms(torch, lambda: x_ @ basis_)
+        del x_, basis_
+        return ms, (f"the iDFT alone: ({rows}, 2F) @ (2F, win) as one torch.matmul on {dt} "
+                    "operands; no spectra and no overlap-add, so library_ms stays null")
 
     def record(name, mode, b, source, replaces, got, want, tol, kernel_fn, plain_fn,
                flops, nbytes, check_fn=None, err=None, note="", counted="", **extra):
@@ -408,6 +448,7 @@ def main() -> int:
             tol = 1e-4 if md == "float32" else 1e-2
             psize = 4 if md == "float32" else 2
             dft, counted = dft_flops(b * SOURCES * 2 * t, md)
+            lib_ms, lib_note = idft_library_ms(md, b * SOURCES * 2 * t)
             record(
                 "masked_synthesis_cuda", md, b, "gccnmf_torch/csrc/synthesis.cu",
                 "gccnmf_tpu/ops/synthesis_pallas.py:140", (kfn(),), (pfn(),), tol, kfn, pfn,
@@ -416,6 +457,8 @@ def main() -> int:
                 + 4 * basis_len(md) + b * SOURCES * 2 * (t - 1) * HOP * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
+                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+                gemm_library_note=lib_note,
             )
 
     # every mode at batch 2, the NMF checked after 15 iterations
@@ -436,7 +479,7 @@ def main() -> int:
                         torch.as_tensor(h0_np, device=dev)[None], NMF_ITERS,
                         matmul_dtype="float32")[0][0]
     require(bool(torch.isfinite(w_enh).all()), "the learned dictionary is not finite")
-    tbasis = tf_synthesis_basis(w_enh, window, HOP / WIN * 2.0, device=dev)
+    tbasis = tf_synthesis_basis(w_enh, window, HOP / WIN * 2.0, "bfloat16", device=dev)
 
     def check_enhance_kernels(b, modes):
         """The soft mask and the Wiener synthesis at batch ``b`` against
@@ -470,7 +513,7 @@ def main() -> int:
             # [Re c | Im c] rows against the (2F, D·K) fold, in the mode's
             # operand type
             dt = torch.float32 if md == "float32" else torch.bfloat16
-            rows_ = coherence_rows(cre, cim, f, dt)
+            rows_ = idft_rows(cre, cim, f, dt)
             fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt)).reshape(D * K, -1)
             gemm_library_ms = time_ms(torch, lambda rows_=rows_, fold_=fold_: rows_ @ fold_.T)
             del rows_, fold_
@@ -504,6 +547,7 @@ def main() -> int:
             pfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_plain(
                 sre, sim, hm, tbasis, hop_size=HOP, matmul_dtype=md)
             dft, counted = dft_flops(b * 2 * t, md)
+            lib_ms, lib_note = idft_library_ms(md, b * 2 * t)
             record(
                 "tf_synthesis_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
                 "gccnmf_tpu/ops/enhance_pallas.py:356", (kfn(),), (pfn(),),
@@ -513,6 +557,8 @@ def main() -> int:
                 + 4 * basis_len(md) + b * 2 * (t - 1) * HOP * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
+                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+                gemm_library_note=lib_note,
             )
 
     check_enhance_kernels(KERNEL_BATCH, ("float32", "bfloat16"))
@@ -678,8 +724,9 @@ def main() -> int:
     enh_h = drive_enhance(cfg_enh, batch=False, num_h_updates=2)
     del enh_h["enh"]
     hc = enh_h["counts"]["enhance"]
-    require(hc["soft_mask_cuda"] > 0 and hc["tf_synthesis_cuda"] == 0,
-            f"enhance with H updates: launches {hc}")
+    # the H-update tail is JAX's XLA tail: the front-end kernel alone
+    require(hc["stft_gcc_frontend_cuda"] > 0 and hc["soft_mask_cuda"] == 0
+            and hc["tf_synthesis_cuda"] == 0, f"enhance with H updates: launches {hc}")
     require(np.isfinite(enh_h["enhance"]["enhanced"]).all(), "enhance with H updates: non-finite")
     emit("enhance", device=kind, nvidia_smi=smi,
          config=f"OfflineConfig(mic_separation_m={ENH_MIC_M}, num_tdoas={D}, "

@@ -51,7 +51,7 @@ _SIGNATURES = {
     ],
     "gccnmf_masked_synthesis": [
         _P, _P, _I, _I, _P, _P, _P, _P, _P,  # sre sim plane_bf16 ldf winner w h a b
-        _P, _P, _P, _P,  # xr xi frames out
+        _P, _I, _P, _P, _P,  # basis_rows ldj x frames out
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B S C T F K win hop rnd
         _P,  # stream
     ],
@@ -63,7 +63,7 @@ _SIGNATURES = {
     ],
     "gccnmf_tf_synthesis": [
         _P, _P, _I, _I, _P, _P, _P, _P,  # sre sim plane_bf16 ldf hmask wn a b
-        _P, _P, _P, _P,  # xr xi frames out
+        _P, _I, _P, _P, _P,  # basis_rows ldj x frames out
         _I, _I, _I, _I, _I, _I, _I, _I,  # B C T F K win hop rnd
         _P,  # stream
     ],

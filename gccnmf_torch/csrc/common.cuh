@@ -12,9 +12,10 @@
 //
 // What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
 // staging loads with a bf16 round at each. No tensor-core path is exact
-// fp32, so the float32 modes stay here. The bf16 products of the NMF and
-// of the soft mask's scores moved to the tensor cores (tc_gemm.cuh); the
-// synthesis iDFT is the next candidate for that core.
+// fp32, so the float32 modes stay here. The bf16 products of the NMF, of
+// the soft mask's scores and of the syntheses' iDFT moved to the tensor
+// cores (tc_gemm.cuh); the front-end's DFT and the syntheses' spectra
+// GEMMs stay here in every mode.
 #pragma once
 
 #include <cuda_bf16.h>

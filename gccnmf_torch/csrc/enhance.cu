@@ -71,13 +71,16 @@
 //   y_z       = overlap-add(X_z·[A; −B]), trimmed by window/2 at each end
 //
 //   1. wiener_spectra_kernel: the tf GEMM over rows (b, t), the channel
-//      multiply in its epilogue in fp32; writes Re X, Im X (bf16 in the bf16
-//      mode, which is where JAX's next make_mm rounds them).
-//   2. frames_kernel and 3. ola_kernel from istft.cuh, unchanged.
+//      multiply in its epilogue in fp32; writes X where istft.cuh's iDFT
+//      reads it (bf16 rows [Re X | Im X | 0] in the bf16 mode, which is
+//      where JAX's next make_mm rounds them; fp32 planes in float32).
+//   2. the iDFT and 3. ola_kernel from istft.cuh, shared with synthesis.cu:
+//      tc_frames_kernel on the tensor cores in bf16 over the B·C·T rows,
+//      frames_kernel on the SIMT tile in float32.
 // As computed here it is 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16)
 // against about 190 MB; in float32 an FFT would need far fewer operations
-// than its iDFT GEMM. It runs as fp32 FMAs on the SIMT tile of common.cuh,
-// with bf16-rounded operands in the bf16 mode.
+// than its iDFT GEMM. The tf GEMM runs as fp32 FMAs on the SIMT tile of
+// common.cuh, with bf16-rounded operands in the bf16 mode.
 #include <math.h>
 
 #include "common.cuh"
@@ -261,14 +264,15 @@ __global__ void mask_kernel(const float* __restrict__ pmax, const int* __restric
   }
 }
 
-// Re X, Im X for z = (b, c): X[t,f] = (Σ_k hm[b,t,k]·Wn[k,f])·plane[b,c,t,f],
-// over rows m = (b, t) so one GEMM serves every channel.
+// X for z = (b, c): X[t,f] = (Σ_k hm[b,t,k]·Wn[k,f])·plane[b,c,t,f], at
+// spectrum row z·T + t of x (put_x: ldx, x_im), over rows m = (b, t) so one
+// GEMM serves every channel.
 template <typename TP, typename TX>
 __global__ void __launch_bounds__(NTHREADS)
 wiener_spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
                       const float* __restrict__ hm, const float* __restrict__ wn,
-                      TX* __restrict__ xr, TX* __restrict__ xi, int M, int T, int C, int F,
-                      int K, bool rnd) {
+                      TX* __restrict__ x, int ldx, long x_im, int M, int T, int C, int F, int K,
+                      bool rnd) {
   __shared__ __align__(16) TileA As;
   __shared__ __align__(16) TileB Bs;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -286,16 +290,16 @@ wiener_spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, in
     const int m = out_row(m0, i);
     if (m >= M) continue;
     const int b = m / T, t = m % T;
+    if (n0 == 0)
+      for (int c = 0; c < C; ++c) pad_x(x, ((long)b * C + c) * T + t, F, ldx, threadIdx.x % 16);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int f = out_col(n0, j);
       if (f >= F) continue;
       for (int c = 0; c < C; ++c) {
-        const long z = (long)b * C + c;
-        const long plane = (z * T + t) * ldf + f;
-        const long out = (z * T + t) * F + f;
-        xr[out] = from_f32<TX>(acc[i][j] * to_f32(sre[plane]));
-        xi[out] = from_f32<TX>(acc[i][j] * to_f32(sim[plane]));
+        const long r = ((long)b * C + c) * T + t;
+        const long plane = r * ldf + f;
+        put_x(x, r, f, ldx, x_im, acc[i][j] * to_f32(sre[plane]), acc[i][j] * to_f32(sim[plane]));
       }
     }
   }
@@ -345,17 +349,21 @@ cudaError_t run_mask(const TP* cre, const TP* cim, int ldf, const float* cw, con
   return cudaGetLastError();
 }
 
+// TX = bf16 (the bf16 mode): X on bf16 rows of ldj, the tensor-core iDFT;
+// TX = float: fp32 planes, the SIMT iDFT.
 template <typename TP, typename TX>
 cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const float* wn,
-                   const float* basis_a, const float* basis_b, TX* xr, TX* xi, TX* frames,
-                   float* out, int B, int C, int T, int F, int K, int win, int hop, bool rnd,
-                   cudaStream_t st) {
-  const int M = B * T;
+                   const float* basis_a, const float* basis_b, const bf16* basis_rows, int ldj,
+                   TX* x, TX* frames, float* out, int B, int C, int T, int F, int K, int win,
+                   int hop, cudaStream_t st) {
+  const int M = B * T, Z = B * C;
+  const bool rows = sizeof(TX) == 2;
   wiener_spectra_kernel<TP, TX><<<tile_grid(M, F, 1), NTHREADS, 0, st>>>(
-      sre, sim, ldf, hm, wn, xr, xi, M, T, C, F, K, rnd);
+      sre, sim, ldf, hm, wn, x, rows ? ldj : F, rows ? (long)F : (long)Z * T * F, M, T, C, F,
+      K, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return run_istft<TX>(xr, xi, basis_a, basis_b, frames, out, B * C, T, F, win, hop, rnd, st);
+  return run_istft<TX>(x, basis_a, basis_b, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
 }
 
 }  // namespace
@@ -385,20 +393,24 @@ extern "C" int gccnmf_soft_mask(const void* cre, const void* cim, int plane_bf16
 }
 
 // sre/sim: (B, C, T, ldf) planes, bf16 if plane_bf16 else f32, ldf >= F;
-// hmask: (B, T, K) f32; wn: (K, F) f32; basis_a/basis_b: (F, win) f32
-// (basis_b already negated); xr/xi: (B·C, T, F) and frames: (B·C, T, win)
-// scratch, bf16 if rnd else f32; out: (B, C, (T−1)·hop) f32.
+// hmask: (B, T, K) f32; wn: (K, F) f32; out: (B, C, (T−1)·hop) f32. rnd
+// (the bf16 mode): basis_rows (win, ldj) bf16 with row j =
+// [A[:, j] | −B[:, j] | 0], ldj >= 2F a multiple of 8; x (B·C·T, ldj) and
+// frames (B·C, T, win) bf16 scratch; basis_a/basis_b unused. Else
+// basis_a/basis_b (F, win) f32 (basis_b already negated); x (2, B·C, T, F)
+// and frames (B·C, T, win) f32 scratch; basis_rows unused.
 extern "C" int gccnmf_tf_synthesis(const void* sre, const void* sim, int plane_bf16, int ldf,
                                    const float* hmask, const float* wn, const float* basis_a,
-                                   const float* basis_b, void* xr, void* xi, void* frames,
-                                   float* out, int B, int C, int T, int F, int K, int win,
-                                   int hop, int rnd, void* stream) {
+                                   const float* basis_b, const void* basis_rows, int ldj,
+                                   void* x, void* frames, float* out, int B, int C, int T, int F,
+                                   int K, int win, int hop, int rnd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rnd && (ldj % 8 != 0 || ldj < 2 * F)) return (int)cudaErrorInvalidValue;
+  const bf16* brows = static_cast<const bf16*>(basis_rows);
 #define GCCNMF_RUN(TP, TX)                                                                  \
   return (int)run_tf<TP, TX>(static_cast<const TP*>(sre), static_cast<const TP*>(sim), ldf, \
-                             hmask, wn, basis_a, basis_b, static_cast<TX*>(xr),             \
-                             static_cast<TX*>(xi), static_cast<TX*>(frames), out, B, C, T,  \
-                             F, K, win, hop, rnd != 0, st)
+                             hmask, wn, basis_a, basis_b, brows, ldj, static_cast<TX*>(x),  \
+                             static_cast<TX*>(frames), out, B, C, T, F, K, win, hop, st)
   if (plane_bf16) {
     if (rnd) GCCNMF_RUN(bf16, bf16);
     GCCNMF_RUN(bf16, float);

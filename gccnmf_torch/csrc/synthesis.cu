@@ -15,20 +15,21 @@
 //
 //   1. spectra_kernel: the mag GEMM with the winner mask applied as H is
 //      staged (the one-hot mask never exists) and the mixture phase applied
-//      in the epilogue, in fp32 even for bf16 planes; writes Re X, Im X.
-//   2. frames_kernel and 3. ola_kernel (istft.cuh, shared with enhance.cu):
-//      the iDFT GEMM against [A; −B], then the gather form of overlap-add
-//      with the window/2 center trim.
+//      in the epilogue, in fp32; writes X where istft.cuh's iDFT reads it:
+//      fp32 planes in float32, bf16 rows [Re X | Im X | 0] in bf16.
+//   2. the iDFT (istft.cuh, shared with enhance.cu): tc_frames_kernel on the
+//      tensor cores in bf16, frames_kernel on the SIMT tile in float32.
+//   3. ola_kernel: the gather form of overlap-add with the window/2 trim.
 //
 // Time rows past T do not exist here: staging masks them to 0, which is the
 // TPU kernel's padded rows (winner −1, H 0), and the gather never reads them.
 //
 // What bounds it on the card: 2·S·C·T·F·(K + 2·win) flop per utterance
 // (about 16.7 GFLOP at the reference shape with 3 targets) against about
-// 20 MB of planes, H, winner and waveforms, so the products bound it; they
-// run as fp32 FMAs on the SIMT cores (bf16 mode rounds the operands where
-// JAX's make_mm does: the mag operands, the iDFT operands and the frames
-// that enter the overlap-add).
+// 20 MB of planes, H, winner and waveforms, so the products bound it. The
+// mag GEMM (about 6 % of them) runs as fp32 FMAs on the SIMT cores, its
+// operands rounded to bf16 in the bf16 mode where JAX's make_mm rounds them;
+// the iDFT runs on wgmma in bf16.
 #include "common.cuh"
 #include "istft.cuh"
 
@@ -36,13 +37,14 @@ using namespace gccnmf;
 
 namespace {
 
-// Re X, Im X for z = (b, s, c): X[t,f] = (Σ_k H[b,c,t,k]·[win[b,t,k]==s]·W[b,f,k])·phase
+// X for z = (b, s, c): X[t,f] = (Σ_k H[b,c,t,k]·[win[b,t,k]==s]·W[b,f,k])·phase,
+// at spectrum row z·T + t of x (put_x: ldx, x_im).
 template <typename TP, typename TX>
 __global__ void __launch_bounds__(NTHREADS)
 spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
                const int* __restrict__ winner, const float* __restrict__ w,
-               const float* __restrict__ h, TX* __restrict__ xr, TX* __restrict__ xi,
-               int S, int C, int T, int F, int K, bool rnd) {
+               const float* __restrict__ h, TX* __restrict__ x, int ldx, long x_im, int S,
+               int C, int T, int F, int K, bool rnd) {
   __shared__ __align__(16) TileA As;
   __shared__ __align__(16) TileB Bs;
   const int z = blockIdx.z, c = z % C, s = (z / C) % S, b = z / (C * S);
@@ -69,11 +71,11 @@ spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
     __syncthreads();
   }
   const long plane = ((long)b * C + c) * T * ldf;
-  const long out = (long)z * T * F;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int t = out_row(m0, i);
     if (t >= T) continue;
+    if (n0 == 0) pad_x(x, (long)z * T + t, F, ldx, threadIdx.x % 16);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int f = out_col(n0, j);
@@ -86,45 +88,52 @@ spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
       const float pr = ok ? re * inv : 1.0f;
       const float pi = im * inv;
       const float mag = acc[i][j];
-      xr[out + (long)t * F + f] = from_f32<TX>(mag * pr);
-      xi[out + (long)t * F + f] = from_f32<TX>(mag * pi);
+      put_x(x, (long)z * T + t, f, ldx, x_im, mag * pr, mag * pi);
     }
   }
 }
 
+// TX = bf16 (the bf16 mode): X on bf16 rows of ldj, the tensor-core iDFT;
+// TX = float: fp32 planes, the SIMT iDFT.
 template <typename TP, typename TX>
 cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const float* w,
-                const float* h, const float* basis_a, const float* basis_b, TX* xr,
-                TX* xi, TX* frames, float* out, int B, int S, int C, int T, int F,
-                int K, int win, int hop, bool rnd, cudaStream_t st) {
+                const float* h, const float* basis_a, const float* basis_b,
+                const bf16* basis_rows, int ldj, TX* x, TX* frames, float* out, int B, int S,
+                int C, int T, int F, int K, int win, int hop, cudaStream_t st) {
   const int Z = B * S * C;
+  const bool rows = sizeof(TX) == 2;
   spectra_kernel<TP, TX><<<tile_grid(T, F, Z), NTHREADS, 0, st>>>(
-      sre, sim, ldf, winner, w, h, xr, xi, S, C, T, F, K, rnd);
+      sre, sim, ldf, winner, w, h, x, rows ? ldj : F, rows ? (long)F : (long)Z * T * F, S, C,
+      T, F, K, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return run_istft<TX>(xr, xi, basis_a, basis_b, frames, out, Z, T, F, win, hop, rnd, st);
+  return run_istft<TX>(x, basis_a, basis_b, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
 }
 
 }  // namespace
 
 // sre/sim: (B, C, T, ldf) planes, bf16 if plane_bf16 else f32, ldf >= F;
 // winner: (B, T, K) int32; w: (B, F, K) f32; h: (B, C, T, K) f32;
-// basis_a/basis_b: (F, win) f32 (basis_b already negated);
-// xr/xi: (B·S·C, T, F) and frames: (B·S·C, T, win) scratch, bf16 if rnd
-// else f32; out: (B, S, C, (T−1)·hop) f32.
+// out: (B, S, C, (T−1)·hop) f32. rnd (the bf16 mode): basis_rows
+// (win, ldj) bf16 with row j = [A[:, j] | −B[:, j] | 0], ldj >= 2F a
+// multiple of 8; x (B·S·C·T, ldj) and frames (B·S·C, T, win) bf16 scratch;
+// basis_a/basis_b unused. Else basis_a/basis_b (F, win) f32 (basis_b
+// already negated); x (2, B·S·C, T, F) and frames (B·S·C, T, win) f32
+// scratch; basis_rows unused.
 extern "C" int gccnmf_masked_synthesis(const void* sre, const void* sim, int plane_bf16,
                                        int ldf, const int* winner, const float* w,
                                        const float* h, const float* basis_a,
-                                       const float* basis_b, void* xr, void* xi,
-                                       void* frames, float* out, int B, int S, int C,
+                                       const float* basis_b, const void* basis_rows, int ldj,
+                                       void* x, void* frames, float* out, int B, int S, int C,
                                        int T, int F, int K, int win, int hop, int rnd,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GCCNMF_RUN(TP, TX)                                                            \
-  return (int)run<TP, TX>(static_cast<const TP*>(sre), static_cast<const TP*>(sim), \
-                          ldf, winner, w, h, basis_a, basis_b, static_cast<TX*>(xr), \
-                          static_cast<TX*>(xi), static_cast<TX*>(frames), out, B, S, \
-                          C, T, F, K, win, hop, rnd != 0, st)
+  if (rnd && (ldj % 8 != 0 || ldj < 2 * F)) return (int)cudaErrorInvalidValue;
+  const bf16* brows = static_cast<const bf16*>(basis_rows);
+#define GCCNMF_RUN(TP, TX)                                                                  \
+  return (int)run<TP, TX>(static_cast<const TP*>(sre), static_cast<const TP*>(sim), ldf,   \
+                          winner, w, h, basis_a, basis_b, brows, ldj, static_cast<TX*>(x), \
+                          static_cast<TX*>(frames), out, B, S, C, T, F, K, win, hop, st)
   if (plane_bf16) {
     if (rnd) GCCNMF_RUN(bf16, bf16);
     GCCNMF_RUN(bf16, float);

@@ -1,5 +1,6 @@
 // Tensor-core product core for the port's bf16 GEMMs on Hopper (sm_90a):
-// the NMF's three products (nmf.cu) and the soft mask's scores (enhance.cu).
+// the NMF's three products (nmf.cu), the soft mask's scores (enhance.cu)
+// and the syntheses' iDFT (istft.cuh).
 //
 // One block of 256 threads computes a 128 x BN fp32 output tile (BN = 128
 // or 64) as two consumer warpgroups of 64 rows each, with
@@ -12,7 +13,7 @@
 // nothing and writes zeros (src-size 0), so a contraction never sees
 // garbage and K need not divide the slice. Tile shapes (Tile<BN, STAGES>):
 //   Tile<128, 3>: 96 KiB ring (+1 KiB alignment slack), 64 accumulators,
-//     two blocks an SM: the long contractions over F and t.
+//     two blocks an SM: the long contractions over F and t, and the iDFT.
 //   Tile<64, 3>: 72 KiB ring, 32 accumulators, three blocks an SM: the
 //     ratio's short contraction over K (two slices, both loaded at once),
 //     whose epilogue (a guarded divide per output) costs more than its

@@ -160,7 +160,8 @@ class GCCNMFSeparator:
         if self._frontend_backend == "cuda":
             self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
         if self._synthesis_backend == "cuda":
-            self._idft_basis = synthesis_basis(window, stft_gain(config), device=self.device)
+            self._idft_basis = synthesis_basis(window, stft_gain(config), gemm_dtype(config),
+                                               device=self.device)
 
     # ---- stages -----------------------------------------------------------
 
@@ -371,11 +372,12 @@ class GCCNMFEnhancer:
     With ``num_h_updates > 0`` the Wiener mask weighs each atom by H
     inferred against the frozen W (``nmf.h_infer``), which the synthesis
     kernel does not model, so the JAX package leaves both of its fused
-    kernels for its XLA tail there. The coefficient mask does not depend
-    on H, so on the card the port still takes it from ``soft_mask_cuda``,
-    which computes what ``argmax_tdoa`` and the soft mask compute without
-    building the (B, T, D, K) scores; the H inference, the H-aware Wiener
-    mask and the ISTFT then run as torch ops, as they are XLA ops in JAX.
+    kernels for its XLA tail there, and so does the port on either device:
+    the argmax-TDOA from ``masks.argmax_tdoa`` on the fp32 fold, the
+    coefficient mask from ``masks.soft_tdoa_coefficient_mask`` (which takes
+    ``0**β`` literally, where the soft-mask kernel pins distance 0 to a
+    mask of 1), then the H inference, the H-aware Wiener mask and the ISTFT
+    as torch ops, as they are XLA ops in JAX.
     """
 
     def __init__(
@@ -409,10 +411,10 @@ class GCCNMFEnhancer:
         self._cos, self._sin = state["cos"], state["sin"]
         if self._frontend_backend == "cuda":
             self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
-        if self._synthesis_backend == "cuda":
+        if self._synthesis_backend == "cuda" and num_h_updates <= 0:
             self._mask_basis = soft_mask_basis(self._cos, self._sin, self.w, gemm_dtype(config))
             self._tf_basis = tf_synthesis_basis(self.w, window, stft_gain(config),
-                                                device=self.device)
+                                                gemm_dtype(config), device=self.device)
         else:  # the folded operands depend only on constants: built once
             self._cos_w, self._sin_w = masks.fold_steering_dictionary(
                 self._cos, self._sin, self.w)
@@ -442,19 +444,20 @@ class GCCNMFEnhancer:
         spec, coh, ang = self._analyze(stereo)
         target_idx = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
         eps, beta, floor = self.target_epsilon, self.target_beta, self.noise_floor
-        f = cfg.num_freq  # the kernel's planes may be bf16
-        if self._synthesis_backend == "cuda":  # the mask does not depend on H
+        if self._synthesis_backend == "cuda" and self.num_h_updates <= 0:
             h_mask = soft_mask_cuda(*coh, self._mask_basis, target_idx, eps, beta, floor,
                                     matmul_dtype=gemm_dtype(cfg))
-            if self.num_h_updates <= 0:
-                out = tf_synthesis_cuda(*spec, h_mask, self._tf_basis, hop_size=cfg.hop_size,
-                                        matmul_dtype=gemm_dtype(cfg))
-                return out, target_idx, ang
-        else:
-            argmax_d = masks.argmax_tdoa(coh[0][..., :f], coh[1][..., :f], self._cos_w,
-                                         self._sin_w, cfg.num_tdoas)  # (B, T, K)
-            h_mask = masks.soft_tdoa_coefficient_mask(
-                argmax_d, target_idx.to(torch.float32)[:, None, None], eps, beta, floor)
+            out = tf_synthesis_cuda(*spec, h_mask, self._tf_basis, hop_size=cfg.hop_size,
+                                    matmul_dtype=gemm_dtype(cfg))
+            return out, target_idx, ang
+        # JAX's XLA tail (offline.py _enhance_jit_impl), the H-update path on
+        # either device: the argmax in fp32 on the planes as stored (bf16 in
+        # the bf16 modes), the literal soft mask
+        f = cfg.num_freq
+        argmax_d = masks.argmax_tdoa(coh[0][..., :f], coh[1][..., :f], self._cos_w,
+                                     self._sin_w, cfg.num_tdoas)  # (B, T, K)
+        h_mask = masks.soft_tdoa_coefficient_mask(
+            argmax_d, target_idx.to(torch.float32)[:, None, None], eps, beta, floor)
         cspec = torch.complex(spec[0][..., :f].float(), spec[1][..., :f].float())
         if self.num_h_updates > 0:
             v = cspec.abs().mean(dim=-3)  # (B, T, F), channel average

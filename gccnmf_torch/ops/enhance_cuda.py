@@ -13,7 +13,7 @@ folded product ``cos_d·W`` is rounded, 4·B·T·F·D·K (669 GFLOP at 16 × 10 
 with D = K = 128). In the bf16 mode the scores run on the tensor cores
 (``wgmma``, ``csrc/tc_gemm.cuh``) as one 2F-deep product per TDOA, between
 the coherence rows ``[Re c | Im c]`` (packed by the kernel, as
-:func:`coherence_rows` lays them out) and the fold ``[cw[d]; sw[d]]``
+:func:`synthesis_cuda.idft_rows` lays them out) and the fold ``[cw[d]; sw[d]]``
 (:func:`fold_rows`, built once with the basis), both bf16 on zero-padded
 16-byte rows. In float32 they stay fp32 FMAs on the SIMT cores, since no
 tensor-core path is exact fp32.
@@ -21,7 +21,10 @@ tensor-core path is exact fp32.
 ``tf_synthesis_cuda`` replaces ``::tf_synthesis_pallas``: the Wiener TF mask
 ``h_mask·(W/Σ_k W)ᵀ`` multiplied into both channels' planes, then the
 windowed, gained iDFT, overlap-add and window/2 center trim that the
-separation synthesis uses (``csrc/istft.cuh``). Its result equals
+separation synthesis uses (``csrc/istft.cuh``; in the bf16 mode the iDFT on
+the tensor cores over the spectrum rows of every utterance and channel,
+against the basis rows of :func:`synthesis_cuda.synthesis_basis`). Its
+result equals
 ``istft(wiener_tf_mask(W, h_mask) ⊙ X, conjugate=True, center_trim=True)
 · gain``: (B, C, (T-1)·hop) fp32.
 
@@ -41,20 +44,22 @@ import torch
 from gccnmf_torch import _build
 from gccnmf_torch.ops import masks
 from gccnmf_torch.ops.nmf_cuda import row_pad
-from gccnmf_torch.ops.stft import overlap_add
-from gccnmf_torch.ops.synthesis_cuda import synthesis_basis
+from gccnmf_torch.ops.synthesis_cuda import (
+    check_idft_basis, istft_plain, synthesis_basis,
+)
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
     "SoftMaskBasis",
     "soft_mask_basis",
     "fold_rows",
-    "coherence_rows",
     "soft_mask_cuda",
     "soft_mask_plain",
     "tdoa_argmax_plain",
     "argmax_flips",
+    "TfSynthesisBasis",
     "tf_synthesis_basis",
+    "wiener_spectra_plain",
     "tf_synthesis_cuda",
     "tf_synthesis_plain",
     "enhance_synthesis_cuda",
@@ -92,23 +97,13 @@ def fold_rows(cw, sw):
     """The fold as the tensor-core kernel's B operand: (D, K, J) in the
     dtype of ``cw``, row (d, k) = ``[cw[d, :, k] | sw[d, :, k] | 0]`` with
     J = :func:`row_pad` ``(2F)`` (16-byte bf16 rows), so that
-    ``coherence_rows(...) @ fold_rows(cw, sw)[d].T`` is the score of TDOA d."""
+    ``idft_rows(coh_re, coh_im, F) @ fold_rows(cw, sw)[d].T`` is the score of
+    TDOA d."""
     d, f, k = cw.shape
     out = torch.zeros((d, k, row_pad(2 * f)), device=cw.device, dtype=cw.dtype)
     out[..., :f] = cw.transpose(1, 2)
     out[..., f : 2 * f] = sw.transpose(1, 2)
     return out
-
-
-def coherence_rows(coh_re, coh_im, f, dtype=torch.bfloat16):
-    """The coherence planes (B, T, >= F) as the tensor-core kernel packs
-    them: (B·T, :func:`row_pad` ``(2F)``) rows ``[Re c[:F] | Im c[:F] | 0]``
-    in ``dtype`` (the plain twin of ``coherence_rows_kernel``)."""
-    rows = torch.zeros((coh_re.shape[0] * coh_re.shape[1], row_pad(2 * f)),
-                       device=coh_re.device, dtype=dtype)
-    rows[:, :f] = coh_re[..., :f].reshape(-1, f)
-    rows[:, f : 2 * f] = coh_im[..., :f].reshape(-1, f)
-    return rows
 
 
 def _mask_params(target_index, target_epsilon, target_beta, noise_floor, b, device):
@@ -285,27 +280,44 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
 soft_mask_cuda.launches = 0
 
 
-def tf_synthesis_basis(w, window, gain: float, device=None):
-    """``(Wn, A, −B)``: the normalized dictionary ``Wn = (W/Σ_k W)ᵀ`` (K, F)
-    and the iDFT basis with synthesis window and gain folded in, each
-    (F, win) fp32 (:func:`synthesis_cuda.synthesis_basis`). A W row that
+class TfSynthesisBasis(NamedTuple):
+    """The Wiener synthesis's constants (:func:`tf_synthesis_basis`): the
+    normalized dictionary ``wn`` (K, F) fp32, then the iDFT basis of
+    :func:`synthesis_cuda.synthesis_basis` (``a``, ``b_neg``, and ``rows``
+    in the bf16 mode, else None)."""
+
+    wn: torch.Tensor
+    a: torch.Tensor
+    b_neg: torch.Tensor
+    rows: torch.Tensor | None
+
+
+def tf_synthesis_basis(w, window, gain: float, matmul_dtype: str = "bfloat16",
+                       device=None) -> TfSynthesisBasis:
+    """The normalized dictionary ``Wn = (W/Σ_k W)ᵀ`` (K, F) and the iDFT
+    basis with synthesis window and gain folded in, built once for
+    ``matmul_dtype`` (:func:`synthesis_cuda.synthesis_basis`). A W row that
     sums to 0 gives what the JAX package gives: no guard."""
     w = torch.as_tensor(w, dtype=torch.float32, device=device)
     wn = (w / w.sum(dim=-1, keepdim=True)).T.contiguous()
-    return (wn, *synthesis_basis(window, gain, device=w.device))
+    return TfSynthesisBasis(wn, *synthesis_basis(window, gain, matmul_dtype, device=w.device))
+
+
+def wiener_spectra_plain(spec_re, spec_im, h_mask, wn, matmul_dtype="bfloat16"):
+    """X = ``(h_mask·Wn) ⊙ planes``, ``(Re X, Im X)`` each (B, C, T, F)
+    fp32: the spectra that the iDFT of :func:`tf_synthesis_plain` reads
+    (bf16 operands in the bf16 mode)."""
+    r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
+    f = wn.shape[-1]
+    tf = r(h_mask.to(torch.float32)) @ r(wn)  # (B, T, F)
+    return (tf[:, None] * spec_re[..., :f].to(torch.float32),
+            tf[:, None] * spec_im[..., :f].to(torch.float32))
 
 
 def tf_synthesis_plain(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype="bfloat16"):
     """Plain torch version of :func:`tf_synthesis_cuda`."""
-    r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
-    wn, a, b_neg = basis
-    f, win = a.shape
-    tf = r(h_mask.to(torch.float32)) @ r(wn)  # (B, T, F)
-    xr = r(tf[:, None] * spec_re[..., :f].to(torch.float32))  # (B, C, T, F)
-    xi = r(tf[:, None] * spec_im[..., :f].to(torch.float32))
-    y = overlap_add(r(xr @ r(a) + xi @ r(b_neg)), hop_size)
-    t = spec_re.shape[-2]
-    return y[..., win // 2 : win // 2 + (t - 1) * hop_size]
+    xr, xi = wiener_spectra_plain(spec_re, spec_im, h_mask, basis[0], matmul_dtype)
+    return istft_plain(xr, xi, basis[1:], hop_size, matmul_dtype)
 
 
 def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype="bfloat16"):
@@ -313,19 +325,20 @@ def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype
     (T-1)·hop) fp32.
 
     ``spec_re``/``spec_im``: (B, C, T, Fp) fp32 or bf16 planes, ``Fp >= F``;
-    ``h_mask``: (B, T, K); ``basis``: from :func:`tf_synthesis_basis`.
-    ``matmul_dtype="bfloat16"`` rounds where JAX's ``make_mm`` does: the
-    Wiener GEMM's operands, the masked planes and the iDFT basis, and the
-    frames entering the overlap-add. Launches the CUDA kernels for CUDA
-    planes; CPU planes take :func:`tf_synthesis_plain`."""
+    ``h_mask``: (B, T, K); ``basis``: from :func:`tf_synthesis_basis` in the
+    same ``matmul_dtype``. ``matmul_dtype="bfloat16"`` rounds where JAX's
+    ``make_mm`` does: the Wiener GEMM's operands, the masked planes and the
+    iDFT basis, and the frames entering the overlap-add, and runs the iDFT
+    on the tensor cores. Launches the CUDA kernels for CUDA planes; CPU
+    planes take :func:`tf_synthesis_plain`."""
     rnd = bf16_operands(matmul_dtype)
     if spec_re.device.type == "cpu":
         return tf_synthesis_plain(spec_re, spec_im, h_mask, basis, hop_size=hop_size,
                                   matmul_dtype=matmul_dtype)
-    wn, a, b_neg = basis
-    dev = _build.require_cuda("tf_synthesis_cuda", spec_re, spec_im, h_mask, wn, a, b_neg)
+    wn = basis[0]
+    dev = _build.require_cuda("tf_synthesis_cuda", spec_re, spec_im, h_mask, *basis[:3])
     b, c, t, fp = spec_re.shape
-    f, win = a.shape
+    f, win = basis[1].shape
     k = wn.shape[0]
     if win % hop_size:
         raise ValueError("tf_synthesis_cuda: window length must be a multiple of hop_size")
@@ -333,20 +346,24 @@ def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype
         raise ValueError("tf_synthesis_cuda: spec planes disagree")
     if spec_re.dtype not in (torch.float32, torch.bfloat16) or fp < f:
         raise ValueError("tf_synthesis_cuda: planes must be fp32/bf16 with >= F bins")
-    if h_mask.shape != (b, t, k) or wn.shape != (k, f) or b_neg.shape != (f, win):
-        raise ValueError("tf_synthesis_cuda: h_mask, Wn or basis shape disagrees")
+    if h_mask.shape != (b, t, k) or wn.shape != (k, f):
+        raise ValueError("tf_synthesis_cuda: h_mask or Wn shape disagrees")
+    a, b_neg, rows = check_idft_basis("tf_synthesis_cuda", basis[1:], rnd, f, win, dev)
     sre, sim = spec_re.contiguous(), spec_im.contiguous()
     hm = h_mask.to(torch.float32).contiguous()
-    wn, a, b_neg = (x.to(torch.float32).contiguous() for x in (wn, a, b_neg))
-    sdt = torch.bfloat16 if rnd else torch.float32
-    xri = torch.empty((2, b * c, t, f), device=dev, dtype=sdt)
-    frames = torch.empty((b * c, t, win), device=dev, dtype=sdt)
+    wn = wn.to(torch.float32).contiguous()
+    ldj = row_pad(2 * f)
+    # X scratch: bf16 spectrum rows for the tensor cores, or two fp32 planes
+    x = (torch.empty((b * c * t, ldj), device=dev, dtype=torch.bfloat16) if rnd
+         else torch.empty((2, b * c, t, f), device=dev, dtype=torch.float32))
+    frames = torch.empty((b * c, t, win), device=dev, dtype=x.dtype)
     out = torch.empty((b, c, (t - 1) * hop_size), device=dev, dtype=torch.float32)
+    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
     _build.launch(
         "gccnmf_tf_synthesis", dev,
         sre.data_ptr(), sim.data_ptr(), int(sre.dtype == torch.bfloat16), fp,
-        hm.data_ptr(), wn.data_ptr(), a.data_ptr(), b_neg.data_ptr(),
-        xri[0].data_ptr(), xri[1].data_ptr(), frames.data_ptr(), out.data_ptr(),
+        hm.data_ptr(), wn.data_ptr(), ptr(a), ptr(b_neg), ptr(rows), ldj,
+        x.data_ptr(), frames.data_ptr(), out.data_ptr(),
         b, c, t, f, k, win, hop_size, int(rnd),
     )
     tf_synthesis_cuda.launches += 1

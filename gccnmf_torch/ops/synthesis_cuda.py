@@ -8,7 +8,14 @@ and a window/2 center trim. The TPU kernel carries the overlap-add tail
 between time tiles on its sequential grid; on Hopper blocks run in any
 order, so the overlap-add is a separate gather (each output sample sums
 the frames that cover it) and nothing carries between blocks. The products
-bound it (≈16.7 GFLOP per utterance at the reference shape, 3 targets).
+bound it (≈16.7 GFLOP per utterance at the reference shape, 3 targets),
+nearly all in the iDFT. In the bf16 mode the iDFT runs on the tensor cores
+(``wgmma``, ``csrc/istft.cuh`` ``tc_frames_kernel``) as one 2F-deep product
+over the spectrum rows ``[Re X | Im X | 0]`` of every utterance, target and
+channel (laid out as :func:`idft_rows` lays them out) against the basis rows
+``[A ; −B]`` (:func:`synthesis_basis`'s ``rows``), both bf16 on zero-padded
+16-byte rows. In float32 it stays fp32 FMAs on the SIMT cores, since no
+tensor-core path is exact fp32.
 
 The result equals ``istft(masked_reconstruction(...), conjugate=True,
 center_trim=True) * gain``: (B, N, C, (T-1)·hop) fp32.
@@ -16,33 +23,96 @@ center_trim=True) * gain``: (B, N, C, (T-1)·hop) fp32.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from gccnmf_torch import _build
+from gccnmf_torch.ops.nmf_cuda import row_pad
 from gccnmf_torch.ops.stft import idft_matrices, overlap_add
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
-__all__ = ["synthesis_basis", "masked_synthesis_cuda", "masked_synthesis_plain"]
+__all__ = [
+    "SynthesisBasis",
+    "synthesis_basis",
+    "idft_rows",
+    "idft_frames_plain",
+    "istft_plain",
+    "masked_spectra_plain",
+    "masked_synthesis_cuda",
+    "masked_synthesis_plain",
+]
 
 
-def synthesis_basis(window, gain: float, device=None):
-    """The iDFT basis with synthesis window and gain folded in, ``(A, −B)``,
-    each ``(F, win)`` fp32. The minus undoes the conjugated forward
-    transform: frames = Re X·A − Im X·B."""
+class SynthesisBasis(NamedTuple):
+    """The iDFT basis of :func:`synthesis_basis`: ``a``, ``b_neg`` (F, win)
+    fp32, and in the bf16 mode ``rows``, the same values in bf16 in the
+    tensor-core layout (None in float32)."""
+
+    a: torch.Tensor
+    b_neg: torch.Tensor
+    rows: torch.Tensor | None
+
+
+def synthesis_basis(window, gain: float, matmul_dtype: str = "bfloat16",
+                    device=None) -> SynthesisBasis:
+    """The iDFT basis with synthesis window and gain folded in, ``A`` and
+    ``−B``, each ``(F, win)`` fp32. The minus undoes the conjugated forward
+    transform: frames = Re X·A − Im X·B. With ``matmul_dtype="bfloat16"``
+    also ``rows``: (win, :func:`row_pad` ``(2F)``) bf16, row j =
+    ``[A[:, j] | −B[:, j] | 0]``, the K-major operand of the tensor-core
+    iDFT (the layout of the soft mask's fold), stored once, so that
+    ``idft_rows(xr, xi) @ rows.T`` are the frames."""
     window = np.asarray(window, np.float32)
     a_m, b_m = idft_matrices(window.shape[0])
-    a = a_m * window[None, :] * gain
-    b = b_m * window[None, :] * gain
-    return (torch.as_tensor(a, device=device), torch.as_tensor(-b, device=device))
+    a = torch.as_tensor(a_m * window[None, :] * gain, device=device)
+    b_neg = torch.as_tensor(-(b_m * window[None, :] * gain), device=device)
+    rows = None
+    if bf16_operands(matmul_dtype):
+        rows = idft_rows(a.T, b_neg.T)
+    return SynthesisBasis(a, b_neg, rows)
 
 
-def masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis, *,
-                           num_targets, hop_size, matmul_dtype="bfloat16"):
-    """Plain torch version of :func:`masked_synthesis_cuda`."""
+def idft_rows(xr, xi, f=None, dtype=torch.bfloat16):
+    """Planes (..., R, >= F) as rows ``[xr[:F] | xi[:F] | 0]`` of
+    :func:`row_pad` ``(2F)`` elements in ``dtype``, the leading dimensions
+    flattened into rows (F defaults to the planes' width): the layout in
+    which the spectra kernels write X for the tensor-core iDFT (their plain
+    twin), of the basis rows, and of the coherence rows that the soft
+    mask's kernel packs (the plain twin of ``coherence_rows_kernel``)."""
+    f = xr.shape[-1] if f is None else f
+    rows = torch.zeros((xr[..., 0].numel(), row_pad(2 * f)), device=xr.device, dtype=dtype)
+    rows[:, :f] = xr[..., :f].reshape(-1, f)
+    rows[:, f : 2 * f] = xi[..., :f].reshape(-1, f)
+    return rows
+
+
+def idft_frames_plain(xr, xi, basis, matmul_dtype="bfloat16"):
+    """Frames ``Re X·A − Im X·B`` (..., T, win) of spectra (..., T, F) at
+    JAX's ``make_mm`` rounding points: in bf16 the spectra, the basis and
+    the frames are rounded, the sums fp32."""
     r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
-    a, b_neg = basis
-    f, win = a.shape
+    a, b_neg = basis[:2]
+    return r(r(xr) @ r(a) + r(xi) @ r(b_neg))
+
+
+def istft_plain(xr, xi, basis, hop_size, matmul_dtype):
+    """The tail both syntheses share, from spectra (..., T, F): the frames
+    of :func:`idft_frames_plain`, overlap-add, window/2 center trim."""
+    win = basis[0].shape[1]
+    y = overlap_add(idft_frames_plain(xr, xi, basis, matmul_dtype), hop_size)
+    t = xr.shape[-2]
+    return y[..., win // 2 : win // 2 + (t - 1) * hop_size]
+
+
+def masked_spectra_plain(spec_re, spec_im, winner, w, h_stereo, *, num_targets,
+                         matmul_dtype="bfloat16"):
+    """X = ``((H_c ⊙ [winner == s])·Wᵀ)·phase``, ``(Re X, Im X)`` each
+    (B, S, C, T, F) fp32: the spectra that the iDFT of
+    :func:`masked_synthesis_plain` reads (bf16 operands in the bf16 mode)."""
+    r = round_bf16 if bf16_operands(matmul_dtype) else (lambda x: x)
+    f = w.shape[-2]
     re = spec_re[..., :f].to(torch.float32)  # (B, C, T, F)
     im = spec_im[..., :f].to(torch.float32)
     mag2 = re * re + im * im
@@ -54,10 +124,34 @@ def masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis, *,
     mask = (winner[:, None] == targets[None, :, None, None]).to(torch.float32)  # (B,S,T,K)
     hm = h_stereo.to(torch.float32)[:, None] * mask[:, :, None]  # (B, S, C, T, K)
     mag = r(hm) @ r(w.to(torch.float32)).transpose(-1, -2)[:, None, None]  # (B,S,C,T,F)
-    frames = r(mag * pr[:, None]) @ r(a) + r(mag * pi[:, None]) @ r(b_neg)
-    y = overlap_add(r(frames), hop_size)
-    t = spec_re.shape[-2]
-    return y[..., win // 2 : win // 2 + (t - 1) * hop_size]
+    return mag * pr[:, None], mag * pi[:, None]
+
+
+def masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis, *,
+                           num_targets, hop_size, matmul_dtype="bfloat16"):
+    """Plain torch version of :func:`masked_synthesis_cuda`."""
+    xr, xi = masked_spectra_plain(spec_re, spec_im, winner, w, h_stereo,
+                                  num_targets=num_targets, matmul_dtype=matmul_dtype)
+    return istft_plain(xr, xi, basis, hop_size, matmul_dtype)
+
+
+def check_idft_basis(name, basis, rnd, f, win, dev):
+    """The basis of a CUDA call, validated: ``(a, b_neg, rows)`` contiguous,
+    rows None in float32. A bf16 call needs :func:`synthesis_basis`'s bf16
+    ``rows``; without them it raises, as nothing falls back to the SIMT
+    iDFT."""
+    a, b_neg = basis[:2]
+    rows = basis[2] if len(basis) > 2 else None
+    if a.shape != (f, win) or b_neg.shape != (f, win):
+        raise ValueError(f"{name}: the iDFT basis must be (F, win)")
+    if not rnd:
+        return a.to(torch.float32).contiguous(), b_neg.to(torch.float32).contiguous(), None
+    if rows is None or rows.shape != (win, row_pad(2 * f)) or rows.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: matmul_dtype bfloat16 needs the (win, row_pad(2F)) bf16 "
+                         "rows of synthesis_basis(..., 'bfloat16')")
+    if rows.device != dev:
+        raise ValueError(f"{name}: all tensors must be on one CUDA device")
+    return None, None, rows.contiguous()
 
 
 def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
@@ -67,20 +161,20 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
     ``spec_re``/``spec_im``: (B, C, T, Fp) fp32 or bf16 mixture planes,
     ``Fp >= F``; ``winner``: (B, T, K) int32 winning-target index;
     ``w``: (B, F, K); ``h_stereo``: (B, C, T, K); ``basis``: from
-    :func:`synthesis_basis`. ``matmul_dtype="bfloat16"`` rounds where JAX's
-    ``make_mm`` does: the mag operands, the iDFT operands and the frames
-    entering the overlap-add. Launches the CUDA kernel for CUDA planes; CPU
-    planes take :func:`masked_synthesis_plain`."""
+    :func:`synthesis_basis` in the same ``matmul_dtype``.
+    ``matmul_dtype="bfloat16"`` rounds where JAX's ``make_mm`` does: the mag
+    operands, the iDFT operands and the frames entering the overlap-add, and
+    runs the iDFT on the tensor cores. Launches the CUDA kernel for CUDA
+    planes; CPU planes take :func:`masked_synthesis_plain`."""
     rnd = bf16_operands(matmul_dtype)
     if spec_re.device.type == "cpu":
         return masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis,
                                       num_targets=num_targets, hop_size=hop_size,
                                       matmul_dtype=matmul_dtype)
-    a, b_neg = basis
-    dev = _build.require_cuda("masked_synthesis_cuda", spec_re, spec_im, winner, w,
-                              h_stereo, a, b_neg)
+    dev = _build.require_cuda("masked_synthesis_cuda", spec_re, spec_im, winner, w, h_stereo,
+                              *basis[:2])
     b, c, t, fp = spec_re.shape
-    f, win = a.shape
+    f, win = basis[0].shape
     k = w.shape[-1]
     if win % hop_size:
         raise ValueError("masked_synthesis_cuda: window length must be a multiple of hop_size")
@@ -90,24 +184,27 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
         raise ValueError("masked_synthesis_cuda: planes must be fp32/bf16 with >= F bins")
     if w.shape != (b, f, k) or h_stereo.shape != (b, c, t, k) or winner.shape != (b, t, k):
         raise ValueError("masked_synthesis_cuda: W, H or winner shape disagrees")
-    if winner.dtype != torch.int32 or b_neg.shape != (f, win):
-        raise ValueError("masked_synthesis_cuda: winner must be int32 and the basis (F, win)")
+    if winner.dtype != torch.int32:
+        raise ValueError("masked_synthesis_cuda: winner must be int32")
+    a, b_neg, rows = check_idft_basis("masked_synthesis_cuda", basis, rnd, f, win, dev)
     sre, sim = spec_re.contiguous(), spec_im.contiguous()
     win_idx = winner.contiguous()
     w32 = w.to(torch.float32).contiguous()
     h32 = h_stereo.to(torch.float32).contiguous()
-    a, b_neg = a.contiguous(), b_neg.contiguous()
     z = b * num_targets * c
-    sdt = torch.bfloat16 if rnd else torch.float32
-    xri = torch.empty((2, z, t, f), device=dev, dtype=sdt)
-    frames = torch.empty((z, t, win), device=dev, dtype=sdt)
+    ldj = row_pad(2 * f)
+    # X scratch: bf16 spectrum rows for the tensor cores, or two fp32 planes
+    x = (torch.empty((z * t, ldj), device=dev, dtype=torch.bfloat16) if rnd
+         else torch.empty((2, z, t, f), device=dev, dtype=torch.float32))
+    frames = torch.empty((z, t, win), device=dev, dtype=x.dtype)
     out = torch.empty((b, num_targets, c, (t - 1) * hop_size), device=dev,
                       dtype=torch.float32)
+    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
     _build.launch(
         "gccnmf_masked_synthesis", dev,
         sre.data_ptr(), sim.data_ptr(), int(sre.dtype == torch.bfloat16), fp,
-        win_idx.data_ptr(), w32.data_ptr(), h32.data_ptr(), a.data_ptr(), b_neg.data_ptr(),
-        xri[0].data_ptr(), xri[1].data_ptr(), frames.data_ptr(), out.data_ptr(),
+        win_idx.data_ptr(), w32.data_ptr(), h32.data_ptr(), ptr(a), ptr(b_neg), ptr(rows), ldj,
+        x.data_ptr(), frames.data_ptr(), out.data_ptr(),
         b, num_targets, c, t, f, k, win, hop_size, int(rnd),
     )
     masked_synthesis_cuda.launches += 1

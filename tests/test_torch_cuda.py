@@ -148,14 +148,27 @@ def test_frontend_kernel_matches_plain(cuda, mode, hop):
         assert float((g.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
 
 
+# (window, hop, T) of the iDFT at the ragged edges of both product tiles
+# (SIMT 64 × 64; tensor cores 128 rows × 128 columns, 64-deep slices of
+# 2F): window 32 (2F = 34, one 128-wide column tile, hop 2 gives 16
+# overlapping frames a sample) and 256 (2F = 258, two column tiles); the
+# rows Z·T (840, 1,800; 148, 600 for the Wiener synthesis) no multiple of
+# 128
+SYNTHESIS_SHAPES = [(32, 2, 70), (256, 32, 150)]
+TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150)]
+
+
+@pytest.mark.parametrize("shape", SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-def test_synthesis_kernel_matches_plain(cuda, mode):
-    """Window 32, hop 2 (16 overlapping frames per sample), planes wider
-    than F, exact-zero mixture bins."""
+def test_synthesis_kernel_matches_plain(cuda, mode, shape):
+    """Planes wider than F, exact-zero mixture bins; bf16 planes and the
+    tensor-core iDFT in the bf16 mode. Reruns are bit-identical and every
+    batch element equals the call of it alone, bit for bit."""
+    win, hop, t = shape
     rng = np.random.default_rng(4)
-    b, t, f, k = 2, 70, 17, 6
+    b, f, k = 2, win // 2 + 1, 6
     pd = torch.float32 if mode == "float32" else torch.bfloat16
-    sre = torch.zeros((b, 2, t, 24), device=cuda, dtype=pd)
+    sre = torch.zeros((b, 2, t, f + 7), device=cuda, dtype=pd)
     sim = torch.zeros_like(sre)
     sre[..., :f] = torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
     sim[..., :f] = torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
@@ -163,12 +176,20 @@ def test_synthesis_kernel_matches_plain(cuda, mode):
     w = torch.as_tensor(rng.random((b, f, k)) + 0.05, dtype=torch.float32, device=cuda)
     h = torch.as_tensor(rng.random((b, 2, t, k)) + 0.01, dtype=torch.float32, device=cuda)
     winner = torch.as_tensor(rng.integers(0, 3, (b, t, k)), dtype=torch.int32, device=cuda)
-    args = (sre, sim, winner, w, h, synthesis_basis(hann_symmetric(32), 0.25, device=cuda))
-    kw = dict(num_targets=3, hop_size=2, matmul_dtype=mode)
+    basis = synthesis_basis(hann_symmetric(win), 0.25, mode, device=cuda)
+    args = (sre, sim, winner, w, h, basis)
+    kw = dict(num_targets=3, hop_size=hop, matmul_dtype=mode)
+    before = masked_synthesis_cuda.launches
     got = masked_synthesis_cuda(*args, **kw)
     assert torch.equal(got, masked_synthesis_cuda(*args, **kw))
+    assert masked_synthesis_cuda.launches == before + 2
+    for i in range(b):  # each utterance's rows sit elsewhere in the tiles alone
+        one = masked_synthesis_cuda(sre[i:i + 1].clone(), sim[i:i + 1].clone(),
+                                    winner[i:i + 1].clone(), w[i:i + 1].clone(),
+                                    h[i:i + 1].clone(), basis, **kw)
+        assert torch.equal(got[i:i + 1], one)
     want = masked_synthesis_plain(*args, **kw)
-    assert got.shape == want.shape == (b, 3, 2, (t - 1) * 2)
+    assert got.shape == want.shape == (b, 3, 2, (t - 1) * hop)
     # fp32 sums in another order (1e-4); bf16 operands (1e-2) of the scale
     tol = 1e-4 if mode == "float32" else 1e-2
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
@@ -265,35 +286,65 @@ def test_soft_mask_kernel_needs_its_modes_basis(cuda):
     assert soft_mask_cuda.launches == before
 
 
+@pytest.mark.parametrize("shape", TF_SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-@pytest.mark.parametrize("ratio", [4, 16])
-def test_tf_synthesis_kernel_matches_plain(cuda, mode, ratio):
-    """Window 32 (F = 17), K = 6, T = 37, B = 2, hop 8 or 2; bf16 planes
-    in the bf16 mode."""
+def test_tf_synthesis_kernel_matches_plain(cuda, mode, shape):
+    """K = 6, B = 2; bf16 planes and the tensor-core iDFT in the bf16 mode.
+    Reruns are bit-identical and every batch element equals the call of it
+    alone, bit for bit."""
+    win, hop, t = shape
     rng = np.random.default_rng(7)
-    b, t, f, k = 2, 37, 17, 6
+    b, f, k = 2, win // 2 + 1, 6
     pd = torch.float32 if mode == "float32" else torch.bfloat16
     sre, sim = (torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
                 for _ in range(2))
     h_mask = torch.as_tensor(rng.random((b, t, k)), dtype=torch.float32, device=cuda)
     w = torch.as_tensor(rng.random((f, k)) + 1e-3, dtype=torch.float32, device=cuda)
-    basis = tf_synthesis_basis(w, hann_symmetric(32), 0.5)
-    kw = dict(hop_size=32 // ratio, matmul_dtype=mode)
+    basis = tf_synthesis_basis(w, hann_symmetric(win), 0.5, mode)
+    kw = dict(hop_size=hop, matmul_dtype=mode)
     before = tf_synthesis_cuda.launches
     got = tf_synthesis_cuda(sre, sim, h_mask, basis, **kw)
     assert torch.equal(got, tf_synthesis_cuda(sre, sim, h_mask, basis, **kw))
     assert tf_synthesis_cuda.launches == before + 2
+    for i in range(b):
+        one = tf_synthesis_cuda(sre[i:i + 1].clone(), sim[i:i + 1].clone(),
+                                h_mask[i:i + 1].clone(), basis, **kw)
+        assert torch.equal(got[i:i + 1], one)
     want = tf_synthesis_plain(sre, sim, h_mask, basis, **kw)
-    assert got.shape == want.shape == (b, 2, (t - 1) * (32 // ratio))
+    assert got.shape == want.shape == (b, 2, (t - 1) * hop)
     # fp32 sums in another order (1e-4); bf16 operands (1e-2) of the scale
     tol = 1e-4 if mode == "float32" else 1e-2
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
+def test_synthesis_kernels_need_the_basis_rows(cuda):
+    """A bf16 call runs the iDFT on the tensor cores from the basis's bf16
+    rows; a basis built for float32 has none, and the call raises and
+    launches nothing: nothing falls back to the SIMT iDFT."""
+    rng = np.random.default_rng(12)
+    b, t, f, k = 1, 20, 17, 6
+    sre, sim = (torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=torch.bfloat16,
+                                device=cuda) for _ in range(2))
+    w = torch.as_tensor(rng.random((f, k)) + 0.05, dtype=torch.float32, device=cuda)
+    h = torch.as_tensor(rng.random((b, 2, t, k)), dtype=torch.float32, device=cuda)
+    winner = torch.zeros((b, t, k), dtype=torch.int32, device=cuda)
+    window = hann_symmetric(32)
+    before = (masked_synthesis_cuda.launches, tf_synthesis_cuda.launches)
+    with pytest.raises(ValueError, match="masked_synthesis_cuda: .*rows"):
+        masked_synthesis_cuda(sre, sim, winner, w[None], h,
+                              synthesis_basis(window, 0.25, "float32", device=cuda),
+                              num_targets=2, hop_size=8, matmul_dtype="bfloat16")
+    with pytest.raises(ValueError, match="tf_synthesis_cuda: .*rows"):
+        tf_synthesis_cuda(sre, sim, h[:, 0], tf_synthesis_basis(w, window, 0.25, "float32"),
+                          hop_size=8, matmul_dtype="bfloat16")
+    assert (masked_synthesis_cuda.launches, tf_synthesis_cuda.launches) == before
+
+
 def test_enhancer_on_card_matches_cpu(cuda):
     """The enhancer through the front-end, soft-mask and Wiener-synthesis
     kernels (float32) against the plain path on the CPU: same target,
-    > 25 dB per channel; with H updates the synthesis kernel stays out."""
+    > 25 dB per channel; with H updates both tail kernels stay out, as the
+    JAX enhancer leaves its fused kernels there."""
     rng = np.random.default_rng(8)
     s = rng.standard_normal((2, 16000)).astype(np.float32) * 0.1
     mix = np.stack([s.sum(0), np.roll(s[0], 3) + np.roll(s[1], -5)])
@@ -305,7 +356,7 @@ def test_enhancer_on_card_matches_cpu(cuda):
                   tf_synthesis_cuda.launches)
         got = GCCNMFEnhancer(w, cfg, num_h_updates=nh, device=cuda).enhance(mix)
         assert (stft_gcc_frontend_cuda.launches, soft_mask_cuda.launches,
-                tf_synthesis_cuda.launches) == (counts[0] + 1, counts[1] + 1,
+                tf_synthesis_cuda.launches) == (counts[0] + 1, counts[1] + (nh == 0),
                                                 counts[2] + (nh == 0))
         want = GCCNMFEnhancer(w, cfg, num_h_updates=nh, device="cpu").enhance(mix)
         assert int(got["target_tdoa_index"]) == int(want["target_tdoa_index"])
@@ -317,3 +368,36 @@ def test_enhancer_on_card_matches_cpu(cuda):
     assert int(batch["target_tdoa_index"][0]) == int(one["target_tdoa_index"])
     np.testing.assert_allclose(batch["enhanced"][0], one["enhanced"],
                                atol=1e-5 * np.abs(one["enhanced"]).max())
+
+
+def test_enhancer_h_updates_take_the_fp32_argmax(cuda, monkeypatch):
+    """bf16 mode with H updates: the coefficient mask the enhancer builds is
+    ``soft_tdoa_coefficient_mask(argmax_tdoa(...))`` on the front-end
+    kernel's bf16 planes and the fp32 fold, as in JAX's XLA tail, at β = 0
+    too (where the soft-mask kernel would pin distance 0 to 1)."""
+    rng = np.random.default_rng(13)
+    s = rng.standard_normal((2, 16000)).astype(np.float32) * 0.1
+    mix = np.stack([s.sum(0), np.roll(s[0], 3) + np.roll(s[1], -5)])
+    w = rng.random((513, 16)).astype(np.float32) + 1e-3
+    cfg = OfflineConfig(mic_separation_m=0.1, num_tdoas=32, dictionary_size=16)
+    seen = []
+    literal = masks.soft_tdoa_coefficient_mask
+    monkeypatch.setattr(masks, "soft_tdoa_coefficient_mask",
+                        lambda *a: seen.append(literal(*a)) or seen[-1])
+    enh = GCCNMFEnhancer(w, cfg, target_beta=0.0, num_h_updates=2, device=cuda)
+    counts = (soft_mask_cuda.launches, tf_synthesis_cuda.launches)
+    got = enh.enhance(mix)
+    assert (soft_mask_cuda.launches, tf_synthesis_cuda.launches) == counts
+    assert np.isfinite(got["enhanced"]).all() and len(seen) == 1
+    x = torch.as_tensor(mix[None], device=cuda)
+    _, _, _, cre, cim, ang = stft_gcc_frontend_cuda(
+        x, enh._dft_basis, enh._cos, enh._sin, hop_size=cfg.hop_size, matmul_dtype="bfloat16",
+        plane_dtype="bfloat16")
+    assert cre.dtype == torch.bfloat16
+    cos_w, sin_w = masks.fold_steering_dictionary(enh._cos, enh._sin, enh.w)
+    arg = masks.argmax_tdoa(cre[..., :513], cim[..., :513], cos_w, sin_w, 32)
+    target = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
+    assert int(target[0]) == int(got["target_tdoa_index"])
+    want = literal(arg, target.to(torch.float32)[:, None, None], 5.0, 0.0, 0.0)
+    assert torch.equal(seen[0], want)
+    assert float(want.max()) < 1.0  # 0**0 = 1: exp(−1) at distance 0 too

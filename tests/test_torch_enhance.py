@@ -22,10 +22,14 @@ from gccnmf_tpu.ops.enhance_pallas import soft_mask_pallas, tf_synthesis_pallas
 from gccnmf_torch.models.offline import GCCNMFEnhancer, OfflineConfig
 from gccnmf_torch.ops import masks, nmf
 from gccnmf_torch.ops.enhance_cuda import (
-    coherence_rows, enhance_synthesis_cuda, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+    enhance_synthesis_cuda, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
     tdoa_argmax_plain, tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
+    wiener_spectra_plain,
 )
 from gccnmf_torch.ops.frontend_cuda import frontend_basis
+from gccnmf_torch.ops.stft import overlap_add
+from gccnmf_torch.ops.synthesis_cuda import idft_frames_plain, idft_rows
+from gccnmf_torch.precision import round_bf16
 from gccnmf_torch.ops.windows import hann_symmetric
 
 torch.set_num_threads(1)  # Tier-1 runs several xdist workers
@@ -181,7 +185,7 @@ class TestSoftMaskPlain:
         re, im = _planes(coh)
         basis = soft_mask_basis(cos_m, sin_m, w, "bfloat16")
         assert soft_mask_basis(cos_m, sin_m, w, "float32").fold is None
-        rows, fold = coherence_rows(re, im, f), basis.fold
+        rows, fold = idft_rows(re, im, f), basis.fold
         j = -(-2 * f // 8) * 8
         assert rows.dtype == fold.dtype == torch.bfloat16
         assert rows.shape == (b * t, j) and fold.shape == (d, k, j)
@@ -249,6 +253,40 @@ class TestTfSynthesisPlain:
         # the same bf16 rounding points; a value on the other side of a
         # rounding boundary moves by one bf16 step (2^-8 relative)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-2 * np.abs(want).max())
+
+    @pytest.mark.parametrize("f,hop", [(17, 8), (129, 32)])  # 2F = 34 and 258
+    def test_tensor_core_layout_matches_plain_and_pallas(self, f, hop):
+        """The bf16 iDFT's operands: the spectrum rows ``[Re X | Im X | 0]``
+        of every (utterance, channel, frame), T = 37 ragged, and the basis
+        rows ``[A ; −B]`` on zero-padded 16-byte rows. One 2F-deep product
+        over them, bf16 operands summed in fp32, gives the plain frames, and
+        through the overlap-add the plain output and tf_synthesis_pallas in
+        bf16."""
+        spec, h_mask, w, window = self._setup(f=f, seed=3)
+        t = spec.shape[2]
+        re, im = (torch.from_numpy(p).to(torch.bfloat16) for p in (spec.real, spec.imag))
+        basis = tf_synthesis_basis(w, window, 0.25, "bfloat16")
+        assert tf_synthesis_basis(w, window, 0.25, "float32").rows is None
+        xr, xi = wiener_spectra_plain(re, im, torch.from_numpy(h_mask), basis.wn)
+        rows, j = idft_rows(xr, xi), -(-2 * f // 8) * 8
+        assert rows.shape == (2 * 2 * t, j) and basis.rows.shape == (window.shape[0], j)
+        assert torch.equal(rows[:, f : 2 * f], xi.reshape(-1, f).to(torch.bfloat16))
+        assert not rows[:, 2 * f :].any() and not basis.rows[:, 2 * f :].any()
+        frames = round_bf16(rows.float() @ basis.rows.float().T).reshape(2, 2, t, -1)
+        plain = idft_frames_plain(xr, xi, basis[1:])
+        # fp32 sums in another order, then one bf16 rounding: one bf16 step
+        np.testing.assert_allclose(frames.numpy(), plain.numpy(),
+                                   atol=8e-3 * float(plain.abs().max()))
+        win = window.shape[0]
+        got = overlap_add(frames, hop)[..., win // 2 :][..., : (t - 1) * hop].numpy()
+        want = tf_synthesis_plain(re, im, torch.from_numpy(h_mask), basis, hop_size=hop,
+                                  matmul_dtype="bfloat16").numpy()
+        np.testing.assert_allclose(got, want, atol=1e-2 * np.abs(want).max())
+        jplanes = tuple(jnp.asarray(p.float().numpy(), jnp.bfloat16) for p in (re, im))
+        want = np.asarray(tf_synthesis_pallas(
+            jplanes, jnp.asarray(h_mask), w, window, hop_size=hop, gain=0.25,
+            matmul_dtype="bfloat16", tile_t=16, interpret=True))
+        np.testing.assert_allclose(got, want, atol=1e-2 * np.abs(want).max())
 
     def test_wrapper_and_composite_take_plain_versions_on_cpu(self):
         spec, h_mask, w, window = self._setup(b=1, seed=2)
@@ -325,23 +363,31 @@ class TestEnhancer:
             np.stack([stereo, other]))
         np.testing.assert_array_equal(batch["target_tdoa_index"], want["target_tdoa_index"])
 
-    @pytest.mark.parametrize("num_h_updates", [0, 10])
-    def test_kernel_branch_through_the_plain_versions(self, enh_problem, num_h_updates):
-        """The enhancer's kernel branch (planes from the front-end, the soft
-        mask, the Wiener synthesis) run on the CPU, where each wrapper takes
-        its plain version: the same result as the plain path."""
+    @pytest.mark.parametrize("num_h_updates,beta", [(0, 2.0), (10, 2.0), (10, 0.0)])
+    def test_kernel_branch_through_the_plain_versions(self, enh_problem, num_h_updates, beta):
+        """The enhancer's kernel branch (planes from the front-end, then
+        without H updates the soft mask and the Wiener synthesis) run on the
+        CPU, where each wrapper takes its plain version: the same result as
+        the plain path and as the JAX enhancer's XLA tail. With H updates
+        the branch leaves both kernels, as JAX does, so at β = 0 its mask
+        takes 0**0 = 1 literally (exp(−1) at distance 0, where the soft-mask
+        kernel pins 1)."""
         stereo, w = enh_problem
         cfg = OfflineConfig(**_enh_cfg())
-        want = GCCNMFEnhancer(w, cfg, num_h_updates=num_h_updates, device="cpu").enhance(stereo)
-        enh = GCCNMFEnhancer(w, cfg, num_h_updates=num_h_updates, device="cpu")
+        kw = dict(target_beta=beta, num_h_updates=num_h_updates)
+        plain = GCCNMFEnhancer(w, cfg, device="cpu", **kw).enhance(stereo)
+        jax_tail = joffline.GCCNMFEnhancer(
+            w, joffline.OfflineConfig(**_enh_cfg(synthesis_backend="xla")), **kw).enhance(stereo)
+        enh = GCCNMFEnhancer(w, cfg, device="cpu", **kw)
         window = hann_symmetric(256)
         enh._frontend_backend = enh._synthesis_backend = "cuda"
         enh._dft_basis = frontend_basis(window)
         enh._mask_basis = soft_mask_basis(enh._cos, enh._sin, enh.w, "float32")
-        enh._tf_basis = tf_synthesis_basis(enh.w, window, 0.25)
+        enh._tf_basis = tf_synthesis_basis(enh.w, window, 0.25, "float32")
         got = enh.enhance(stereo)
-        np.testing.assert_array_equal(got["target_tdoa_index"], want["target_tdoa_index"])
-        np.testing.assert_allclose(got["enhanced"], want["enhanced"], atol=2e-4)
+        for want in (plain, jax_tail):
+            np.testing.assert_array_equal(got["target_tdoa_index"], want["target_tdoa_index"])
+            np.testing.assert_allclose(got["enhanced"], want["enhanced"], atol=2e-4)
 
     def test_defaults_and_state_mirror_jax(self, enh_problem):
         ours = inspect.signature(GCCNMFEnhancer).parameters

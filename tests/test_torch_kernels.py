@@ -16,9 +16,12 @@ from gccnmf_tpu.ops.frontend_pallas import stft_gcc_frontend_pallas
 from gccnmf_tpu.ops.synthesis_pallas import masked_synthesis_pallas
 from gccnmf_torch.convert import from_numpy_state
 from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_plain
+from gccnmf_torch.ops.stft import overlap_add
 from gccnmf_torch.ops.synthesis_cuda import (
-    masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
+    idft_frames_plain, idft_rows, masked_spectra_plain, masked_synthesis_cuda,
+    masked_synthesis_plain, synthesis_basis,
 )
+from gccnmf_torch.precision import round_bf16
 
 torch.set_num_threads(1)  # Tier-1 runs several xdist workers
 
@@ -85,6 +88,46 @@ class TestSynthesisPlain:
         # same bf16 rounding points; a product landing on the other side of
         # a bf16 rounding boundary moves it by one bf16 step (2^-8 relative)
         np.testing.assert_allclose(got.numpy(), want, atol=1e-2 * np.abs(want).max())
+
+    @pytest.mark.parametrize("window_size,t,hop", [(32, 37, 8), (256, 45, 64)])
+    def test_tensor_core_layout_matches_plain_and_pallas(self, window_size, t, hop):
+        """The bf16 iDFT's operands: the spectrum rows ``[Re X | Im X | 0]``
+        of every (utterance, target, channel, frame) and the basis rows
+        ``[A ; −B]``, on zero-padded 16-byte rows (2F = 34 or 258, not a
+        multiple of 64; T ragged). One 2F-deep product over them, bf16
+        operands summed in fp32, gives the plain frames, and through the
+        overlap-add the plain output and masked_synthesis_pallas in bf16."""
+        f = window_size // 2 + 1
+        spec, w, h, winner = _synth_problem(t=t, f=f, seed=3, batch=2)
+        window = jwin.hann_symmetric(window_size)
+        basis = synthesis_basis(window, 0.5, "bfloat16")
+        assert synthesis_basis(window, 0.5, "float32").rows is None
+        args = (*_planes(spec), torch.from_numpy(winner), torch.from_numpy(w),
+                torch.from_numpy(h))
+        xr, xi = masked_spectra_plain(*args, num_targets=3, matmul_dtype="bfloat16")
+        rows, j = idft_rows(xr, xi), -(-2 * f // 8) * 8
+        assert rows.dtype == basis.rows.dtype == torch.bfloat16
+        assert rows.shape == (2 * 3 * 2 * t, j) and basis.rows.shape == (window_size, j)
+        bf = lambda x: x.reshape(-1, f).to(torch.bfloat16)  # noqa: E731
+        assert torch.equal(rows[:, :f], bf(xr)) and torch.equal(rows[:, f : 2 * f], bf(xi))
+        assert torch.equal(basis.rows[:, :f], basis.a.T.to(torch.bfloat16))
+        assert torch.equal(basis.rows[:, f : 2 * f], basis.b_neg.T.to(torch.bfloat16))
+        assert not rows[:, 2 * f :].any() and not basis.rows[:, 2 * f :].any()
+        frames = round_bf16(rows.float() @ basis.rows.float().T).reshape(
+            2, 3, 2, t, window_size)
+        plain = idft_frames_plain(xr, xi, basis)
+        # the fp32 sums run in another order, then one bf16 rounding: a
+        # frame moves by at most one bf16 step (2^-8 relative) of the scale
+        np.testing.assert_allclose(frames.numpy(), plain.numpy(),
+                                   atol=8e-3 * float(plain.abs().max()))
+        got = overlap_add(frames, hop)[..., window_size // 2 :][..., : (t - 1) * hop].numpy()
+        kw = dict(num_targets=3, hop_size=hop, matmul_dtype="bfloat16")
+        want = masked_synthesis_plain(*args, basis, **kw).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-2 * np.abs(want).max())
+        want = np.asarray(masked_synthesis_pallas(
+            jnp.asarray(spec), jnp.asarray(winner), jnp.asarray(w), jnp.asarray(h), window,
+            gain=0.5, tile_t=16, interpret=True, **kw))
+        np.testing.assert_allclose(got, want, atol=1e-2 * np.abs(want).max())
 
     def test_wrapper_takes_plain_version_on_cpu(self):
         spec, w, h, winner = _synth_problem()
