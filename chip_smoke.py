@@ -10,9 +10,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
 2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``,
    and reads the library's SASS with ``cuobjdump -sass`` from the same
    toolkit: each tensor-core kernel (the NMF's three, the soft mask's
-   scores, and the iDFT of ``istft.cuh`` in both sources that include it)
-   must hold HGMMA (``wgmma``) instructions in each source that instantiates
-   it; their ptxas registers and spills are printed, by source.
+   scores, the iDFT of ``istft.cuh`` in both sources that include it, and
+   the front-end's rDFT and angular products) must hold HGMMA (``wgmma``)
+   instructions in each source that instantiates it; their ptxas registers
+   and spills are printed, by source, and the iDFT and the front-end's
+   must not spill.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
@@ -22,7 +24,14 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    row names its product design (``wgmma`` in the bf16 modes, ``simt`` in
    float32) and carries ``gemm_library_ms``: the same iteration's four
    products as ``torch.matmul`` calls at the row's batch and operand type,
-   times 100 (a yardstick only; the port never calls it).
+   times 100 (a yardstick only; the port never calls it). Each front-end
+   row names its design too (``wgmma`` in bf16, ``simt`` in float32) and
+   carries ``gemm_library_ms``: the rDFT as one ``torch.matmul`` of the
+   (B·2·T, win) frames against the (win, 2F) basis plus the angular
+   spectrogram as one of the (B·T, 2F) coherence rows against the (2F, D)
+   steering planes, in the row's operand type and batch (a yardstick only),
+   and ``device_ms``: its kernels' device time in one call (torch.profiler),
+   which the CUDA-event ``ms`` exceeds by the wrapper's host time.
    The enhancement kernels (soft mask, Wiener synthesis) are held the same
    way on the enhancement configuration of ``bench.py`` (10 cm spacing,
    128 TDOAs, K = 128), with a dictionary learned by the NMF kernel
@@ -171,11 +180,18 @@ def basis_len(mode: str) -> int:
 
 # the tensor-core kernels whose SASS must hold HGMMA, with the sources that
 # instantiate each: the NMF's three products (csrc/nmf.cu), the soft mask's
-# scores (csrc/enhance.cu) and the iDFT of csrc/istft.cuh, which both
-# syntheses include (csrc/synthesis.cu, csrc/enhance.cu)
+# scores (csrc/enhance.cu), the iDFT of csrc/istft.cuh, which both
+# syntheses include (csrc/synthesis.cu, csrc/enhance.cu), and the
+# front-end's rDFT and angular products (csrc/frontend.cu)
 TC_KERNELS = {"tc_wh_ratio_kernel": ("nmf.cu",), "tc_h_update_kernel": ("nmf.cu",),
               "tc_qth_split_kernel": ("nmf.cu",), "tc_score_argmax_kernel": ("enhance.cu",),
-              "tc_frames_kernel": ("synthesis.cu", "enhance.cu")}
+              "tc_frames_kernel": ("synthesis.cu", "enhance.cu"),
+              "tc_dft_coherence_kernel": ("frontend.cu",), "tc_angular_kernel": ("frontend.cu",)}
+# substrings of the front-end's kernel names, for the profiler
+FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "angular_kernel")
+# the tensor-core kernels that must not spill: two blocks an SM leave each
+# thread 128 registers
+NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
 # a kernel name that tells a source's SASS apart from the others', tried in
 # this order (synthesis.cu's spectra_kernel is also a substring of
 # enhance.cu's wiener_spectra_kernel)
@@ -262,6 +278,9 @@ def main() -> int:
                 "kl_nmf_cuda": kl_nmf_cuda, "masked_synthesis_cuda": masked_synthesis_cuda,
                 "soft_mask_cuda": soft_mask_cuda, "tf_synthesis_cuda": tf_synthesis_cuda}
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     def reset_counts():
         for fn in wrappers.values():
             fn.launches = 0
@@ -289,9 +308,9 @@ def main() -> int:
     hgmma = hgmma_counts(_build._nvcc(), lib._name)
     require(all(n > 0 for n in hgmma.values()), f"a tensor-core kernel has no HGMMA: {hgmma}")
     ptxas = ptxas_summary(_build.build_log)  # empty when the library was cached
-    spills = [k for k, v in ptxas.items()
-              if "tc_frames_kernel" in k and "0 bytes spill stores, 0 bytes spill loads" not in v]
-    require(not spills, f"the tensor-core iDFT spills: {spills}")
+    spills = [k for k, v in ptxas.items() if any(n in k for n in NO_SPILL)
+              and "0 bytes spill stores, 0 bytes spill loads" not in v]
+    require(not spills, f"a two-blocks-an-SM tensor-core kernel spills: {spills}")
     emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
          hgmma=hgmma, ptxas=ptxas)
 
@@ -302,7 +321,9 @@ def main() -> int:
     f = WIN // 2 + 1
     cos_np, sin_np = gcc.steering_cos_sin(float(SR), f, 1.0, D)
     cos_m, sin_m = torch.as_tensor(cos_np, device=dev), torch.as_tensor(sin_np, device=dev)
-    fbasis = frontend_basis(window, conjugate=True, device=dev)
+    # built for bf16: the fp32 halves that the float32 rows read, and the
+    # tensor-core rows and steering fold
+    fbasis = frontend_basis(window, True, dev, "bfloat16", (cos_m, sin_m))
     # built for bf16: the fp32 A and −B that the float32 rows read, and the
     # bf16 rows of the tensor-core iDFT
     sbasis = synthesis_basis(window, HOP / WIN * 2.0, "bfloat16", device=dev)
@@ -321,6 +342,34 @@ def main() -> int:
         del x_, basis_
         return ms, (f"the iDFT alone: ({rows}, 2F) @ (2F, win) as one torch.matmul on {dt} "
                     "operands; no spectra and no overlap-add, so library_ms stays null")
+
+    def device_ms(fn, keys):
+        """Device time (ms) of one ``fn()`` after a warm-up, summed over the
+        kernels whose names hold one of ``keys`` (torch.profiler): a
+        kernel's own time, without the wrapper's host time that CUDA events
+        around the call include where the card waits for it."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(ev.device_time_total for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in keys)) / 1e3
+
+    def frontend_library_ms(md, b):
+        """The yardstick for a front-end row: the rDFT as one torch.matmul of
+        the (B·2·T, win) frames against the (win, 2F) basis, plus the
+        angular spectrogram as one of the (B·T, 2F) coherence rows against
+        the (2F, D) steering planes, in the mode's operand type."""
+        dt = torch.float32 if md == "float32" else torch.bfloat16
+        fr = torch.rand((b * 2 * t, WIN), device=dev).to(dt)
+        wb = torch.cat([fbasis.wcos, fbasis.wsin], dim=1).to(dt)
+        co = torch.rand((b * t, 2 * f), device=dev).to(dt)
+        st = torch.cat([cos_m, sin_m]).to(dt)
+        ms = time_ms(torch, lambda: (fr @ wb, co @ st))
+        del fr, wb, co, st
+        return ms, (f"({b * 2 * t}, win) @ (win, 2F) and ({b * t}, 2F) @ (2F, D) as torch.matmul "
+                    f"on {dt} operands; no |X|, no coherence, so library_ms stays null")
 
     def record(name, mode, b, source, replaces, got, want, tol, kernel_fn, plain_fn,
                flops, nbytes, check_fn=None, err=None, note="", counted="", **extra):
@@ -366,6 +415,7 @@ def main() -> int:
             planes[md] = got
             psize = 4 if md == "float32" else 2
             dft, counted = dft_flops(b * 2 * t, md)
+            lib_ms, lib_note = frontend_library_ms(md, b)
             record(
                 "stft_gcc_frontend_cuda", md, b, "gccnmf_torch/csrc/frontend.cu",
                 "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
@@ -374,6 +424,10 @@ def main() -> int:
                 nbytes=b * 2 * n * 4 + 4 * (basis_len(md) + 2 * f * D)
                 + b * psize * (3 * 2 * t * f + 2 * t * f) + b * t * D * 4,
                 note=("1e-4" if md == "float32" else "8e-3 (one bf16 step)") + " x max|plain|",
+                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+                gemm_library_note=lib_note, device_ms=device_ms(kfn, FRONTEND_KERNELS),
+                device_note="its kernels' device time in one call (torch.profiler); ms is CUDA "
+                            "events around the call, the wrapper's host time included",
             )
             del want
         feed = planes[fe_modes[0]]
@@ -473,7 +527,8 @@ def main() -> int:
     # a dictionary that the NMF kernel learns on the first mixture's |X|
     cos_e, sin_e = (torch.as_tensor(m, device=dev)
                     for m in gcc.steering_cos_sin(float(SR), f, ENH_MIC_M, D))
-    fe32 = stft_gcc_frontend_cuda(torch.as_tensor(mix[:1], device=dev), fbasis, cos_e, sin_e,
+    ebasis = frontend_basis(window, True, dev, "bfloat16", (cos_e, sin_e))
+    fe32 = stft_gcc_frontend_cuda(torch.as_tensor(mix[:1], device=dev), ebasis, cos_e, sin_e,
                                   hop_size=HOP, matmul_dtype="float32", plane_dtype="float32")
     w_enh = kl_nmf_cuda(fe32[2].reshape(1, 2 * t, f), torch.as_tensor(w0_np, device=dev)[None],
                         torch.as_tensor(h0_np, device=dev)[None], NMF_ITERS,
@@ -488,7 +543,7 @@ def main() -> int:
         x = torch.as_tensor(mix[:b], device=dev)
         for md in modes:
             sre, sim, _, cre, cim, ang = stft_gcc_frontend_cuda(
-                x, fbasis, cos_e, sin_e, hop_size=HOP, matmul_dtype=md, plane_dtype=md)
+                x, ebasis, cos_e, sin_e, hop_size=HOP, matmul_dtype=md, plane_dtype=md)
             tgt = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
             mb = soft_mask_basis(cos_e, sin_e, w_enh, md)
             margs = (cre, cim, mb, tgt, ENH_EPS, ENH_BETA, ENH_FLOOR)
@@ -697,7 +752,7 @@ def main() -> int:
     # and with one chunk of all D TDOAs, in the order split, whole, whole,
     # split; both give the same mask
     _, _, _, cre1, cim1, ang1 = stft_gcc_frontend_cuda(
-        torch.as_tensor(mix[:1], device=dev), fbasis, cos_e, sin_e, hop_size=HOP,
+        torch.as_tensor(mix[:1], device=dev), ebasis, cos_e, sin_e, hop_size=HOP,
         matmul_dtype="bfloat16", plane_dtype="bfloat16")
     margs1 = (cre1, cim1, soft_mask_basis(cos_e, sin_e, w_enh, "bfloat16"),
               torch.argmax(gcc.mean_angular_spectrum(ang1), dim=-1), ENH_EPS, ENH_BETA,
@@ -760,9 +815,6 @@ def main() -> int:
              launches=enh32[nh]["counts"]["enhance"])
 
     # ---- 7. where the time goes: torch.profiler ---------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profile_call(call, fn, stages):
         """Device time by stage, the top kernels and the idle share of one
         ``fn()`` after a warm-up; ``stages`` maps a stage to substrings of
@@ -774,7 +826,7 @@ def main() -> int:
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t1) * 1e3
-        device_ms = dict.fromkeys([*stages, "other"], 0.0)
+        by_stage = dict.fromkeys([*stages, "other"], 0.0)
         top = []
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
@@ -782,28 +834,27 @@ def main() -> int:
             ms = ev.device_time_total / 1e3
             stage = next((s for s, keys in stages.items() if any(k in ev.key for k in keys)),
                          "other")
-            device_ms[stage] += ms
+            by_stage[stage] += ms
             top.append((ms, ev.key[:80], ev.count))
-        busy = sum(device_ms.values())
+        busy = sum(by_stage.values())
         emit("profile", call=call, wall_ms=wall_ms,
-             device_busy_ms=busy if busy else "not measured", device_ms_by_stage=device_ms,
+             device_busy_ms=busy if busy else "not measured", device_ms_by_stage=by_stage,
              idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
              top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:12]])
 
-    frontend_stage = ("dft_coherence", "angular_kernel")
     sep = GCCNMFSeparator(OfflineConfig())
     profile_call(
         f"separate_batch (B={MAIN_BATCH}, OfflineConfig())", lambda: sep.separate_batch(mix),
         {"kl_nmf_cuda products": ("wh_ratio", "h_update", "qth_split"),
          "kl_nmf_cuda small launches": ("w_update", "col_reduce", "renorm"),
-         "stft_gcc_frontend_cuda": frontend_stage,
+         "stft_gcc_frontend_cuda": FRONTEND_KERNELS,
          "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel")})
     del sep
     enh = GCCNMFEnhancer(w_enh_np, cfg_enh)
     profile_call(
         f"enhance (B={MAIN_BATCH}, OfflineConfig(mic_separation_m={ENH_MIC_M}, "
         f"num_tdoas={D}, dictionary_size={K}))", lambda: enh.enhance(mix),
-        {"stft_gcc_frontend_cuda": frontend_stage,
+        {"stft_gcc_frontend_cuda": FRONTEND_KERNELS,
          "soft_mask_cuda": ("coherence_rows_kernel", "score_argmax_kernel", "mask_kernel"),
          "tf_synthesis_cuda": ("wiener_spectra_kernel", "frames_kernel", "ola_kernel")})
     del enh

@@ -46,6 +46,8 @@ _SIGNATURES = {
     ],
     "gccnmf_frontend": [
         _P, _I, _L, _I, _I, _P, _P, _P, _P,  # x B n hop win wcos wsin cos sin
+        _P, _I, _I, _P, _I,  # basis nb ldw steer ldj
+        _P, _L, _I, _P,  # stage ldx frame_rows crows
         _I, _I, _I, _I, _I,  # T F D rnd plane_bf16
         _P, _P, _P, _P, _P, _P, _P,  # sre sim mag cre cim ang stream
     ],

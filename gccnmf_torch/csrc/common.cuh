@@ -1,8 +1,7 @@
 // Shared SIMT tile machinery for the port's hand-written Hopper kernels.
 //
-// The front-end, synthesis and Wiener kernels, and the NMF and the soft
-// mask in their float32 mode, compute their products here with a plain tiled SIMT
-// GEMM: a 64x64 output tile per 256-thread block, a 16-deep contraction
+// The syntheses' spectra GEMMs, and every kernel's products in the float32
+// mode, are computed here with a plain tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a 16-deep contraction
 // slice staged in shared memory, a 4x4 register micro-tile per thread, fp32
 // fused multiply-adds. The bf16 modes round each GEMM operand to bf16
 // (round-to-nearest-even) as it is staged, which is exactly JAX's "bf16
@@ -13,9 +12,9 @@
 // What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
 // staging loads with a bf16 round at each. No tensor-core path is exact
 // fp32, so the float32 modes stay here. The bf16 products of the NMF, of
-// the soft mask's scores and of the syntheses' iDFT moved to the tensor
-// cores (tc_gemm.cuh); the front-end's DFT and the syntheses' spectra
-// GEMMs stay here in every mode.
+// the soft mask's scores, of the syntheses' iDFT and of the front-end's
+// rDFT and angular spectrogram moved to the tensor cores (tc_gemm.cuh); the
+// syntheses' spectra GEMMs stay here in every mode.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,6 +1,7 @@
 // Tensor-core product core for the port's bf16 GEMMs on Hopper (sm_90a):
-// the NMF's three products (nmf.cu), the soft mask's scores (enhance.cu)
-// and the syntheses' iDFT (istft.cuh).
+// the NMF's three products (nmf.cu), the soft mask's scores (enhance.cu),
+// the syntheses' iDFT (istft.cuh) and the front-end's rDFT and angular
+// spectrogram (frontend.cu).
 //
 // One block of 256 threads computes a 128 x BN fp32 output tile (BN = 128
 // or 64) as two consumer warpgroups of 64 rows each, with
@@ -13,15 +14,18 @@
 // nothing and writes zeros (src-size 0), so a contraction never sees
 // garbage and K need not divide the slice. Tile shapes (Tile<BN, STAGES>):
 //   Tile<128, 3>: 96 KiB ring (+1 KiB alignment slack), 64 accumulators,
-//     two blocks an SM: the long contractions over F and t, and the iDFT.
+//     two blocks an SM: the long contractions over F and t, the iDFT and
+//     the front-end's products.
 //   Tile<64, 3>: 72 KiB ring, 32 accumulators, three blocks an SM: the
 //     ratio's short contraction over K (two slices, both loaded at once),
 //     whose epilogue (a guarded divide per output) costs more than its
 //     products, so more blocks in flight hide it; 64-wide tiles also waste
 //     less of F = 513 (576 columns against 640).
 // A kernel whose contraction is not one product (the soft mask runs one
-// per TDOA back to back) streams its slices through ring() itself, with
-// load_stage and mma_stage; gemm is ring over one contraction.
+// per TDOA back to back) or whose A tile is not one operand (the
+// front-end's 64 frames of each channel) streams its slices through ring()
+// itself, with load_tile, load_stage and mma_stage; gemm is ring over one
+// contraction.
 //
 // Operands live in device memory as bf16 rows padded to a multiple of 8
 // elements (16 bytes), the padding zero, so every copy is one aligned

@@ -158,7 +158,9 @@ class GCCNMFSeparator:
         state = from_numpy_state({"window": window, "cos": cos_m, "sin": sin_m}, self.device)
         self._window, self._cos, self._sin = state["window"], state["cos"], state["sin"]
         if self._frontend_backend == "cuda":
-            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
+            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device,
+                                             matmul_dtype=gemm_dtype(config),
+                                             steering=(self._cos, self._sin))
         if self._synthesis_backend == "cuda":
             self._idft_basis = synthesis_basis(window, stft_gain(config), gemm_dtype(config),
                                                device=self.device)
@@ -410,7 +412,9 @@ class GCCNMFEnhancer:
         self.w, self._window = state["w"], state["window"]
         self._cos, self._sin = state["cos"], state["sin"]
         if self._frontend_backend == "cuda":
-            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device)
+            self._dft_basis = frontend_basis(window, conjugate=True, device=self.device,
+                                             matmul_dtype=gemm_dtype(config),
+                                             steering=(self._cos, self._sin))
         if self._synthesis_backend == "cuda" and num_h_updates <= 0:
             self._mask_basis = soft_mask_basis(self._cos, self._sin, self.w, gemm_dtype(config))
             self._tf_basis = tf_synthesis_basis(self.w, window, stft_gain(config),

@@ -127,18 +127,37 @@ def test_nmf_kernel_rejects_mixed_devices(cuda):
         kl_nmf_cuda(v, w0.cpu(), h0, 2)
 
 
+# (window, hop, T, D) of the front-end: ragged T against the 64-frame
+# tensor-core tiles and the 64 × 64 SIMT tiles; hop 128 and 64 read the
+# frames from the signal, hop 100 and 36 (not multiples of 8) from frame
+# rows; F = 513 and 129 leave one bin in their last 64-bin group; D = 37
+# (one partial column tile, scalar stores)
+FRONTEND_SHAPES = [(1024, 128, 77, 100), (1024, 100, 77, 100), (256, 64, 200, 37),
+                   (256, 36, 130, 37)]
+
+
+@pytest.mark.parametrize("shape", FRONTEND_SHAPES, ids=lambda s: "win%d-hop%d-t%d-d%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hop", [128, 100])  # the kernel needs no hop | window
-def test_frontend_kernel_matches_plain(cuda, mode, hop):
+def test_frontend_kernel_matches_plain(cuda, mode, shape):
+    """bf16 on the tensor cores from the basis's rows and fold, float32 on
+    the SIMT cores; the kernel needs no hop | window. Reruns are
+    bit-identical and every element of a B = 3 batch equals the call of it
+    alone, bit for bit."""
+    win, hop, t, d = shape
     rng = np.random.default_rng(3)
-    x = torch.as_tensor((rng.standard_normal((2, 2, 1024 + hop * 76)) * 0.1)
+    x = torch.as_tensor((rng.standard_normal((3, 2, win + hop * (t - 1))) * 0.1)
                         .astype(np.float32), device=cuda)
+    f = win // 2 + 1
     cos_m, sin_m = (torch.as_tensor(m, device=cuda)
-                    for m in gcc.steering_cos_sin(16000.0, 513, 1.0, 100))
-    args = (x, frontend_basis(hann_symmetric(1024), device=cuda), cos_m, sin_m)
+                    for m in gcc.steering_cos_sin(16000.0, f, 1.0, d))
+    basis = frontend_basis(hann_symmetric(win), device=cuda, matmul_dtype=mode,
+                           steering=(cos_m, sin_m))
+    args = (x, basis, cos_m, sin_m)
     kw = dict(hop_size=hop, matmul_dtype=mode, plane_dtype=mode)
+    before = stft_gcc_frontend_cuda.launches
     got = stft_gcc_frontend_cuda(*args, **kw)
     again = stft_gcc_frontend_cuda(*args, **kw)
+    assert stft_gcc_frontend_cuda.launches == before + 2
     want = stft_gcc_frontend_plain(*args, **kw)
     # fp32: 1e-4 of each plane's scale; bf16 planes: one bf16 step (8e-3)
     tol = 1e-4 if mode == "float32" else 8e-3
@@ -146,6 +165,29 @@ def test_frontend_kernel_matches_plain(cuda, mode, hop):
         assert g.dtype == w.dtype and g.shape == w.shape
         assert torch.equal(g, a)
         assert float((g.float() - w.float()).abs().max()) <= tol * float(w.float().abs().max())
+    for i in range(3):  # each utterance's frames sit in the same tiles alone
+        one = stft_gcc_frontend_cuda(x[i:i + 1].clone(), basis, cos_m, sin_m, **kw)
+        for g, o in zip(got, one):
+            assert torch.equal(g[i:i + 1], o)
+
+
+def test_frontend_kernel_needs_the_basis_rows(cuda):
+    """A bf16 call runs the products on the tensor cores from the basis's
+    bf16 rows and steering fold; a basis built for float32 has neither, and
+    the call raises and launches nothing: nothing falls back to the SIMT
+    products."""
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor((rng.standard_normal((1, 2, 64 + 16 * 9)) * 0.1).astype(np.float32),
+                        device=cuda)
+    cos_m, sin_m = (torch.as_tensor(m, device=cuda)
+                    for m in gcc.steering_cos_sin(16000.0, 33, 1.0, 8))
+    before = stft_gcc_frontend_cuda.launches
+    for basis in (frontend_basis(hann_symmetric(64), device=cuda),
+                  frontend_basis(hann_symmetric(64), device=cuda)[:2]):
+        with pytest.raises(ValueError, match="stft_gcc_frontend_cuda: .*rows"):
+            stft_gcc_frontend_cuda(x, basis, cos_m, sin_m, hop_size=16, matmul_dtype="bfloat16",
+                                   plane_dtype="bfloat16")
+    assert stft_gcc_frontend_cuda.launches == before
 
 
 # (window, hop, T) of the iDFT at the ragged edges of both product tiles

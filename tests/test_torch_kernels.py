@@ -15,7 +15,11 @@ from gccnmf_tpu.ops import windows as jwin
 from gccnmf_tpu.ops.frontend_pallas import stft_gcc_frontend_pallas
 from gccnmf_tpu.ops.synthesis_pallas import masked_synthesis_pallas
 from gccnmf_torch.convert import from_numpy_state
-from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_plain
+from gccnmf_torch.ops.frontend_cuda import (
+    BIN_GROUP, PLANE_DTYPES, check_frontend_basis, frontend_basis, reads_signal, stft_gcc_frontend_cuda,
+    stft_gcc_frontend_plain,
+)
+from gccnmf_torch.ops.nmf_cuda import row_pad
 from gccnmf_torch.ops.stft import overlap_add
 from gccnmf_torch.ops.synthesis_cuda import (
     idft_frames_plain, idft_rows, masked_spectra_plain, masked_synthesis_cuda,
@@ -198,6 +202,121 @@ class TestFrontendPlain:
             # bf16 storage: one bf16 step (2^-8 relative) of the plane's scale
             np.testing.assert_allclose(g.float().numpy(), wnt,
                                        atol=8e-3 * (np.abs(wnt).max() + 1e-12))
+
+
+def _tensor_core_frontend(x, basis, hop, plane_dtype):
+    """The bf16 kernels' arithmetic on their own operands, in fp32: the
+    frames read from the bf16 signal rows (B·2, row_pad(n)) with a row
+    stride of hop (or from frame rows staged once, for a hop or window not
+    a multiple of 8), times the interleaved basis rows, de-interleaved; the
+    epilogue's planes and its coherence rows [Re c | Im c | 0]; the angular
+    spectrogram as those rows times the steering fold. Returns the six
+    outputs, the coherence rows and the frame operand."""
+    b, _, n = x.shape
+    win, f = basis.wcos.shape
+    t = 1 + (n - win) // hop
+    sig = torch.zeros((b * 2, row_pad(n)), dtype=torch.bfloat16)
+    sig[:, :n] = x.reshape(b * 2, n)
+    if reads_signal(hop, win):  # row t of channel r at sig[r, t·hop:], overlapping rows
+        frames = sig.as_strided((b * 2, t, row_pad(win)), (sig.shape[1], hop, 1))
+    else:
+        frames = torch.zeros((b * 2, t, row_pad(win)), dtype=torch.bfloat16)
+        frames[..., :win] = sig[:, :n].unfold(-1, win, hop)[:, :t]
+    out = (frames.float() @ basis.rows.float().T).reshape(b, 2, t, -1, 2, BIN_GROUP)
+    re, im = (out[..., h, :].reshape(b, 2, t, -1)[..., :f] for h in (0, 1))
+    mag = torch.sqrt(re * re + im * im)
+    den = mag[:, 0] * mag[:, 1]
+    inv = torch.where(den > 1e-30, 1.0 / torch.where(den > 1e-30, den, 1.0), 0.0)
+    cre = (re[:, 0] * re[:, 1] + im[:, 0] * im[:, 1]) * inv
+    cim = (im[:, 0] * re[:, 1] - re[:, 0] * im[:, 1]) * inv
+    crows = idft_rows(cre, cim)
+    ang = (crows.float() @ basis.steer.float().T).reshape(b, t, -1)
+    planes = tuple(p.to(plane_dtype) for p in (re, im, mag, cre, cim))
+    return (*planes, ang), crows, frames
+
+
+class TestFrontendTensorCoreLayout:
+    @pytest.mark.parametrize("hop,t_frames,plane", [
+        (128, 77, "bfloat16"),   # the signal read with ld = hop; ragged T, 9 bin groups
+        (64, 40, "float32"),     # bf16 products, fp32 planes
+        (100, 40, "bfloat16"),   # hop not a multiple of 8: the frame-rows staging
+    ])
+    def test_layout_matches_plain_and_pallas(self, hop, t_frames, plane):
+        """The operands of the bf16 kernels, turned back into the six
+        outputs, give stft_gcc_frontend_plain and (hop | window)
+        stft_gcc_frontend_pallas in interpret mode; every pad is zero."""
+        rng = np.random.default_rng(11)
+        x = (rng.standard_normal((2, 2, WIN + hop * (t_frames - 1))) * 0.1).astype(np.float32)
+        window, cos_m, sin_m, st = _frontend_state()
+        basis = frontend_basis(window, True, matmul_dtype="bfloat16",
+                               steering=(st["cos"], st["sin"]))
+        groups = -(-F // BIN_GROUP)
+        assert basis.rows.shape == (2 * BIN_GROUP * groups, WIN)
+        assert basis.steer.shape == (D, row_pad(2 * F))
+        assert basis.rows.dtype == basis.steer.dtype == torch.bfloat16
+        rows = basis.rows.reshape(groups, 2, BIN_GROUP, WIN)
+        for h, m in enumerate((basis.wcos, basis.wsin)):
+            half = rows[:, h].reshape(-1, WIN)
+            assert torch.equal(half[:F], m.T.to(torch.bfloat16))
+            assert not half[F:].any()  # bins past F: zero rows
+        assert torch.equal(basis.steer[:, :F], st["cos"].T.to(torch.bfloat16))
+        assert torch.equal(basis.steer[:, F : 2 * F], st["sin"].T.to(torch.bfloat16))
+        assert not basis.steer[:, 2 * F :].any()
+        xt = torch.from_numpy(x)
+        got, crows, frames = _tensor_core_frontend(xt, basis, hop, PLANE_DTYPES[plane])
+        assert reads_signal(hop, WIN) == (hop % 8 == 0)
+        # every frame the kernel reads is the bf16 frame of the plain version
+        assert torch.equal(frames[..., :WIN].reshape(2, 2, t_frames, WIN),
+                           xt.unfold(-1, WIN, hop).to(torch.bfloat16))
+        assert crows.shape == (2 * t_frames, row_pad(2 * F)) and not crows[:, 2 * F :].any()
+        kw = dict(hop_size=hop, matmul_dtype="bfloat16", plane_dtype=plane)
+        want = stft_gcc_frontend_plain(xt, basis, st["cos"], st["sin"], **kw)
+        # the same bf16 operands summed in fp32 in another order; bf16
+        # planes: one bf16 step (8e-3) of each plane's scale
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            w = w.float()
+            np.testing.assert_allclose(g.float().numpy(), w.numpy(),
+                                       atol=8e-3 * float(w.abs().max()))
+        if WIN % hop:
+            return
+        pallas = stft_gcc_frontend_pallas(
+            jnp.asarray(x), jnp.asarray(window), jnp.asarray(cos_m), jnp.asarray(sin_m),
+            hop_size=hop, matmul_dtype="bfloat16", plane_dtype=plane, tile_t=32,
+            interpret=True)
+        for g, w in zip(got, pallas):
+            w = np.asarray(jnp.asarray(w, jnp.float32))[..., : g.shape[-1]]
+            np.testing.assert_allclose(g.float().numpy(), w,
+                                       atol=8e-3 * (np.abs(w).max() + 1e-12))
+
+    def test_bf16_needs_the_rows_and_the_fold(self):
+        """A bf16 call needs the tensor-core operands: a basis built for
+        float32 (or for other steering planes) is refused, and no bf16 basis
+        is built without steering planes."""
+        window, _, _, st = _frontend_state()
+        with pytest.raises(ValueError, match="steering"):
+            frontend_basis(window, matmul_dtype="bfloat16")
+        fp32 = frontend_basis(window)
+        assert fp32.rows is None and fp32.steer is None
+        assert check_frontend_basis(fp32, False, WIN, F, D, torch.device("cpu")) == (None, None)
+        bf16 = frontend_basis(window, matmul_dtype="bfloat16", steering=(st["cos"], st["sin"]))
+        cpu = torch.device("cpu")
+        for basis, d in ((fp32, D), (bf16[:2], D), (bf16, D - 1)):
+            with pytest.raises(ValueError, match="frontend_basis"):
+                check_frontend_basis(basis, True, WIN, F, d, cpu)
+        rows, steer = check_frontend_basis(bf16, True, WIN, F, D, cpu)
+        assert rows is bf16.rows and steer is bf16.steer
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        x = torch.from_numpy(_signal(b=1, t_frames=9))
+        window, _, _, st = _frontend_state()
+        basis = frontend_basis(window, matmul_dtype="bfloat16", steering=(st["cos"], st["sin"]))
+        args = (x, basis, st["cos"], st["sin"])
+        before = stft_gcc_frontend_cuda.launches
+        got = stft_gcc_frontend_cuda(*args, hop_size=HOP)
+        assert stft_gcc_frontend_cuda.launches == before
+        for g, w in zip(got, stft_gcc_frontend_plain(*args, hop_size=HOP)):
+            assert torch.equal(g, w)
 
 
 def test_jax_planes_pass_through_unchanged():
