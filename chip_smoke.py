@@ -12,19 +12,21 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    toolkit: each tensor-core kernel (the NMF's three, the soft mask's
    scores, the iDFT of ``istft.cuh`` in both sources that include it, and
    the front-end's rDFT and angular products) must hold HGMMA (``wgmma``)
-   instructions in each source that instantiates it; their ptxas registers
-   and spills are printed, by source, and the iDFT and the front-end's
-   must not spill.
+   instructions in each source that instantiates it, and so must each of
+   its instantiations (the NMF ratio's, which the turbo mode launches
+   too); their ptxas registers and spills are printed, by source, and the
+   iDFT and the front-end's must not spill.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
    kernel and plain version and the card's bound for the same work; then
-   the default config's modes again at batch 16, the NMF at its full 100
-   iterations, which are the shapes ``separate_batch`` gives them. Each NMF
-   row names its product design (``wgmma`` in the bf16 modes, ``simt`` in
-   float32) and carries ``gemm_library_ms``: the same iteration's four
-   products as ``torch.matmul`` calls at the row's batch and operand type,
-   times 100 (a yardstick only; the port never calls it). Each front-end
+   the default config's modes and the turbo NMF (``bfloat16_q_simul``)
+   again at batch 16, the NMF at its full 100 iterations, which are the
+   shapes ``separate_batch`` gives them. Each NMF row names its product
+   design (``wgmma`` in the bf16 modes, ``simt`` in float32) and carries
+   ``gemm_library_ms``: the same iteration's products (four; three in the
+   turbo mode) as ``torch.matmul`` calls at the row's batch and operand
+   type, times 100 (a yardstick only; the port never calls it). Each front-end
    row names its design too (``wgmma`` in bf16, ``simt`` in float32) and
    carries ``gemm_library_ms``: the rDFT as one ``torch.matmul`` of the
    (B·2·T, win) frames against the (win, 2F) basis plus the angular
@@ -49,6 +51,18 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    counters set to 0 just before each call and read just after it; every
    utterance of the batch is held against ``separate`` of it alone.
    ``mode``: the same ``separate`` with ``nmf_matmul_dtype="bfloat16"``.
+   ``turbo``: ``separate`` and ``separate_batch`` with
+   ``nmf_matmul_dtype="bfloat16_q_simul"``, timed and counted the same way,
+   every utterance of the batch held against ``separate`` of it alone, the
+   targets those of ``bfloat16_q``. ``throughput``: ``separate_batch``
+   with ``num_sources=None`` (source counting on the device: counts,
+   silent pads, the count op against its CPU run on the same spectra), and
+   ``separate_batches`` over 4 chunks of 16 in float32 and int16 I/O (the
+   int16 program fed 16-bit PCM) beside the same chunks through
+   ``separate_batch`` one after another, each chunk held against
+   ``separate_batch``, with audio-s/s of both. ``cli``:
+   ``gccnmf_torch.cli.separate_main`` on a WAV of the first mixture with
+   ``--turbo --auto-sources``, its outputs read back.
 5. ``parity``: float32 mode, all kernels against the plain torch path on the
    card: equal targets and > 25 dB SNR per target.
 6. ``enhance``: the default-mode ``GCCNMFEnhancer`` through ``enhance`` of
@@ -59,10 +73,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    ``tdoa_split``: the soft mask and ``enhance`` of one mixture with the
    soft mask's TDOAs split across blocks and unsplit. ``enhance_parity``: float32 mode, the kernels
    against the plain torch path on the card, with and without H updates.
-7. ``profile``: one default ``separate_batch`` and one default batched
-   ``enhance`` under ``torch.profiler``: device time by stage (the NMF's
-   three products apart from its small launches), the top kernels, and the
-   device's idle share.
+7. ``profile``: one default ``separate_batch``, one chunk of 16 through
+   ``separate_batches`` and one default batched ``enhance`` under
+   ``torch.profiler``: device time by stage (the NMF's three products apart
+   from its small launches, the host-device copies apart), the top kernels,
+   and the device's idle share.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -72,14 +87,17 @@ without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -89,6 +107,9 @@ sys.path.insert(0, ROOT)
 
 SR, SECONDS, WIN, HOP, K, D, SOURCES = 16000, 10, 1024, 128, 128, 128, 3
 KERNEL_BATCH, MAIN_BATCH, NMF_CHECK_ITERS, NMF_ITERS = 2, 16, 15, 100
+# separate_batches runs CHUNKS chunks of MAIN_BATCH; the device source count
+# keeps up to AUTO_MAX sources
+CHUNKS, AUTO_MAX = 4, 4
 # separate_batch(mix)[i] against separate(mix[i]), max |diff| over max
 # |separate|: the same kernels at B = 16 and B = 1 (the NMF's split sums
 # depend on T only), and the attribution GEMM runs one utterance at a time
@@ -115,7 +136,8 @@ TIMED_CALLS = 5
 # limit): 3.35 TB/s of HBM, 67 TFLOP/s fp32 on the SIMT cores, 989 TFLOP/s
 # bf16 on the tensor cores.
 HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "bfloat16": 989e12, "bfloat16_q": 989e12}
+PEAK_FLOP_S = {"float32": 67e12, "bfloat16": 989e12, "bfloat16_q": 989e12,
+               "bfloat16_q_simul": 989e12}
 
 
 def emit(phase: str, **fields) -> None:
@@ -199,15 +221,18 @@ SOURCE_MARKERS = {"enhance.cu": "score_argmax_kernel", "nmf.cu": "tc_h_update_ke
                   "frontend.cu": "angular_kernel", "synthesis.cu": "spectra_kernel"}
 
 
-def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
+def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str]]:
     """HGMMA instructions per tensor-core kernel and source (``"kernel
     (source)"``, all instantiations together) in the SASS of ``library``,
     read with the ``cuobjdump`` of ``nvcc``'s toolkit: each source's
-    object keeps its own ELF in the library, named by its marker kernel."""
+    object keeps its own ELF in the library, named by its marker kernel.
+    Also the instantiations (mangled names) that hold none, such as a
+    ``tc_wh_ratio_kernel<TV, 2>`` that the turbo mode launches."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts = {f"{k} ({src})": 0 for k, srcs in TC_KERNELS.items() for src in srcs}
+    empty = []
     for elf in sass.split("Fatbin elf code")[1:]:
         src = next((s for s, marker in SOURCE_MARKERS.items() if marker in elf), "?")
         for section in elf.split("Function : ")[1:]:
@@ -216,7 +241,9 @@ def hgmma_counts(nvcc: str, library: str) -> dict[str, int]:
                 if k in name:
                     key = f"{k} ({src})"
                     counts[key] = counts.get(key, 0) + section.count("HGMMA")
-    return counts
+                    if "HGMMA" not in section:
+                        empty.append(f"{name.strip()} ({src})")
+    return counts, empty
 
 
 def ptxas_summary(build_log: str) -> dict[str, str]:
@@ -254,7 +281,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
 
-    from gccnmf_torch import _build
+    from gccnmf_torch import _build, cli
     from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
     from gccnmf_torch.ops import gcc, localize, masks
     from gccnmf_torch.models import offline as offline_mod
@@ -273,6 +300,7 @@ def main() -> int:
     )
     from gccnmf_torch.ops.windows import hann_symmetric
     from gccnmf_torch.precision import set_fp32_precision
+    from gccnmf_torch.utils import wav
 
     wrappers = {"stft_gcc_frontend_cuda": stft_gcc_frontend_cuda,
                 "kl_nmf_cuda": kl_nmf_cuda, "masked_synthesis_cuda": masked_synthesis_cuda,
@@ -305,8 +333,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     build_s = time.perf_counter() - t0
-    hgmma = hgmma_counts(_build._nvcc(), lib._name)
+    hgmma, no_hgmma = hgmma_counts(_build._nvcc(), lib._name)
     require(all(n > 0 for n in hgmma.values()), f"a tensor-core kernel has no HGMMA: {hgmma}")
+    require(not no_hgmma, f"tensor-core instantiations without HGMMA: {no_hgmma}")
     ptxas = ptxas_summary(_build.build_log)  # empty when the library was cached
     spills = [k for k, v in ptxas.items() if any(n in k for n in NO_SPILL)
               and "0 bytes spill stores, 0 bytes spill loads" not in v]
@@ -459,14 +488,17 @@ def main() -> int:
                         f"({w_rel[0] / w_rel[1]:.2e}), max|dH| <= 1 % of max|H| "
                         f"({h_rel[0] / h_rel[1]:.2e})")
             del want
-            # the yardstick: one iteration's four products as torch.matmul
-            # at this batch, in the mode's operand type, times NMF_ITERS
+            # the yardstick: one iteration's products (four; three in the
+            # turbo mode, one H·Wᵀ) as torch.matmul at this batch, in the
+            # mode's operand type, times NMF_ITERS
+            turbo = md == "bfloat16_q_simul"
+            gemms = 3 if turbo else 4
             dt = torch.float32 if md == "float32" else torch.bfloat16
             hb_, wb_, q_ = (torch.rand(shape, device=dev).to(dt)
                             for shape in ((b, 2 * t, K), (b, f, K), (b, 2 * t, f)))
             products = lambda hb_=hb_, wb_=wb_, q_=q_: (  # noqa: E731
-                hb_ @ wb_.transpose(-1, -2), q_ @ wb_, hb_ @ wb_.transpose(-1, -2),
-                q_.transpose(-1, -2) @ hb_)
+                hb_ @ wb_.transpose(-1, -2), q_ @ wb_, q_.transpose(-1, -2) @ hb_,
+                *(() if turbo else (hb_ @ wb_.transpose(-1, -2),)))
             gemm_library_ms = time_ms(torch, products) * NMF_ITERS
             del hb_, wb_, q_, products
             record(
@@ -474,17 +506,18 @@ def main() -> int:
                 "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
                 lambda md=md: kl_nmf_cuda(v, w0, h0, NMF_ITERS, matmul_dtype=md),
                 lambda md=md: kl_nmf_plain(v, w0, h0, NMF_ITERS, matmul_dtype=md),
-                flops=8 * b * 2 * t * f * K * NMF_ITERS,
-                counted=f"4 GEMMs of 2·M·F·K per iteration, {NMF_ITERS} iterations",
+                flops=2 * gemms * b * 2 * t * f * K * NMF_ITERS,
+                counted=f"{gemms} GEMMs of 2·M·F·K per iteration, {NMF_ITERS} iterations",
                 nbytes=b * 2 * t * f * v.element_size() + 2 * 4 * b * (f * K + 2 * t * K),
                 check_fn=lambda md=md: kl_nmf_cuda(v, w0, h0, nmf_check_iters,
                                                    matmul_dtype=md),
                 err=err, note=note, iterations_timed=NMF_ITERS,
                 design="simt" if md == "float32" else "wgmma",
                 gemm_library_ms=gemm_library_ms,
-                gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on {dt} operands "
-                                   f"at B = {b}, times {NMF_ITERS}; not the same function "
-                                   "(no ratio, updates or sums), so library_ms stays null"),
+                gemm_library_note=(f"H·Wᵀ {'once' if turbo else 'twice'}, Q·W, Qᵀ·H as "
+                                   f"torch.matmul on {dt} operands at B = {b}, times "
+                                   f"{NMF_ITERS}; not the same function (no ratio, updates "
+                                   "or sums), so library_ms stays null"),
             )
 
         # synthesis on those planes, W and H, and the device peak picking
@@ -516,11 +549,13 @@ def main() -> int:
             )
 
     # every mode at batch 2, the NMF checked after 15 iterations
-    check_kernels(KERNEL_BATCH, ("float32", "bfloat16"), ("float32", "bfloat16", "bfloat16_q"),
+    check_kernels(KERNEL_BATCH, ("float32", "bfloat16"),
+                  ("float32", "bfloat16", "bfloat16_q", "bfloat16_q_simul"),
                   ("float32", "bfloat16"), NMF_CHECK_ITERS)
-    # the default config's modes at the batched main path's shapes, the NMF
-    # checked at its full 100 iterations
-    check_kernels(MAIN_BATCH, ("bfloat16",), ("bfloat16_q",), ("bfloat16",), NMF_ITERS)
+    # the default config's modes and the turbo NMF at the batched main path's
+    # shapes, the NMF checked at its full 100 iterations
+    check_kernels(MAIN_BATCH, ("bfloat16",), ("bfloat16_q", "bfloat16_q_simul"), ("bfloat16",),
+                  NMF_ITERS)
     torch.cuda.empty_cache()
 
     # the enhancement kernels on bench.py's enhancement configuration, with
@@ -660,41 +695,163 @@ def main() -> int:
         return out
 
     n_out = (t - 1) * HOP
+
+    def hold_batch(run):
+        """Every utterance of ``run``'s separate_batch against separate() of
+        it alone: the same kernels at B = 1, so this holds the B = 16
+        buffers element by element."""
+        est, targets = run["separate_batch"]
+        single = run["separate"]
+        mode = run["mode"]
+        require(single["estimates"].shape == (SOURCES, 2, n_out), f"{mode} separate: shape")
+        require(est.shape == (MAIN_BATCH, SOURCES, 2, n_out), f"{mode} separate_batch: shape")
+        require(np.isfinite(single["estimates"]).all() and np.isfinite(est).all(),
+                f"{mode}: non-finite estimates")
+        batch_snr, batch_err, scale = [], 0.0, 0.0
+        for i in range(MAIN_BATCH):
+            one = single if i == 0 else run["sep"].separate(mix[i])
+            require(list(targets[i]) == one["target_tdoa_indexes"],
+                    f"{mode} separate_batch[{i}] targets {list(targets[i])} != "
+                    f"{one['target_tdoa_indexes']}")
+            batch_err = max(batch_err, float(np.abs(est[i] - one["estimates"]).max()))
+            scale = max(scale, float(np.abs(one["estimates"]).max()))
+            batch_snr.append(min(snr_db(r, e) for r, e in zip(one["estimates"], est[i])))
+        require(batch_err <= BATCH_TOL * scale,
+                f"{mode} separate_batch against separate: max abs err {batch_err} > "
+                f"{BATCH_TOL} x {scale}")
+        return dict(max_abs_err=batch_err, bar=f"{BATCH_TOL} x {scale}",
+                    min_snr_db=min(batch_snr))
+
+    def path_fields(run):
+        return dict(targets=run["separate"]["target_tdoa_indexes"], launches=run["counts"],
+                    separate_s=run["s_separate"],
+                    separate_audio_s_per_s=SECONDS / run["s_separate"], batch=MAIN_BATCH,
+                    separate_batch_s=run["s_separate_batch"],
+                    separate_batch_audio_s_per_s=MAIN_BATCH * SECONDS / run["s_separate_batch"],
+                    seconds_per_call=run["seconds"], batch_vs_separate=hold_batch(run))
+
     main = drive(OfflineConfig(), batch=True)
     est, targets = main["separate_batch"]
     single = main["separate"]
-    require(single["estimates"].shape == (SOURCES, 2, n_out), "separate: wrong shape")
-    require(est.shape == (MAIN_BATCH, SOURCES, 2, n_out), "separate_batch: wrong shape")
-    require(np.isfinite(single["estimates"]).all() and np.isfinite(est).all(),
-            "non-finite estimates")
-    # every utterance of the batch against separate() of it alone: the same
-    # kernels at B = 1, so this holds the B = 16 buffers element by element
-    batch_snr, batch_err, scale = [], 0.0, 0.0
-    for i in range(MAIN_BATCH):
-        one = single if i == 0 else main["sep"].separate(mix[i])
-        require(list(targets[i]) == one["target_tdoa_indexes"],
-                f"separate_batch[{i}] targets {list(targets[i])} != "
-                f"{one['target_tdoa_indexes']}")
-        batch_err = max(batch_err, float(np.abs(est[i] - one["estimates"]).max()))
-        scale = max(scale, float(np.abs(one["estimates"]).max()))
-        batch_snr.append(min(snr_db(r, e) for r, e in zip(one["estimates"], est[i])))
-    require(batch_err <= BATCH_TOL * scale,
-            f"separate_batch against separate: max abs err {batch_err} > "
-            f"{BATCH_TOL} x {scale}")
     emit("separate", device=kind, nvidia_smi=smi, config="OfflineConfig() (bfloat16_q)",
-         targets=single["target_tdoa_indexes"], launches=main["counts"],
-         separate_s=main["s_separate"], separate_audio_s_per_s=SECONDS / main["s_separate"],
-         batch=MAIN_BATCH, separate_batch_s=main["s_separate_batch"],
-         separate_batch_audio_s_per_s=MAIN_BATCH * SECONDS / main["s_separate_batch"],
-         seconds_per_call=main["seconds"],
-         batch_vs_separate=dict(max_abs_err=batch_err, bar=f"{BATCH_TOL} x {scale}",
-                                min_snr_db=min(batch_snr)))
+         **path_fields(main))
 
     bf16 = drive(OfflineConfig(nmf_matmul_dtype="bfloat16"), batch=False)
     require(bf16["separate"]["target_tdoa_indexes"] == single["target_tdoa_indexes"],
             "bfloat16 mode picks other targets")
     emit("mode", nmf_matmul_dtype="bfloat16", launches=bf16["counts"],
          separate_s=bf16["s_separate"], targets=bf16["separate"]["target_tdoa_indexes"])
+
+    # ---- turbo: the simultaneous NMF updates on both separation paths -----
+    turbo = drive(OfflineConfig(nmf_matmul_dtype="bfloat16_q_simul"), batch=True)
+    fields = path_fields(turbo)
+    # localization reads the angular spectrum, not the NMF: the same targets
+    require(fields["targets"] == single["target_tdoa_indexes"]
+            and np.array_equal(turbo["separate_batch"][1], targets),
+            f"turbo targets {fields['targets']} != bfloat16_q {single['target_tdoa_indexes']}")
+    emit("turbo", device=kind, nvidia_smi=smi,
+         config="OfflineConfig(nmf_matmul_dtype='bfloat16_q_simul')", **fields,
+         snr_db_vs_bfloat16_q=[snr_db(r, e) for r, e in zip(single["estimates"],
+                                                            turbo["separate"]["estimates"])],
+         note="a different algorithm from bfloat16_q: snr_db_vs_bfloat16_q is a reading, "
+              "not a bar")
+    del turbo["sep"]
+
+    # ---- throughput: source counting on the device, pipelined chunks -------
+    auto_sep = GCCNMFSeparator(OfflineConfig(num_sources=None))
+    auto = run_paths([("separate_batch_auto",
+                       lambda: auto_sep.separate_batch(mix, max_sources=AUTO_MAX))])
+    a_est, a_targets, a_counts = auto["separate_batch_auto"]
+    require(all(auto["counts"]["separate_batch_auto"][k] > 0 for k in sep_kernels),
+            f"separate_batch_auto: a kernel never launched: {auto['counts']}")
+    require(a_est.shape == (MAIN_BATCH, AUTO_MAX, 2, n_out) and np.isfinite(a_est).all(),
+            "separate_batch_auto: wrong shape or non-finite")
+    host_agree = 0
+    for i, c in enumerate(a_counts):
+        require(1 <= c <= AUTO_MAX and all(a_est[i, r].any() for r in range(c))
+                and not a_est[i, c:].any(),
+                f"separate_batch_auto[{i}]: count {c}, silent rows or loud pads")
+        host = auto_sep.separate(mix[i])["target_tdoa_indexes"]
+        host_agree += list(a_targets[i][:c]) == host
+    # the device 2-means against the same op on the CPU, on the card's spectra
+    ang = stft_gcc_frontend_cuda(torch.as_tensor(mix, device=dev), fbasis, cos_m, sin_m,
+                                 hop_size=HOP, matmul_dtype="bfloat16",
+                                 plane_dtype="bfloat16")[5]
+    mean_ang = gcc.mean_angular_spectrum(ang)
+    got_t, got_c = localize.auto_count_targets(mean_ang, AUTO_MAX)
+    want_t, want_c = localize.auto_count_targets(mean_ang.cpu(), AUTO_MAX)
+    require(torch.equal(got_t.cpu(), want_t) and torch.equal(got_c.cpu(), want_c)
+            and np.array_equal(got_c.cpu().numpy(), a_counts),
+            "auto_count_targets on the card differs from the CPU")
+    del auto_sep, a_est
+
+    sep = main["sep"]
+    chunks = [make_mixture(args.seed + 1 + i, MAIN_BATCH) for i in range(CHUNKS)]
+    # the int16 program's input is PCM, as a 16-bit WAV reader gives it; its
+    # reference is separate_batch of the same samples as floats, quantized
+    # on the way out as the program quantizes
+    pcm = [np.clip(c * 32768.0, -32768, 32767).astype(np.int16) for c in chunks]
+    pipelined = {}
+    for io_dtype, inputs, refs in (
+            ("float32", chunks, chunks),
+            ("int16", pcm, [c / np.float32(32768) for c in pcm])):
+        run = run_paths([
+            ("separate_batches", lambda io_dtype=io_dtype, inputs=inputs: list(
+                sep.separate_batches(inputs, io_dtype=io_dtype))),
+            ("separate_batch_serial", lambda refs=refs: [sep.separate_batch(r) for r in refs])])
+        c = run["counts"]["separate_batches"]
+        require(all(c[k] == CHUNKS for k in sep_kernels),
+                f"separate_batches ({io_dtype}): launches {c}, want {CHUNKS} of each")
+        err, scale = 0.0, 0.0
+        for (got_e, got_t), (want_e, want_t) in zip(run["separate_batches"],
+                                                    run["separate_batch_serial"]):
+            if io_dtype == "int16":
+                want_e = np.trunc(np.clip(want_e * 32768.0, -32768, 32767)) / np.float32(32768)
+            require(np.array_equal(got_t, want_t),
+                    f"separate_batches ({io_dtype}): targets differ")
+            err = max(err, float(np.abs(got_e - want_e).max()))
+            scale = max(scale, float(np.abs(want_e).max()))
+        require(err <= BATCH_TOL * scale,
+                f"separate_batches ({io_dtype}) against separate_batch: {err} > "
+                f"{BATCH_TOL} x {scale}")
+        audio_s = CHUNKS * MAIN_BATCH * SECONDS
+        pipelined[io_dtype] = dict(
+            launches=c, seconds=run["s_separate_batches"],
+            audio_s_per_s=audio_s / run["s_separate_batches"],
+            serial_separate_batch_s=run["s_separate_batch_serial"],
+            serial_audio_s_per_s=audio_s / run["s_separate_batch_serial"],
+            seconds_per_call=run["seconds"],
+            vs_separate_batch=dict(max_abs_err=err, bar=f"{BATCH_TOL} x {scale}"))
+    emit("throughput", device=kind, nvidia_smi=smi, config="OfflineConfig()",
+         separate_batch_auto=dict(
+             max_sources=AUTO_MAX, counts=a_counts.tolist(), launches=auto["counts"],
+             seconds=auto["s_separate_batch_auto"],
+             audio_s_per_s=MAIN_BATCH * SECONDS / auto["s_separate_batch_auto"],
+             host_path_agrees=f"{host_agree} of {MAIN_BATCH}"),
+         separate_batches=dict(chunks=CHUNKS, batch=MAIN_BATCH, **pipelined))
+
+    # ---- cli: python -m gccnmf_torch.cli on a seeded WAV -------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "smoke_mix.wav")
+        wav.write_wav(mix[0], path, SR)
+        out = io.StringIO()
+        reset_counts()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.separate_main([path, "--turbo", "--auto-sources"])
+        cli_s = time.perf_counter() - t1
+        c = counts()
+        info = json.loads(out.getvalue().strip().splitlines()[-1])
+        require(rc == 0 and len(info["outputs"]) == len(info["target_tdoa_indexes"]) >= 1,
+                f"cli: {info}")
+        require(all(c[k] > 0 for k in sep_kernels), f"cli: a kernel never launched: {c}")
+        for p in info["outputs"]:
+            x, sr = wav.read_wav(p)
+            require(sr == SR and x.shape == (2, n_out) and np.isfinite(x).all()
+                    and np.abs(x).max() > 0, f"cli: {os.path.basename(p)} {x.shape}")
+    emit("cli", argv="smoke_mix.wav --turbo --auto-sources", seconds=cli_s, launches=c,
+         targets=info["target_tdoa_indexes"],
+         outputs=[os.path.basename(p) for p in info["outputs"]])
     del main["sep"], bf16["sep"]
 
     # ---- 5. float32 parity: kernels against the plain torch path ----------
@@ -817,8 +974,10 @@ def main() -> int:
     # ---- 7. where the time goes: torch.profiler ---------------------------
     def profile_call(call, fn, stages):
         """Device time by stage, the top kernels and the idle share of one
-        ``fn()`` after a warm-up; ``stages`` maps a stage to substrings of
-        its kernels' names."""
+        ``fn()`` after a warm-up, and the host's CUDA runtime calls by time
+        (a wait for the card shows as a synchronize); ``stages`` maps a
+        stage to substrings of its kernels' names. Busy time sums every
+        stream, so copies that overlap the compute count twice."""
         fn()  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -827,9 +986,11 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t1) * 1e3
         by_stage = dict.fromkeys([*stages, "other"], 0.0)
-        top = []
+        top, host = [], []
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
+                if ev.key.startswith("cuda"):  # the runtime API, on the host
+                    host.append((ev.self_cpu_time_total / 1e3, ev.key, ev.count))
                 continue
             ms = ev.device_time_total / 1e3
             stage = next((s for s, keys in stages.items() if any(k in ev.key for k in keys)),
@@ -840,15 +1001,25 @@ def main() -> int:
         emit("profile", call=call, wall_ms=wall_ms,
              device_busy_ms=busy if busy else "not measured", device_ms_by_stage=by_stage,
              idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
-             top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:12]])
+             top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:16]],
+             host_cuda_calls=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(host)[::-1][:6]])
 
     sep = GCCNMFSeparator(OfflineConfig())
-    profile_call(
-        f"separate_batch (B={MAIN_BATCH}, OfflineConfig())", lambda: sep.separate_batch(mix),
-        {"kl_nmf_cuda products": ("wh_ratio", "h_update", "qth_split"),
-         "kl_nmf_cuda small launches": ("w_update", "col_reduce", "renorm"),
-         "stft_gcc_frontend_cuda": FRONTEND_KERNELS,
-         "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel")})
+    sep_stages = {"kl_nmf_cuda products": ("wh_ratio", "h_update", "qth_split"),
+                  "kl_nmf_cuda small launches": ("w_update", "col_reduce", "renorm", "gain",
+                                                 "v_sum"),
+                  "stft_gcc_frontend_cuda": FRONTEND_KERNELS,
+                  "masked_synthesis_cuda": ("spectra_kernel", "frames_kernel", "ola_kernel"),
+                  "H2D copies": ("Memcpy HtoD",), "D2H copies": ("Memcpy DtoH",)}
+    profile_call(f"separate_batch (B={MAIN_BATCH}, OfflineConfig())",
+                 lambda: sep.separate_batch(mix), sep_stages)
+    profile_call(f"separate_batches (1 chunk of B={MAIN_BATCH}, OfflineConfig())",
+                 lambda: list(sep.separate_batches([mix])), sep_stages)
+    profile_call(f"separate_batches ({CHUNKS} chunks of B={MAIN_BATCH}, OfflineConfig())",
+                 lambda: list(sep.separate_batches(chunks)), sep_stages)
+    sep = GCCNMFSeparator(OfflineConfig(nmf_matmul_dtype="bfloat16_q_simul"))
+    profile_call(f"separate_batch (B={MAIN_BATCH}, turbo)", lambda: sep.separate_batch(mix),
+                 sep_stages)
     del sep
     enh = GCCNMFEnhancer(w_enh_np, cfg_enh)
     profile_call(
@@ -863,7 +1034,7 @@ def main() -> int:
     # batch: separate_batch / enhance of the batch for the B = 16 rows,
     # separate / enhance of one mixture for the B = 2 rows; bf16 front-end
     # and synthesis GEMMs belong to the default config
-    runs = {"float32": f32, "bfloat16": bf16, "bfloat16_q": main}
+    runs = {"float32": f32, "bfloat16": bf16, "bfloat16_q": main, "bfloat16_q_simul": turbo}
     for row in rows:
         name, mode = row["kernel"], row["mode"]
         if name in ("soft_mask_cuda", "tf_synthesis_cuda"):

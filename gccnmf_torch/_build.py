@@ -40,7 +40,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _SIGNATURES = {
     "gccnmf_kl_nmf": [
         _P, _I, _I, _P, _P, _P, _P, _I,  # v v_bf16 ldv w h wb hb ldk
-        _P, _I, _P, _P, _P, _P,  # q ldq part wsum hsum norms
+        _P, _I, _P, _P, _P, _P, _P,  # q ldq part wsum hsum norms vsum
         _I, _I, _I, _I, _I, _I, _I,  # B T F K iters splits split_rows
         _F, _F, _I, _P,  # alpha eps mode stream
     ],

@@ -34,12 +34,13 @@ from gccnmf_torch.ops.enhance_cuda import (
     soft_mask_basis, soft_mask_cuda, tf_synthesis_basis, tf_synthesis_cuda,
 )
 from gccnmf_torch.ops.frontend_cuda import frontend_basis, stft_gcc_frontend_cuda
-from gccnmf_torch.ops.nmf import h_infer, kl_nmf, nmf_init_numpy
+from gccnmf_torch.ops.nmf import h_infer, kl_nmf, kl_nmf_simul, nmf_init_numpy
 from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, nmf_mode
 from gccnmf_torch.ops.synthesis_cuda import masked_synthesis_cuda, synthesis_basis
 from gccnmf_torch.ops.windows import hann_symmetric
 from gccnmf_torch.precision import set_fp32_precision
 from gccnmf_torch.utils import wav
+from gccnmf_torch.utils.hostmem import PeriodicTrim
 
 logger = logging.getLogger(__name__)
 
@@ -75,9 +76,12 @@ class OfflineConfig:
 
     ``nmf_matmul_dtype``: ``"bfloat16_q"`` (default; V and Q held in bf16
     inside the NMF loop), ``"bfloat16"`` (bf16 GEMM operands, fp32
-    accumulation) or ``"float32"`` (exact, the parity mode). The other
-    kernels run bf16 GEMMs in both bf16 modes (:func:`gemm_dtype`). The turbo
-    mode ``"bfloat16_q_simul"`` is not ported yet and raises.
+    accumulation), ``"float32"`` (exact, the parity mode) or
+    ``"bfloat16_q_simul"`` (turbo: ``"bfloat16_q"``'s rounding with
+    simultaneous updates from one Q an iteration, a different algorithm,
+    never the parity path; the plain path runs it in fp32, as
+    ``nmf.kl_nmf_simul``). The other kernels run bf16 GEMMs in every bf16
+    mode (:func:`gemm_dtype`).
     """
 
     window_size: int = 1024
@@ -145,7 +149,7 @@ class GCCNMFSeparator:
         self.config = config
         self.device = resolve_device(device)
         set_fp32_precision()
-        nmf_mode(config.nmf_matmul_dtype)  # raises for a mode not ported
+        nmf_mode(config.nmf_matmul_dtype)  # raises for an unknown mode
         self._stft_method = config.resolved_stft_method()
         self._nmf_backend = config.resolved_nmf_backend(self.device)
         self._synthesis_backend = config.resolved_synthesis_backend(self.device)
@@ -178,14 +182,13 @@ class GCCNMFSeparator:
 
     def _run_nmf(self, v, w0, h0):
         cfg = self.config
+        args = (cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon)
         if self._nmf_backend == "cuda":
-            return kl_nmf_cuda(
-                v, w0, h0, cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon,
-                matmul_dtype=cfg.nmf_matmul_dtype,
-            )
-        return kl_nmf(
-            v.to(torch.float32), w0, h0, cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon
-        )
+            return kl_nmf_cuda(v, w0, h0, *args, matmul_dtype=cfg.nmf_matmul_dtype)
+        # the turbo algorithm runs off the kernel too, in fp32, as JAX's XLA
+        # path does (offline.py:199-204)
+        plain = kl_nmf_simul if cfg.nmf_matmul_dtype == "bfloat16_q_simul" else kl_nmf
+        return plain(v.to(torch.float32), w0, h0, *args)
 
     def _analyze_planes(self, stereo, w0, h0):
         """Analysis on planes: ``(spec_re, spec_im, W, H, coh_re, coh_im,
@@ -303,15 +306,31 @@ class GCCNMFSeparator:
         result["paths"] = paths
         return result
 
-    def _separate_batch_core(self, stereo, w0, h0, num_sources: int):
+    def _separate_batch_core(self, stereo, w0, h0, num_sources: int | None,
+                             max_sources: int = 4):
         """The whole path on planes for a batch ``(B, 2, n)``, peak picking
-        on the device: ``(estimates, targets (B, N), peak counts (B,))``."""
+        on the device: ``(estimates, targets (B, N), counts (B,))``. With a
+        fixed ``num_sources`` the targets are the top-k peaks and ``counts``
+        the peaks found; with ``None``, :func:`localize.auto_count_targets`
+        picks up to ``max_sources`` and ``counts`` is how many it kept."""
         sre, sim, w, h, cre, cim, ang = self._analyze_planes(stereo, w0, h0)
         mean_ang = gcc.mean_angular_spectrum(ang)
-        targets = localize.top_k_peaks(mean_ang, num_sources)
-        peaks = localize.peak_count(mean_ang)
+        if num_sources:
+            targets = localize.top_k_peaks(mean_ang, num_sources)
+            counts = localize.peak_count(mean_ang)
+        else:
+            targets, counts = localize.auto_count_targets(mean_ang, max_sources)
         est, _ = self._reconstruct_planes(sre, sim, cre, cim, w, h, targets)
-        return est, targets, peaks
+        return est, targets, counts
+
+    def _separate_batch_i16(self, stereo_i16, w0, h0, num_sources: int):
+        """The int16-in, int16-out program: the PCM↔float conversions of
+        ``utils/wav.py`` on the device, so the host link carries 16-bit
+        samples both ways. The cast truncates after the clamp, as JAX's
+        ``astype`` does."""
+        stereo = stereo_i16.to(torch.float32) / 32768.0
+        est, targets, counts = self._separate_batch_core(stereo, w0, h0, num_sources)
+        return torch.clamp(est * 32768.0, -32768, 32767).to(torch.int16), targets, counts
 
     @torch.inference_mode()
     def separate_batch(
@@ -320,25 +339,26 @@ class GCCNMFSeparator:
         num_sources: int | None = None,
         max_sources: int = 4,
     ):
-        """Separate a batch ``(B, 2, n)`` with a fixed source count (given
-        here or via the config) and device top-k peak picking; returns
-        ``(estimates (B, N, 2, n_out), targets (B, N))`` as NumPy.
+        """Separate a batch ``(B, 2, n)`` on the device, as NumPy.
 
-        Utterances with fewer angular-spectrum peaks than ``num_sources``
-        get duplicated targets (the host path raises instead) and are
-        reported with a warning. Auto source counting
-        (``num_sources=None``) is not ported yet and raises."""
+        With a fixed source count (given here or via the config): device
+        top-k peak picking; returns ``(estimates (B, N, 2, n_out), targets
+        (B, N))``. Utterances with fewer angular-spectrum peaks than
+        ``num_sources`` get duplicated targets (the host path raises
+        instead) and are reported with a warning.
+
+        With ``num_sources=None`` (here and in the config): source counting
+        on the device (:func:`localize.auto_count_targets`); returns
+        ``(estimates (B, max_sources, 2, n_out), targets, counts (B,))``,
+        where rows ``[0, counts[b])`` are the detected sources
+        left-to-right and the rest silent pads."""
         num_sources = self.config.num_sources if num_sources is None else num_sources
-        if not num_sources:
-            raise NotImplementedError(
-                "separate_batch auto source counting (num_sources=None, "
-                f"max_sources={max_sources}) is not ported yet: ROADMAP.md, "
-                "'Still to port' item 6"
-            )
         x = self._stereo(stereo_batch)
         w0, h0 = self._init_nmf(x.shape[-1], (x.shape[0],))
-        est, targets, peaks = self._separate_batch_core(x, w0, h0, num_sources)
-        short = np.flatnonzero(peaks.cpu().numpy() < num_sources)
+        est, targets, counts = self._separate_batch_core(x, w0, h0, num_sources, max_sources)
+        if not num_sources:
+            return est.cpu().numpy(), targets.cpu().numpy(), counts.cpu().numpy()
+        short = np.flatnonzero(counts.cpu().numpy() < num_sources)
         if short.size:
             logger.warning(
                 "separate_batch: %d utterance(s) (e.g. index %d) had fewer "
@@ -348,14 +368,102 @@ class GCCNMFSeparator:
             )
         return est.cpu().numpy(), targets.cpu().numpy()
 
+    @torch.inference_mode()
     def separate_batches(self, batches, num_sources: int | None = None,
                          io_dtype: str = "float32"):
-        """Pipelined separation over chunks (and its int16 program): not
-        ported yet."""
-        raise NotImplementedError(
-            "separate_batches and its int16 program are not ported yet: "
-            "ROADMAP.md, 'Still to port' item 6"
-        )
+        """Pipelined separation over an iterable of ``(B, 2, n)`` chunks.
+
+        Yields ``(estimates, targets)`` per chunk, as :meth:`separate_batch`
+        returns them for a fixed source count. On the card the host↔device
+        copies overlap the compute: while chunk k computes on the current
+        stream, chunk k+1 uploads from pinned memory and chunk k−1's
+        results download into pinned memory, both on a copy stream ordered
+        by CUDA events. Every yielded array is the caller's own: no later
+        chunk writes into it. On the CPU the same loop runs without
+        streams.
+
+        ``io_dtype="int16"`` runs the int16 program: 16-bit samples both
+        ways, the estimates quantized as ``utils/wav.write_wav`` would and
+        returned as float32 in [-1, 1)."""
+        cfg = self.config
+        num_sources = cfg.num_sources if num_sources is None else num_sources
+        if not num_sources:
+            raise ValueError("separate_batches needs a fixed num_sources")
+        if io_dtype not in ("float32", "int16"):
+            raise ValueError(f"io_dtype must be float32 or int16: {io_dtype}")
+        run = self._separate_batch_i16 if io_dtype == "int16" else self._separate_batch_core
+        cuda = self.device.type == "cuda"
+        compute = torch.cuda.current_stream(self.device) if cuda else None
+        copy = torch.cuda.Stream(self.device) if cuda else None
+        inits: dict = {}  # per (B, n): the seeded NMF init
+        trimmer = PeriodicTrim()  # bounds the loop's own host-heap churn
+
+        def upload(chunk):
+            """Chunk to the device: on the card through a pinned copy of it,
+            sent on the copy stream, with the event that marks its arrival.
+            Float samples bound for the int16 program are scaled and clamped
+            here; the cast into the staging buffer truncates, as JAX's
+            ``astype`` does."""
+            chunk = np.asarray(chunk)
+            if io_dtype == "int16" and chunk.dtype != np.int16:
+                chunk = np.multiply(chunk, 32768.0, dtype=np.float32)
+                np.clip(chunk, -32768, 32767, out=chunk)
+            dtype = torch.int16 if io_dtype == "int16" else torch.float32
+            host = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
+            np.copyto(host.numpy(), chunk, casting="unsafe")
+            trimmer.account(host.nbytes)
+            if not cuda:
+                return host, None
+            with torch.cuda.stream(copy):  # allocated on the copy stream
+                x = host.to(self.device, non_blocking=True)
+            return x, copy.record_event()
+
+        def download(outs):
+            """Results to pinned host memory on the copy stream, once the
+            compute stream has made them."""
+            if not cuda:
+                return outs, None
+            copy.wait_event(compute.record_event())
+            with torch.cuda.stream(copy):
+                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
+                    o, non_blocking=True) for o in outs]
+            for o in outs:  # not reused by the compute stream before the copy ends
+                o.record_stream(copy)
+            return host, copy.record_event()
+
+        def materialize(pending):
+            (est, targets), done = pending
+            if done is not None:
+                done.synchronize()
+            est = est.numpy()
+            trimmer.account(est.nbytes)
+            if io_dtype == "int16":  # a new array, scaled as utils/wav reads PCM
+                est = np.multiply(est, np.float32(1 / 32768), dtype=np.float32)
+            elif cuda:  # the caller's own copy; the pinned block goes back to the cache
+                est = est.copy()
+            return est, targets.numpy().copy()
+
+        chunks = iter(batches)
+        nxt = next(chunks, None)
+        up = None if nxt is None else upload(nxt)
+        prev = None
+        while up is not None:
+            x, arrived = up
+            if cuda:
+                compute.wait_event(arrived)
+                x.record_stream(compute)
+            key = (x.shape[0], x.shape[-1])
+            if key not in inits:
+                inits[key] = self._init_nmf(x.shape[-1], (x.shape[0],))
+            est, targets, _ = run(x, *inits[key], num_sources)
+            nxt = next(chunks, None)  # chunk k+1 uploads while chunk k computes
+            up = None if nxt is None else upload(nxt)
+            pending = download((est, targets))
+            if prev is not None:
+                yield materialize(prev)
+            prev = pending
+        if prev is not None:
+            yield materialize(prev)
 
 
 class GCCNMFEnhancer:

@@ -1,10 +1,10 @@
 """TDOA localization: peak picking (counterpart of
 ``gccnmf_tpu/ops/localize.py``).
 
-The tensor parts (local-maxima mask, top-k peak selection) are
-fixed-shape and run on the device; the host path
-(:func:`estimate_target_tdoa_indexes`, with 2-means source counting) runs
-in NumPy on a length-``num_tdoas`` vector.
+The tensor parts (local-maxima mask, top-k peak selection, the 2-means
+source count of :func:`auto_count_targets`) are fixed-shape and run on the
+device; the host path (:func:`estimate_target_tdoa_indexes`, with 2-means
+source counting) runs in NumPy on a length-``num_tdoas`` vector.
 
 Reference: gccNMFFunctions.estimateTargetTDOAIndexesFromAngularSpectrum
 (gccNMFFunctions.py:94-116).
@@ -19,6 +19,7 @@ __all__ = [
     "local_maxima_mask",
     "top_k_peaks",
     "peak_count",
+    "auto_count_targets",
     "estimate_target_tdoa_indexes",
 ]
 
@@ -52,6 +53,52 @@ def top_k_peaks(a: torch.Tensor, k: int) -> torch.Tensor:
 def peak_count(a: torch.Tensor) -> torch.Tensor:
     """Number of interior local maxima along the last axis (int32)."""
     return local_maxima_mask(a).sum(dim=-1).to(torch.int32)
+
+
+def auto_count_targets(
+    a: torch.Tensor, max_sources: int, num_iterations: int = 50
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Source counting on the device: a fixed-iteration 2-means over the
+    heights of the interior local maxima (the tensor counterpart of the
+    host path's 2-means).
+
+    ``a``: angular spectrum ``(..., D)``. Returns ``(targets (...,
+    max_sources) int32, counts (...,) int32)``: the high cluster's size,
+    clamped to ``[1, max_sources]``, and that many highest peaks sorted
+    left-to-right in positions ``[0, count)``; the other slots repeat the
+    dominant peak, whose duplicated score column loses every argmax to the
+    first, so those estimates are silent. A row without a peak counts 1 and
+    targets its global argmax."""
+    mask = local_maxima_mask(a)
+    heights = torch.where(mask, a, -torch.inf)
+    # the highest peaks, the lower index first among equal heights, as
+    # jax.lax.top_k picks them (top_k_peaks)
+    vals, idx = torch.sort(heights, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :max_sources], idx[..., :max_sources]
+    best = torch.argmax(a, dim=-1, keepdim=True).to(idx.dtype)  # the first maximum
+    idx = torch.where(torch.isneginf(vals), best, idx)
+
+    # masked 1-D Lloyd's, 2 clusters, centres initialised at (min, max) peak
+    w = mask.to(a.dtype)
+    has_peak = mask.any(dim=-1)
+    fallback = a.max(dim=-1).values  # peakless rows: both centres there, count 1
+    c0 = torch.where(has_peak, torch.where(mask, a, torch.inf).min(dim=-1).values, fallback)
+    c1 = torch.where(has_peak, heights.max(dim=-1).values, fallback)
+    for _ in range(num_iterations):
+        in_hi = ((a - c0[..., None]).abs() > (a - c1[..., None]).abs()).to(a.dtype)
+        w1, w0 = w * in_hi, w * (1.0 - in_hi)
+        n0, n1 = w0.sum(dim=-1), w1.sum(dim=-1)
+        c0 = torch.where(n0 > 0, (w0 * a).sum(dim=-1) / n0.clamp(min=1.0), c0)
+        c1 = torch.where(n1 > 0, (w1 * a).sum(dim=-1) / n1.clamp(min=1.0), c1)
+    hi, lo = torch.maximum(c0, c1), torch.minimum(c0, c1)
+    in_hi = mask & ((a - lo[..., None]).abs() > (a - hi[..., None]).abs())
+    counts = in_hi.sum(dim=-1).clamp(1, max_sources).to(torch.int32)
+
+    keep = torch.arange(max_sources, device=a.device) < counts[..., None]
+    sentinel = a.shape[-1] + 1  # sorts after every real index
+    sorted_idx = torch.sort(torch.where(keep, idx, sentinel), dim=-1).values
+    targets = torch.where(keep, sorted_idx, idx[..., :1]).to(torch.int32)
+    return targets, counts
 
 
 def _two_means_1d(values: np.ndarray, num_iterations: int = 50):

@@ -9,6 +9,11 @@ dictionary is ``W: (F, K)``. Update rules follow the reference exactly
     W ← W ⊙ ((V/WH) Hᵀ) / (Σ_t H)
     W ← W / ||W||₂(per atom);  H ← H ⊙ ||W||₂
 
+The turbo mode (``"bfloat16_q_simul"``, :func:`kl_nmf_simul` in fp32) runs
+simultaneous updates instead: one Q = V/WH per iteration feeds both, the W
+update reads the pre-update H, and a closed-form gain on H restores
+Σ(WH) = Σ(V) after the renormalisation.
+
 The fused CUDA kernel and its plain twin live in ``ops/nmf_cuda.py``.
 """
 
@@ -20,13 +25,14 @@ import torch
 from gccnmf_torch.precision import round_bf16
 
 __all__ = [
-    "nmf_init_numpy", "kl_nmf", "h_infer", "kl_divergence", "safe_div", "MATMUL_DTYPES",
+    "nmf_init_numpy", "kl_nmf", "kl_nmf_simul", "h_infer", "kl_divergence", "safe_div",
+    "MATMUL_DTYPES",
 ]
 
 _TINY = 1e-30
 
 # Operand rounding of the products; the fused kernel's modes (ops/nmf_cuda.py)
-MATMUL_DTYPES = ("float32", "bfloat16", "bfloat16_q")
+MATMUL_DTYPES = ("float32", "bfloat16", "bfloat16_q", "bfloat16_q_simul")
 
 
 def nmf_init_numpy(
@@ -78,13 +84,47 @@ def kl_nmf(
     modes do: ``"float32"`` not at all; ``"bfloat16"`` every GEMM operand to
     bf16; ``"bfloat16_q"`` also forms Q = bf16(bf16(V) · bf16(1/WH)), 0
     where WH <= 1e-30 whatever ``guard`` says (nmf_pallas.py:147-160).
+    ``"bfloat16_q_simul"`` rounds as ``"bfloat16_q"`` and runs the turbo
+    updates of :func:`kl_nmf_simul` (nmf_pallas.py:175-204), always
+    guarded.
     """
     if matmul_dtype not in MATMUL_DTYPES:
         raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}: want {list(MATMUL_DTYPES)}")
+    simul = matmul_dtype == "bfloat16_q_simul"
+    return _updates(v, w0, h0, num_iterations, sparsity_alpha, epsilon,
+                    safe_div if guard or simul else torch.div, matmul_dtype, simul)
+
+
+def kl_nmf_simul(
+    v: torch.Tensor,
+    w0: torch.Tensor,
+    h0: torch.Tensor,
+    num_iterations: int,
+    sparsity_alpha: float = 0.0,
+    epsilon: float = 1e-16,
+):
+    """The turbo updates in fp32 (counterpart of ``nmf.kl_nmf_simul``, the
+    XLA twin of the Pallas ``"bfloat16_q_simul"`` mode). Per iteration one
+    guarded Q = V/(H·Wᵀ) feeds both updates:
+
+        H' ← H ⊙ (Q·W) / (Σ_f W + α + ε)
+        W  ← W ⊙ div(Qᵀ·H, Σ_t H)             (the pre-update H)
+        W ← W / ||W||₂;  H' ← H' ⊙ ||W||₂      (per atom)
+        H' ← H' · ΣV / Σ_k(Σ_f W)(Σ_t H')      (1 where that mass <= 1e-30)
+
+    per batch element. A different algorithm from :func:`kl_nmf`, never the
+    parity path."""
+    return _updates(v, w0, h0, num_iterations, sparsity_alpha, epsilon, safe_div, "float32",
+                    True)
+
+
+def _updates(v, w0, h0, num_iterations, sparsity_alpha, epsilon, div, matmul_dtype, simul):
+    """The loop of :func:`kl_nmf` and :func:`kl_nmf_simul`."""
     r = (lambda x: x) if matmul_dtype == "float32" else round_bf16
     v = v.to(torch.float32)
-    vq = v.to(torch.bfloat16) if matmul_dtype == "bfloat16_q" else None
-    div = safe_div if guard else torch.div
+    vq = v.to(torch.bfloat16) if matmul_dtype.startswith("bfloat16_q") else None
+    # ΣV per batch element, over the values the ratio reads (nmf_pallas.py:178)
+    v_sum = (v if vq is None else vq.to(torch.float32)).sum(dim=(-2, -1)) if simul else None
 
     def ratio(h, w):
         wh = r(h) @ r(w).transpose(-1, -2)
@@ -97,11 +137,18 @@ def kl_nmf(
     w, h = w0.to(torch.float32), h0.to(torch.float32)
     for _ in range(num_iterations):
         q = ratio(h, w)
-        h = h * (r(q) @ r(w)) / (w.sum(dim=-2, keepdim=True) + sparsity_alpha + epsilon)
-        q = ratio(h, w)
+        h_new = h * (r(q) @ r(w)) / (w.sum(dim=-2, keepdim=True) + sparsity_alpha + epsilon)
+        if not simul:  # the W update reads a new Q from the new H
+            h = h_new
+            q = ratio(h, w)
         w = w * div(r(q).transpose(-1, -2) @ r(h), h.sum(dim=-2, keepdim=True))
         norms = torch.sqrt((w * w).sum(dim=-2, keepdim=True))
-        w, h = div(w, norms), h * norms
+        w, h = div(w, norms), h_new * norms
+        if simul:  # Σ(WH) = Σ_k (Σ_f W)(Σ_t H), recalibrated to ΣV
+            mass = (w.sum(dim=-2) * h.sum(dim=-2)).sum(dim=-1)
+            ok = mass > _TINY
+            gain = torch.where(ok, v_sum / torch.where(ok, mass, 1.0), 1.0)
+            h = h * gain[..., None, None]
     return w, h
 
 

@@ -11,6 +11,12 @@ utterance. In the bf16 modes they run on the tensor cores (``wgmma``, see
 and Q and by its 9 launches per iteration; in float32 they stay fp32 FMAs
 on the SIMT cores, since no tensor-core path is exact fp32.
 
+The turbo mode ``"bfloat16_q_simul"`` (kernel mode 3, the Pallas body's
+``shared_q=True``) runs one ratio launch per iteration instead of two: the
+Qᵀ·H product reads the pre-update H shadow before the H update overwrites
+it, and a gain launch rescales H (and its shadow) by ΣV over the model's
+mass after the renormalisation, ΣV taken once per utterance over bf16(V).
+
 In the bf16 modes the wrapper hands the kernel bf16 operand planes with
 rows padded by zeros to a multiple of 8 elements (16 bytes), as
 :func:`bf16_rows` builds them: Q (T, ldq) and the shadows Wb (F, ldk), Hb
@@ -20,7 +26,7 @@ rows padded by zeros to a multiple of 8 elements (16 bytes), as
 ``kl_nmf_cuda`` launches the kernel for a CUDA tensor and takes
 :func:`kl_nmf_plain` only for a CPU tensor. ``kl_nmf_plain`` computes the
 same function with torch ops, rounding at the same points (with an exact
-reciprocal in ``"bfloat16_q"``).
+reciprocal in ``"bfloat16_q"`` and ``"bfloat16_q_simul"``).
 """
 
 from __future__ import annotations
@@ -35,16 +41,9 @@ __all__ = ["kl_nmf_cuda", "kl_nmf_plain", "NMF_MODES", "nmf_mode", "bf16_rows", 
 # matmul_dtype → kernel mode (csrc/nmf.cu)
 NMF_MODES = {md: i for i, md in enumerate(MATMUL_DTYPES)}
 
-_TURBO_MSG = (
-    "nmf_matmul_dtype='bfloat16_q_simul' (the turbo NMF mode) is not ported "
-    "yet: ROADMAP.md, 'Still to port' item 5"
-)
-
 
 def nmf_mode(matmul_dtype: str) -> int:
-    """The kernel mode of ``matmul_dtype``; raises for a mode not ported."""
-    if matmul_dtype == "bfloat16_q_simul":
-        raise NotImplementedError(_TURBO_MSG)
+    """The kernel mode of ``matmul_dtype``; raises for an unknown mode."""
     if matmul_dtype not in NMF_MODES:
         raise ValueError(f"unknown matmul_dtype {matmul_dtype!r}: want {list(NMF_MODES)}")
     return NMF_MODES[matmul_dtype]
@@ -63,7 +62,7 @@ def kl_nmf_plain(
     :func:`~gccnmf_torch.ops.nmf.kl_nmf` with the mode's bf16 rounding
     points. ``v`` may be wider than F (the columns past F are ignored) and
     fp32 or bf16."""
-    nmf_mode(matmul_dtype)  # raises for the turbo mode
+    nmf_mode(matmul_dtype)
     return kl_nmf(v[..., : w0.shape[-2]], w0, h0, num_iterations, sparsity_alpha, epsilon,
                   guard=True, matmul_dtype=matmul_dtype)
 
@@ -133,13 +132,14 @@ def kl_nmf_cuda(
         q = torch.zeros((b, t, row_pad(f)), device=dev, dtype=torch.bfloat16)
     part = torch.empty((b, splits, f, k), device=dev, dtype=torch.float32)
     stats = torch.empty((3, b, k), device=dev, dtype=torch.float32)
+    v_sum = torch.empty(b, device=dev, dtype=torch.float32)  # ΣV, read in mode 3
     _build.launch(
         "gccnmf_kl_nmf", dev,
         v3.data_ptr(), int(v3.dtype == torch.bfloat16), fv, w.data_ptr(), h.data_ptr(),
         0 if wb is None else wb.data_ptr(), 0 if hb is None else hb.data_ptr(), row_pad(k),
         q.data_ptr(), q.shape[-1], part.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-        stats[2].data_ptr(), b, t, f, k, int(num_iterations), splits, split_rows,
-        float(sparsity_alpha), float(epsilon), mode,
+        stats[2].data_ptr(), v_sum.data_ptr(), b, t, f, k, int(num_iterations), splits,
+        split_rows, float(sparsity_alpha), float(epsilon), mode,
     )
     kl_nmf_cuda.launches += 1
     return w, h

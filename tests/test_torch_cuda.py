@@ -63,7 +63,7 @@ NMF_SHAPES = [(300, 65, 24), (517, 65, 136), (96, 513, 24)]
 
 
 @pytest.mark.parametrize("shape", NMF_SHAPES, ids=lambda s: "t%d-f%d-k%d" % s)
-@pytest.mark.parametrize("mode", ["float32", "bfloat16", "bfloat16_q"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "bfloat16_q", "bfloat16_q_simul"])
 def test_nmf_kernel_matches_plain(cuda, mode, shape):
     t, f, k = shape
     v, w0, h0 = _nmf_problem(cuda, b=3, t=t, f=f, k=k)
@@ -257,6 +257,55 @@ def test_separator_on_card_matches_cpu(cuda):
     est, targets = GCCNMFSeparator(cfg, device=cuda).separate_batch(np.stack([mix, mix]))
     assert list(targets[0]) == got["target_tdoa_indexes"]
     np.testing.assert_allclose(est[0], got["estimates"], atol=1e-4)
+
+
+def _mixture(seed, n=16000):
+    rng = np.random.default_rng(seed)
+    s = rng.standard_normal((3, n)).astype(np.float32) * 0.1
+    return np.stack([s.sum(0), np.roll(s[0], 5) + np.roll(s[1], -7) + np.roll(s[2], 2)])
+
+
+@pytest.mark.parametrize("io_dtype", ["float32", "int16"])
+def test_separate_batches_on_card_equal_separate_batch(cuda, io_dtype):
+    """The pipelined chunks (pinned copies on a copy stream beside the
+    compute) give separate_batch's results chunk by chunk, in the turbo mode
+    too: float32 bit for bit, int16 as separate_batch's estimates quantized
+    to 16 bits, and no yielded array changes while later chunks run."""
+    chunks = [np.stack([_mixture(i), _mixture(i + 1), _mixture(i + 2)]) for i in range(3)]
+    for md in ("bfloat16_q", "bfloat16_q_simul"):
+        cfg = OfflineConfig(dictionary_size=16, num_iterations=10, num_tdoas=64, num_sources=2,
+                            nmf_matmul_dtype=md)
+        sep = GCCNMFSeparator(cfg, device=cuda)
+        got = list(sep.separate_batches(iter(chunks), io_dtype=io_dtype))
+        assert len(got) == len(chunks)
+        kept = [e.copy() for e, _ in got]
+        for chunk, (est, targets), est_kept in zip(chunks, got, kept):
+            if io_dtype == "int16":
+                chunk = np.clip(chunk * 32768.0, -32768, 32767).astype(np.int16) / 32768.0
+            want_est, want_targets = sep.separate_batch(chunk.astype(np.float32))
+            np.testing.assert_array_equal(targets, want_targets)
+            if io_dtype == "float32":
+                np.testing.assert_array_equal(est, want_est)
+            else:
+                want = np.trunc(np.clip(want_est * 32768.0, -32768, 32767)) / 32768.0
+                np.testing.assert_array_equal(est, want.astype(np.float32))
+            np.testing.assert_array_equal(est, est_kept)
+
+
+def test_separate_batch_auto_on_card_matches_cpu(cuda):
+    """Source counting on the device: the card's counts and targets are the
+    CPU path's (float32 mode, where both compute the same planes), and the
+    pad rows are silent."""
+    x = np.stack([_mixture(7), _mixture(8)])
+    cfg = OfflineConfig(dictionary_size=16, num_iterations=10, num_tdoas=64, num_sources=None,
+                        nmf_matmul_dtype="float32")
+    est, targets, counts = GCCNMFSeparator(cfg, device=cuda).separate_batch(x, max_sources=5)
+    _, want_targets, want_counts = GCCNMFSeparator(cfg, device="cpu").separate_batch(
+        x, max_sources=5)
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(targets, want_targets)
+    for b, c in enumerate(counts):
+        assert not est[b, c:].any()
 
 
 # (B, T, F, K, D) at the ragged edges of both score tiles (SIMT 64 × 64;

@@ -1,6 +1,7 @@
-"""gccnmf_torch KL-NMF: the seeded init, the XLA-path twin ``kl_nmf`` and the
-kernel's plain version ``kl_nmf_plain`` against JAX (XLA and Pallas in
-interpret mode) and the NumPy oracle, on the CPU at the JAX tests' shapes."""
+"""gccnmf_torch KL-NMF: the seeded init, the XLA-path twins ``kl_nmf`` and
+``kl_nmf_simul`` and the kernel's plain version ``kl_nmf_plain`` against JAX
+(XLA and Pallas in interpret mode) and the NumPy oracle, on the CPU at the
+JAX tests' shapes."""
 
 import numpy as np
 import pytest
@@ -106,7 +107,7 @@ class TestPlainKernelVersion:
         w_x, _ = nmf.kl_nmf(torch.from_numpy(v), w0t, h0t, 15)
         np.testing.assert_allclose(w.numpy(), w_x.numpy(), rtol=1e-4)
 
-    @pytest.mark.parametrize("mode", ["bfloat16", "bfloat16_q"])
+    @pytest.mark.parametrize("mode", ["bfloat16", "bfloat16_q", "bfloat16_q_simul"])
     def test_bf16_modes_match_pallas(self, mode):
         v, w0, h0, w0t, h0t = _problem(t=64, f=129, k=16, seed=1, lowrank=True)
         w, h = kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 30, matmul_dtype=mode)
@@ -146,12 +147,64 @@ class TestPlainKernelVersion:
         np.testing.assert_array_equal(w.numpy(), w_p.numpy())
         np.testing.assert_array_equal(h.numpy(), h_p.numpy())
 
-    def test_turbo_mode_is_queued(self):
+    def test_unknown_mode_raises(self):
         v, _, _, w0t, h0t = _problem()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="bfloat16_q_simul")
         with pytest.raises(ValueError, match="matmul_dtype"):
             kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="float16")
+        with pytest.raises(ValueError, match="matmul_dtype"):
+            kl_nmf_cuda(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="float16")
+        with pytest.raises(ValueError, match="matmul_dtype"):
+            nmf.kl_nmf(torch.from_numpy(v), w0t, h0t, 2, matmul_dtype="bfloat16_simul")
+
+
+class TestTurbo:
+    """The turbo mode ("bfloat16_q_simul"): the fp32 twin ``kl_nmf_simul``
+    against JAX's, and the kernel's plain version against JAX's invariants
+    for the Pallas turbo body (test_nmf_pallas.py:163-247)."""
+
+    @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched-alpha"])
+    def test_simul_matches_jax(self, batched):
+        v, w0, h0, w0t, h0t = _problem()
+        alpha = 0.3 if batched else 0.0
+        if batched:
+            v = np.stack([v, 1.5 * v])
+            w0, h0 = np.stack([w0, w0]), np.stack([h0, h0])
+        w, h = nmf.kl_nmf_simul(torch.from_numpy(v), w0t, h0t, 15, sparsity_alpha=alpha)
+        w_j, h_j = jnmf.kl_nmf_simul(jnp.asarray(v), jnp.asarray(w0), jnp.asarray(h0), 15,
+                                     sparsity_alpha=alpha)
+        # 15 fp32 iterations of the same updates: rtol 1e-4 (test_nmf_pallas.py:20-28)
+        np.testing.assert_allclose(w.numpy(), np.asarray(w_j), rtol=1e-4)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_j), rtol=1e-4)
+        # the gain restores Σ(WH) = ΣV per element (test_nmf_pallas.py:243-247)
+        mass = (w.sum(dim=-2) * h.sum(dim=-2)).sum(dim=-1).numpy()
+        np.testing.assert_allclose(mass, v.sum(axis=(-2, -1)), rtol=1e-3)
+
+    def test_plain_kernel_version_finite_and_scale_calibrated(self):
+        v, _, _, w0t, h0t = _problem()
+        w, h = kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 20, matmul_dtype="bfloat16_q_simul")
+        assert torch.isfinite(w).all() and torch.isfinite(h).all()
+        assert (w >= 0).all() and (h >= 0).all()
+        mass = float((w.sum(0) * h.sum(0)).sum())
+        assert mass == pytest.approx(float(v.sum()), rel=2e-2)
+
+    def test_plain_kernel_version_reduces_kl_like_bfloat16_q(self):
+        v, _, _, w0t, h0t = _problem()
+        kl0 = _kl(v, w0t, h0t)
+        kl_std = _kl(v, *kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 25,
+                                      matmul_dtype="bfloat16_q"))
+        kl_sim = _kl(v, *kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 25,
+                                      matmul_dtype="bfloat16_q_simul"))
+        assert kl_sim < 0.5 * kl0, (kl_sim, kl0)
+        assert kl_sim < 3.0 * kl_std, (kl_sim, kl_std)
+
+    def test_wrapper_takes_plain_version_on_cpu(self):
+        v, _, _, w0t, h0t = _problem()
+        before = kl_nmf_cuda.launches
+        got = kl_nmf_cuda(torch.from_numpy(v), w0t, h0t, 5, matmul_dtype="bfloat16_q_simul")
+        want = kl_nmf_plain(torch.from_numpy(v), w0t, h0t, 5, matmul_dtype="bfloat16_q_simul")
+        assert kl_nmf_cuda.launches == before  # no kernel ran
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("rows,cols", [(300, 65), (96, 513), (517, 24), (33, 136), (5, 8)])

@@ -169,6 +169,47 @@ class TestLocalize:
         with pytest.raises(ValueError, match="peaks"):
             localize.estimate_target_tdoa_indexes(self.SPECTRA[1], 2)
 
+    @pytest.mark.parametrize("max_sources", [2, 4, 6])
+    def test_auto_count_on_a_real_spectrum_equals_jax_and_host(self, stereo_signal,
+                                                              max_sources):
+        """The device 2-means on a mixture's mean angular spectrum: JAX's
+        targets and counts, and the host path's sources where it finds no
+        more than ``max_sources`` (test_offline.py:281-305)."""
+        mix, sr = stereo_signal
+        spec = jstft.stft(jnp.asarray(mix), hann_symmetric(1024), 128, conjugate=True)
+        ang = jgcc.angular_spectrogram(jgcc.coherence(spec),
+                                       *jgcc.steering_cos_sin(float(sr), 513, 1.0, 128))
+        mean_ang = np.asarray(jgcc.mean_angular_spectrum(ang))
+        targets, counts = localize.auto_count_targets(_t(mean_ang), max_sources)
+        want_t, want_c = jloc.auto_count_targets(jnp.asarray(mean_ang), max_sources)
+        np.testing.assert_array_equal(targets.numpy(), np.asarray(want_t))
+        assert targets.dtype == counts.dtype == torch.int32
+        assert int(counts) == int(want_c)
+        host = localize.estimate_target_tdoa_indexes(mean_ang, None)
+        if len(host) <= max_sources:
+            assert list(targets.numpy()[: int(counts)]) == host
+        assert (targets.numpy()[int(counts):] == mean_ang.argmax()).all()  # pads: dominant
+
+    @pytest.mark.parametrize("max_sources", [1, 2, 4])
+    def test_auto_count_ties_peakless_rows_and_batch_equal_jax(self, rng, max_sources):
+        """Equal peak heights, a row with one peak, a flat and a monotonic
+        row (no peak: count 1 at the global argmax, the first maximum), two
+        tall and three small peaks (count 2), and a batch of random rows
+        full of ties (test_offline.py:307-326)."""
+        tall = np.zeros(64, np.float32)
+        for i, h in [(10, 5.0), (40, 4.0), (20, 0.2), (30, 0.25), (50, 0.15)]:
+            tall[i] = h
+        rows = [np.pad(a, (0, 64 - a.size)) for a in self.SPECTRA]
+        rows += [tall, np.linspace(0, 1, 64, dtype=np.float32)]
+        for a in [*rows, np.stack(rows), rng.integers(0, 4, (6, 32)).astype(np.float32)]:
+            targets, counts = localize.auto_count_targets(_t(a), max_sources)
+            want_t, want_c = jloc.auto_count_targets(jnp.asarray(a), max_sources)
+            np.testing.assert_array_equal(targets.numpy(), np.asarray(want_t))
+            np.testing.assert_array_equal(counts.numpy(), np.asarray(want_c))
+        targets, counts = localize.auto_count_targets(_t(np.stack(rows)), 4)
+        assert list(counts.numpy()[-2:]) == [2, 1]  # two tall peaks; the ramp has none
+        assert list(targets.numpy()[-2, :2]) == [10, 40] and targets[-1, 0] == 63
+
 
 class TestMasks:
     def _problem(self, t=20, f=17, k=6, seed=0):
