@@ -79,6 +79,29 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    from its small launches, the host-device copies apart), the top kernels,
    and the device's idle share.
 
+8. ``stream``: ``RTGCCNMFProcessor`` at the default ``GCCNMFConfig`` (window
+   1024, hop and block 512, 64 TDOAs at 0.1 m, K = 64, history 128) with a
+   dictionary that the NMF kernel learns (float32, 100 iterations) on |X| of
+   the first mixture; the audio is made from ``--seed + 1`` and rounded to
+   16-bit PCM. ``enhance_signal`` of 10 s at B = 1 in three configurations
+   (default, ``num_h_updates=2``, the low-latency asymmetric windows at hop
+   and block 128, synthesis 256) and at B = 64, each the median of 3 calls
+   after a warm-up that captures the graph; the ``stream --realtime`` command
+   (the host loop, per-block p50/p99 against the 32 ms deadline). Checks:
+   the graph replay equals the eager step on the card block by block (40
+   blocks, 1e-6 x max, equal targets), the card meets the CPU tests' oracle
+   bars against the port's CPU path (SNR > 25 dB, > 0.93 of samples within
+   3e-4 x max), each of the 64 batch elements equals its stream alone
+   (1e-5), and no kernel wrapper launched. Then a profile of one B = 1 call.
+9. ``serve``: ``StreamServer`` with 64 slots and 64 open streams, 300 ticks
+   of the seeded blocks: ``pipeline_depth=2`` with async fetch on the
+   float32 wire and on the int16 wire, then one stream of one slot with
+   synchronous ticks; ``tick_stats()`` of each (tick and delivery p50/p99,
+   deadline misses) and the aggregate realtime factor. Every served stream
+   equals the same blocks through a B = 1 processor (1e-5), the int16 wire
+   the clipped float32 output within one PCM step. Then a profile of 20
+   ticks. Neither phase launches any of the five kernels.
+
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without CUDA it exits non-zero before printing a result.
@@ -131,6 +154,14 @@ MASK_AGREE = {"float32": 0.999, "bfloat16": 0.99}
 # each main path's wall time is the median of this many calls after a
 # warm-up: a single call of `separate` varied by a third between runs
 TIMED_CALLS = 5
+# streaming and serving: B of the batched enhance_signal and the server's
+# slots (all tenanted), the server's ticks, the blocks held graph against
+# eager, and the timed calls of each enhance_signal
+STREAM_BATCH = SERVE_SLOTS = 64
+SERVE_TICKS, REPLAY_BLOCKS, STREAM_CALLS = 300, 40, 3
+# the streaming step's device time by stage, for the profiler
+STREAM_STAGES = {"cuFFT": ("fft", "FFT"), "GEMMs (cuBLAS)": ("gemm", "gemv"),
+                 "H2D copies": ("Memcpy HtoD",), "D2H copies": ("Memcpy DtoH",)}
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
 # limit): 3.35 TB/s of HBM, 67 TFLOP/s fp32 on the SIMT cores, 989 TFLOP/s
@@ -282,6 +313,11 @@ def main() -> int:
         return 1
 
     from gccnmf_torch import _build, cli
+    from gccnmf_torch.config import GCCNMFConfig
+    from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
+    from gccnmf_torch.ops import stft as stft_ops
+    from gccnmf_torch.ops.windows import sqrt_hamming
+    from gccnmf_torch.serving import StreamServer, StreamSettings
     from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
     from gccnmf_torch.ops import gcc, localize, masks
     from gccnmf_torch.models import offline as offline_mod
@@ -973,8 +1009,8 @@ def main() -> int:
 
     # ---- 7. where the time goes: torch.profiler ---------------------------
     def profile_call(call, fn, stages):
-        """Device time by stage, the top kernels and the idle share of one
-        ``fn()`` after a warm-up, and the host's CUDA runtime calls by time
+        """Device time by stage, the top kernels, the device's launches
+        (kernels and copies) and the idle share of one ``fn()`` after a warm-up, and the host's CUDA runtime calls by time
         (a wait for the card shows as a synchronize); ``stages`` maps a
         stage to substrings of its kernels' names. Busy time sums every
         stream, so copies that overlap the compute count twice."""
@@ -986,13 +1022,14 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t1) * 1e3
         by_stage = dict.fromkeys([*stages, "other"], 0.0)
-        top, host = [], []
+        top, host, launches = [], [], 0
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 if ev.key.startswith("cuda"):  # the runtime API, on the host
                     host.append((ev.self_cpu_time_total / 1e3, ev.key, ev.count))
                 continue
             ms = ev.device_time_total / 1e3
+            launches += ev.count
             stage = next((s for s, keys in stages.items() if any(k in ev.key for k in keys)),
                          "other")
             by_stage[stage] += ms
@@ -1001,6 +1038,7 @@ def main() -> int:
         emit("profile", call=call, wall_ms=wall_ms,
              device_busy_ms=busy if busy else "not measured", device_ms_by_stage=by_stage,
              idle_share=(1.0 - busy / wall_ms) if busy else "not measured",
+             device_launches=launches,
              top_kernels=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(top)[::-1][:16]],
              host_cuda_calls=[dict(ms=m, name=k, calls=c) for m, k, c in sorted(host)[::-1][:6]])
 
@@ -1029,6 +1067,193 @@ def main() -> int:
          "soft_mask_cuda": ("coherence_rows_kernel", "score_argmax_kernel", "mask_kernel"),
          "tf_synthesis_cuda": ("wiener_spectra_kernel", "frames_kernel", "ola_kernel")})
     del enh
+
+    # ---- 8. streaming: RTGCCNMFProcessor, one captured graph per step ----
+    # the default GCCNMFConfig (window 1024, hop 512, block 512, 64 TDOAs at
+    # 0.1 m, K = 64, history 128) with a dictionary that the NMF kernel
+    # learns (float32, 100 iterations) on the first mixture's |X| at that
+    # window and hop
+    rt_cfg = GCCNMFConfig()
+    scfg = StreamConfig.from_app_config(rt_cfg)
+    deadline_ms = scfg.block_size / scfg.sample_rate * 1e3
+    x_rt = stft_ops.stft(torch.as_tensor(mix[0], device=dev), sqrt_hamming(scfg.window_size),
+                         scfg.hop_size).abs()  # (2, T, F)
+    t_rt = x_rt.shape[1]
+    w0_rt, h0_rt = nmf_init_numpy(scfg.num_freq, rt_cfg.dictionary_size, 2 * t_rt)
+    w_rt = kl_nmf_cuda(x_rt.reshape(1, 2 * t_rt, scfg.num_freq),
+                       torch.as_tensor(w0_rt, device=dev)[None],
+                       torch.as_tensor(h0_rt, device=dev)[None], NMF_ITERS,
+                       matmul_dtype="float32")[0][0].cpu().numpy()
+    require(bool(np.isfinite(w_rt).all()), "the streaming dictionary is not finite")
+    mix_rt = make_mixture(args.seed + 1, STREAM_BATCH)
+    # int16-born audio, so that the int16 wire carries the same input
+    mix_rt = (np.round(np.clip(mix_rt, -1.0, 1.0 - 2.0**-15) * 32768.0) / 32768.0).astype(
+        np.float32)
+    rt_kw = dict(target_tdoa_index=scfg.num_tdoas / 2.0,
+                 target_epsilon=rt_cfg.target_tdoa_epsilon, target_beta=rt_cfg.target_tdoa_beta,
+                 noise_floor=rt_cfg.target_tdoa_noise_floor,
+                 localization_enabled=rt_cfg.localization_enabled,
+                 localization_window=rt_cfg.localization_window_size)
+    stream_cfgs = {
+        "default": scfg,
+        "num_h_updates=2": dataclasses.replace(scfg, num_h_updates=2),
+        "low-latency": dataclasses.replace(scfg, hop_size=128, block_size=128,
+                                           analysis_window="asymmetric", synthesis_length=256),
+    }
+
+    def timed_calls(fn, calls=STREAM_CALLS):
+        """Median wall seconds of ``fn()`` over ``calls`` calls after a
+        warm-up (which captures the graph), the last result, and the kernel
+        launches of the timed calls."""
+        fn()
+        times = []
+        reset_counts()
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t1)
+        return statistics.median(times), out, counts()
+
+    stream_rows, launches_rt = {}, {}
+    for name, c in stream_cfgs.items():
+        proc = RTGCCNMFProcessor(w_rt, c)
+        params = StreamParams.default(**rt_kw)
+        s1, one, launches_rt[name] = timed_calls(lambda: proc.enhance_signal(mix_rt[0], params))
+        require(one.shape == (1, 2, SR * SECONDS // c.block_size * c.block_size)
+                and np.isfinite(one).all(), f"stream {name}: output shape or values")
+        # the graph against the eager step on the card, block by block
+        blocks = torch.as_tensor(proc.blocks_from_signal(mix_rt[:1]), device=dev)
+        eager, graph, replay_err, replay_scale = proc.init_state(1), proc.init_state(1), 0.0, 0.0
+        for i in range(min(blocks.shape[0], REPLAY_BLOCKS)):
+            eager, want, _ = proc.eager_step(eager, blocks[i], params)
+            graph, got, _ = proc.step(graph, blocks[i], params)
+            replay_err = max(replay_err, float((got - want).abs().max()))
+            replay_scale = max(replay_scale, float(want.abs().max()))
+            require(torch.equal(graph.target_idx, eager.target_idx),
+                    f"stream {name}: graph target differs at block {i}")
+        require(replay_err <= 1e-6 * replay_scale,
+                f"stream {name}: graph against eager {replay_err} > 1e-6 x {replay_scale}")
+        # the card against the port's CPU path (the CPU tests' oracle bars)
+        cpu = RTGCCNMFProcessor(w_rt, c, device="cpu").enhance_signal(
+            mix_rt[0], StreamParams.default(**rt_kw, device="cpu"))
+        err = one - cpu
+        snr = snr_db(cpu, one)
+        tight = float((np.abs(err) < 3e-4 * np.abs(cpu).max()).mean())
+        require(snr > 25.0 and tight > 0.93, f"stream {name}: card against CPU {snr} dB, {tight}")
+        stream_rows[name] = dict(
+            hop=c.hop_size, block=c.block_size, analysis_window=c.analysis_window,
+            num_h_updates=c.num_h_updates, blocks=int(blocks.shape[0]),
+            algorithmic_latency_ms=c.algorithmic_latency_s * 1e3,
+            enhance_signal_b1_s=s1, audio_s_per_s_b1=SECONDS / s1,
+            graph_vs_eager=dict(blocks=min(blocks.shape[0], REPLAY_BLOCKS),
+                                max_abs_err=replay_err, bar=f"1e-6 x {replay_scale}"),
+            card_vs_cpu=dict(snr_db=snr, tight_share=tight, bars="> 25 dB, > 0.93"))
+        del proc
+    proc1 = RTGCCNMFProcessor(w_rt, scfg)
+    params1 = StreamParams.default(**rt_kw)
+    procb = RTGCCNMFProcessor(w_rt, scfg)
+    sb, many, launches_rt["default, B=64"] = timed_calls(
+        lambda: procb.enhance_signal(mix_rt, params1))
+    batch_err = 0.0
+    for i in range(STREAM_BATCH):  # each batch element against its stream alone
+        batch_err = max(batch_err, float(np.abs(
+            many[i] - proc1.enhance_signal(mix_rt[i], params1)[0]).max()))
+    require(batch_err <= 1e-5, f"stream B={STREAM_BATCH}: element against alone {batch_err}")
+    require(all(v == 0 for c in launches_rt.values() for v in c.values()),
+            f"the streaming path launched a kernel: {launches_rt}")
+    # the --realtime host loop through the stream command, at B = 1
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dic = os.path.join(tmp, "stream_mix.wav"), os.path.join(tmp, "W.npy")
+        wav.write_wav(mix_rt[0], src, SR)
+        np.save(dic, w_rt)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            require(cli.main(["stream", "-i", src, "-o", os.path.join(tmp, "rt.wav"),
+                              "--dictionary-file", dic, "--realtime"]) == 0, "stream --realtime")
+        realtime = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rt_out, _ = wav.read_wav(realtime["output"])
+        require(np.isfinite(rt_out).all() and rt_out.shape[-1] == realtime["blocks"] * 512,
+                "stream --realtime: output")
+    emit("stream", device=kind, nvidia_smi=smi,
+         config="GCCNMFConfig() (window 1024, hop 512, block 512, 64 TDOAs, K = 64)",
+         configs=stream_rows, batch=STREAM_BATCH, enhance_signal_batch_s=sb,
+         audio_s_per_s_batch=STREAM_BATCH * SECONDS / sb,
+         batch_vs_alone=dict(max_abs_err=batch_err, bar="1e-5"),
+         realtime_host_loop=dict(p50_ms=realtime["p50_ms"], p99_ms=realtime["p99_ms"],
+                                 deadline_ms=realtime["deadline_ms"],
+                                 deadline_misses=realtime["deadline_misses"],
+                                 blocks=realtime["blocks"]),
+         deadline_ms=deadline_ms, launches=launches_rt)
+    profile_call(f"stream enhance_signal (B=1, {SECONDS} s, GCCNMFConfig())",
+                 lambda: proc1.enhance_signal(mix_rt[0], params1), STREAM_STAGES)
+
+    # ---- 9. serving: StreamServer, one captured graph per tick -------------
+    blocks_rt = proc1.blocks_from_signal(mix_rt)[:SERVE_TICKS]  # (ticks, 64, 2, 512)
+
+    def serve(slots, streams, **kw):
+        """SERVE_TICKS ticks of ``streams`` seeded streams on a server of
+        ``slots`` slots; per stream its blocks, and the tick stats."""
+        server = StreamServer(w_rt, scfg, max_streams=slots, **kw)
+        sids = [server.open_stream(StreamSettings(target_tdoa_index=scfg.num_tdoas / 2.0))
+                for _ in range(streams)]
+        got = {sid: [] for sid in sids}
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(SERVE_TICKS):
+            out = server.process({sid: blocks_rt[t, i] for i, sid in enumerate(sids)})
+            for sid, blk in out.items():
+                got[sid].append(blk)
+        for tail in server.flush():
+            for sid, blk in tail.items():
+                got[sid].append(blk)
+        wall = time.perf_counter() - t1
+        server.close()
+        c = counts()
+        require(all(v == 0 for v in c.values()), f"the server launched a kernel: {c}")
+        stats = server.tick_stats()
+        outs = np.stack([np.concatenate(got[sid], axis=-1) for sid in sids])
+        require(outs.shape == (streams, 2, SERVE_TICKS * scfg.block_size)
+                and np.isfinite(outs).all(), "serve: output shape or values")
+        audio_s = streams * SERVE_TICKS * scfg.block_size / scfg.sample_rate
+        return outs, dict(slots=slots, streams=streams, ticks=SERVE_TICKS, wall_s=wall,
+                          realtime_factor=audio_s / wall, tick_stats=stats, **kw)
+
+    # each served stream against the same blocks through a batch-1 processor
+    alone = np.stack([proc1.scan_blocks(proc1.init_state(1), blocks_rt[:, i:i + 1],
+                                        params1)[1].movedim(0, 2).reshape(
+                                            2, -1).cpu().numpy()
+                      for i in range(SERVE_SLOTS)])
+    served_f32, serve_f32 = serve(SERVE_SLOTS, SERVE_SLOTS, pipeline_depth=2, async_fetch=True)
+    serve_err = float(np.abs(served_f32 - alone).max())
+    require(serve_err <= 1e-5, f"serve: a slot against its stream alone {serve_err} > 1e-5")
+    served_i16, serve_i16 = serve(SERVE_SLOTS, SERVE_SLOTS, pipeline_depth=2, async_fetch=True,
+                           wire_dtype="int16")
+    # the int16 wire quantizes as the WAV writer does: clip, then truncate
+    wire_err = float(np.abs(served_i16 - np.clip(served_f32, -1.0, 1.0 - 2.0**-15)).max())
+    require(wire_err <= 2.0**-15 + 1e-7, f"serve: int16 wire against float32 {wire_err}")
+    served_sync, serve_sync = serve(1, 1)
+    sync_err = float(np.abs(served_sync[0] - alone[0]).max())
+    require(sync_err <= 1e-5, f"serve: synchronous stream against alone {sync_err}")
+    emit("serve", device=kind, nvidia_smi=smi, config="GCCNMFConfig()",
+         runs=[serve_f32, serve_i16, serve_sync],
+         slot_vs_alone=dict(max_abs_err=serve_err, bar="1e-5"),
+         int16_vs_float32=dict(max_abs_err=wire_err, bar="2^-15 + 1e-7 against the clipped "
+                                                          "float32 output"),
+         sync_vs_alone=dict(max_abs_err=sync_err, bar="1e-5"))
+    server = StreamServer(w_rt, scfg, max_streams=SERVE_SLOTS, pipeline_depth=2,
+                          async_fetch=True)
+    sids = [server.open_stream() for _ in range(SERVE_SLOTS)]
+
+    def ticks20():
+        for t in range(20):
+            server.process({sid: blocks_rt[t, i] for i, sid in enumerate(sids)})
+        server.flush()
+
+    profile_call(f"serve 20 ticks ({SERVE_SLOTS} slots, depth 2, async fetch, float32 wire)",
+                 ticks20, STREAM_STAGES)
+    server.close()
 
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,

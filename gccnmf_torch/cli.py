@@ -1,12 +1,17 @@
-"""Command-line entry point of the port (counterpart of ``gccnmf-separate`` in
-``gccnmf_tpu/cli.py``): offline separation of stereo WAVs, the reference's
-``runGCCNMF.py``.
+"""Command-line entry points of the port (counterparts of ``gccnmf-separate``,
+``gccnmf-stream`` and ``gccnmf-serve`` in ``gccnmf_tpu/cli.py``):
 
     python -m gccnmf_torch.cli mix_a.wav [mix_b.wav ...] [--turbo] [--auto-sources]
+    python -m gccnmf_torch.cli stream -i mix.wav [-o out.wav] [--low-latency] [--realtime]
+    python -m gccnmf_torch.cli serve -i a.wav b.wav ... [--wire-dtype int16]
 
-It runs on the card unless ``--device cpu`` is given, writes
-``<prefix>_sim_<n>.wav`` per source and prints one JSON line: a flat object
-for one input, ``{"files": [...]}`` for several.
+The first separates stereo WAVs offline (the reference's ``runGCCNMF.py``),
+writing ``<prefix>_sim_<n>.wav`` per source; ``stream`` enhances one WAV
+block by block (the reference's ``runRealtimeGCCNMF.py --no-gui``);
+``serve`` enhances one stream per WAV in lockstep ticks. Each runs on the
+card unless ``--device cpu`` is given and prints one JSON line, with the
+JAX commands' keys. ``stream`` and ``serve`` take their dictionary from
+``--dictionary-file`` or the INI's ``dictionaryFile``.
 """
 
 from __future__ import annotations
@@ -19,10 +24,14 @@ import sys
 
 import numpy as np
 
-__all__ = ["separate_main"]
+__all__ = ["separate_main", "stream_main", "serve_main", "main"]
 
 _LONG_AUDIO = (
     "is the long-audio pipeline, which is not ported yet (ROADMAP.md, Queue 1 item 6)"
+)
+_NO_DICTIONARY = (
+    "no dictionary: pass --dictionary-file or set dictionaryFile in the INI config "
+    "(a .npy (F, K) array); pretraining one is not ported yet (ROADMAP.md, Queue 1 item 5)"
 )
 
 
@@ -125,5 +134,283 @@ def _require_stereo(audio, path, num_channels=2):
         )
 
 
+def _load_dictionary(cfg) -> np.ndarray:
+    """The (F, K) nonnegative dictionary of ``cfg.dictionary_file``, checked
+    as the JAX package's ``pretrain.load_dictionary_file`` checks it."""
+    path = cfg.dictionary_file
+    if not path:
+        raise SystemExit(_NO_DICTIONARY)
+    w = np.load(path)
+    if w.ndim != 2:
+        raise ValueError(f"{path}: expected a (F, K) array, got {w.shape}")
+    if w.shape[0] != cfg.num_freq:
+        raise ValueError(
+            f"{path}: dictionary has {w.shape[0]} frequency rows but the "
+            f"configured window expects {cfg.num_freq}"
+        )
+    if np.min(w) < 0:
+        raise ValueError(f"{path}: dictionary must be nonnegative")
+    return np.ascontiguousarray(w, np.float32)
+
+
+def stream_main(argv=None):
+    """Headless streaming enhancement (the --no-gui realtime mode)."""
+    ap = argparse.ArgumentParser(description="Streaming RT-GCC-NMF enhancement")
+    ap.add_argument("-i", "--input", required=True, help="input WAV path")
+    ap.add_argument("-o", "--output", default=None)
+    ap.add_argument("-c", "--config", default=None, help="INI config file")
+    ap.add_argument("--reference-delay", action="store_true",
+                    help="reproduce the reference's 2-block output delay")
+    ap.add_argument("--low-latency", action="store_true",
+                    help="asymmetric analysis/synthesis windows, emitting "
+                         "every hop (block_size = hop)")
+    ap.add_argument("--synthesis-length", type=int, default=256,
+                    help="synthesis-window support for --low-latency mode; "
+                         "the hop is clamped to synthesis_length/2 so the "
+                         "COLA condition holds")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="samples per emitted block (must be a multiple of "
+                         "the hop); defaults to the config block size, or to "
+                         "one hop in --low-latency mode")
+    ap.add_argument("--realtime", action="store_true",
+                    help="host-loop block-by-block with deadline telemetry")
+    ap.add_argument("--dictionary-file", default=None,
+                    help=".npy (F, K) dictionary artifact")
+    ap.add_argument("--num-h-updates", type=int, default=None,
+                    help="per-block H-inference steps against the frozen "
+                         "dictionary (H-aware Wiener mask); 0 = the "
+                         "reference's W-only realtime rule. Also settable "
+                         "as numHUpdates in the INI config")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the card (default) or on the CPU")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO)
+
+    from gccnmf_torch.config import load_config
+    from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
+    from gccnmf_torch.utils import wav
+
+    overrides = {}
+    if args.num_h_updates is not None:
+        if args.num_h_updates < 0:
+            ap.error("--num-h-updates must be >= 0")
+        overrides["num_h_updates"] = args.num_h_updates
+    cfg = load_config(args.config, audio_path=args.input,
+                      dictionary_file=args.dictionary_file, **overrides)
+
+    # Flag validation needs only the config: do it before loading anything.
+    # Low-latency mode needs hop <= synthesis_length/2 for COLA, and emits
+    # every hop (block_size = hop) unless told otherwise.
+    hop = cfg.hop_size
+    if args.low_latency:
+        if args.synthesis_length < 2:
+            ap.error("--synthesis-length must be >= 2 (got %d)" % args.synthesis_length)
+        hop = min(hop, args.synthesis_length // 2)
+    block = args.block_size
+    if block is None:
+        block = hop if args.low_latency else cfg.block_size
+    elif block < 1 or block % hop != 0:
+        ap.error("--block-size %d is not a positive multiple of the hop (%d)" % (block, hop))
+
+    stereo, sr = wav.read_wav(args.input)
+    _require_stereo(stereo, args.input)
+    if stereo.shape[-1] < block:
+        ap.error("input is shorter than one %d-sample block" % block)
+    w = _load_dictionary(cfg)
+    scfg = StreamConfig.from_app_config(
+        cfg,
+        sample_rate=sr,
+        hop_size=hop,
+        block_size=block,
+        synthesis_length=args.synthesis_length,
+        extra_delay_blocks=1 if args.reference_delay else 0,
+        analysis_window="asymmetric" if args.low_latency else "sqrt_hamming",
+    )
+    params = StreamParams.default(
+        # broadside for this grid: with localization off this is the mask center
+        target_tdoa_index=scfg.num_tdoas / 2.0,
+        target_epsilon=cfg.target_tdoa_epsilon,
+        target_beta=cfg.target_tdoa_beta,
+        noise_floor=cfg.target_tdoa_noise_floor,
+        localization_enabled=cfg.localization_enabled,
+        localization_window=cfg.localization_window_size,
+        device=args.device,
+    )
+    proc = RTGCCNMFProcessor(w, scfg, device=args.device)
+
+    if args.realtime:
+        import time
+
+        import torch
+
+        blocks = proc.blocks_from_signal(stereo)
+        state = proc.init_state(1)
+        outs, times = [], []
+        for i in range(blocks.shape[0]):
+            t0 = time.perf_counter()
+            state, out, _ = proc.step(state, torch.from_numpy(blocks[i]), params)
+            if proc.device.type == "cuda":
+                torch.cuda.synchronize(proc.device)
+            times.append(time.perf_counter() - t0)
+            outs.append(out.cpu().numpy())
+        out = np.concatenate([o[0] for o in outs], axis=-1)
+        deadline = scfg.block_size / sr
+        stats = dict(
+            p50_ms=round(float(np.percentile(times, 50)) * 1e3, 3),
+            p99_ms=round(float(np.percentile(times, 99)) * 1e3, 3),
+            deadline_ms=round(deadline * 1e3, 3),
+            deadline_misses=int(np.sum(np.asarray(times) > deadline)),
+            blocks=len(times),
+        )
+    else:
+        out = proc.enhance_signal(stereo, params)[0]
+        stats = dict(blocks=out.shape[-1] // scfg.block_size)
+
+    out_path = args.output or os.path.splitext(args.input)[0] + "_rtenhanced.wav"
+    wav.write_wav(out, out_path, sr)
+    print(json.dumps(dict(
+        output=out_path,
+        algorithmic_latency_ms=round(scfg.algorithmic_latency_s * 1e3, 3),
+        **stats,
+    )))
+    return 0
+
+
+def serve_main(argv=None):
+    """Multi-stream serving: one stream per input WAV, lockstep ticks.
+    Streams whose files end close early; ticks continue until all drain."""
+    ap = argparse.ArgumentParser(description="Multi-stream GCC-NMF server")
+    ap.add_argument("-i", "--inputs", nargs="+", required=True,
+                    help="input WAV paths (one stream each)")
+    ap.add_argument("-o", "--output-dir", default=".",
+                    help="directory for <name>_enhanced.wav outputs")
+    ap.add_argument("-c", "--config", default=None, help="INI config file")
+    ap.add_argument("--dictionary-file", default=None,
+                    help=".npy (F, K) dictionary artifact")
+    ap.add_argument("--max-streams", type=int, default=None,
+                    help="slot count (default: number of inputs)")
+    ap.add_argument("--dictionary-size", type=int, default=None,
+                    help="atoms of a pretrained dictionary (pretraining is not "
+                         "ported; the size of --dictionary-file rules)")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="stop each stream after N blocks")
+    ap.add_argument("--pipeline-depth", type=int, default=2,
+                    help="ticks of dispatch pipelining: N>0 moves the "
+                         "host<->device round trip off the tick deadline "
+                         "path at the cost of N blocks of serving latency; "
+                         "0 restores strictly synchronous ticks")
+    ap.add_argument("--sync-fetch", action="store_true",
+                    help="block each tick on its due output instead of "
+                         "fetching on the consumer thread (diagnostic)")
+    ap.add_argument("--wire-dtype", choices=["float32", "int16"], default="float32",
+                    help="int16 ships tick blocks/outputs as 16-bit PCM "
+                         "(half the link bytes); outputs are quantized exactly "
+                         "as the WAV writer would quantize them")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="serve on the card (default) or on the CPU")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO)
+
+    from gccnmf_torch.config import load_config
+    from gccnmf_torch.models.realtime import StreamConfig
+    from gccnmf_torch.serving import StreamServer, StreamSettings
+    from gccnmf_torch.utils import wav as wavio
+
+    cfg = load_config(args.config, dictionary_file=args.dictionary_file)
+    scfg = StreamConfig.from_app_config(cfg)
+    if args.max_streams is not None and args.max_streams < len(args.inputs):
+        # every input holds a slot for its whole run; excess inputs are not
+        # queued
+        ap.error(
+            f"--max-streams {args.max_streams} < {len(args.inputs)} inputs "
+            "(each input holds a slot for its whole run)"
+        )
+    w = _load_dictionary(cfg)
+    server = StreamServer(
+        w, scfg, max_streams=args.max_streams or len(args.inputs),
+        pipeline_depth=args.pipeline_depth,
+        async_fetch=not args.sync_fetch,
+        wire_dtype=args.wire_dtype,
+        device=args.device,
+    )
+
+    streams = {}
+    for path in args.inputs:
+        audio, sr = wavio.read_wav(path)
+        if sr != scfg.sample_rate:
+            raise SystemExit(f"{path}: sample rate {sr} != {scfg.sample_rate}")
+        if audio.ndim != 2 or audio.shape[0] != scfg.num_channels:
+            raise SystemExit(
+                f"{path}: expected {scfg.num_channels}-channel audio, got "
+                f"shape {audio.shape} (GCC-PHAT needs a stereo pair)"
+            )
+        nb = audio.shape[-1] // scfg.block_size
+        if args.blocks:
+            nb = min(nb, args.blocks)
+        # broadside mask center for this grid
+        sid = server.open_stream(StreamSettings(target_tdoa_index=scfg.num_tdoas / 2.0))
+        streams[sid] = dict(path=path, audio=audio, nb=nb, sub=0, out=[])
+        if nb == 0:  # shorter than one block: nothing to process
+            server.close_stream(sid)
+
+    def collect(tick_out):
+        for sid, block in tick_out.items():
+            s = streams[sid]
+            s["out"].append(block)
+            if len(s["out"]) >= s["nb"]:
+                server.close_stream(sid)
+
+    # submissions and receipts diverge under pipelining (outputs lag by
+    # pipeline_depth ticks); flush() drains the tail after the last submit
+    live = {sid for sid, s in streams.items() if s["nb"] > 0}
+    while live:
+        subs = {}
+        for sid in list(live):
+            s = streams[sid]
+            b = s["sub"]
+            subs[sid] = s["audio"][:, b * scfg.block_size:(b + 1) * scfg.block_size]
+            s["sub"] += 1
+            if s["sub"] >= s["nb"]:
+                live.discard(sid)
+        collect(server.process(subs))
+    for tick_out in server.flush():
+        collect(tick_out)
+    server.close()  # stop the async fetch worker
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    outputs = []
+    used = set()
+    for sid, s in streams.items():
+        name = os.path.splitext(os.path.basename(s["path"]))[0]
+        stem, k = name, 1
+        while stem in used:  # same-named inputs: disambiguate
+            k += 1
+            stem = f"{name}_{k}"
+        used.add(stem)
+        path = os.path.join(args.output_dir, f"{stem}_enhanced.wav")
+        audio_out = (np.concatenate(s["out"], axis=-1) if s["out"]
+                     else np.zeros((scfg.num_channels, 0), np.float32))
+        wavio.write_wav(audio_out, path, scfg.sample_rate)
+        outputs.append(path)
+    print(json.dumps(dict(outputs=outputs, streams=len(streams), **server.tick_stats())))
+    return 0
+
+
+COMMANDS = {"separate": separate_main, "stream": stream_main, "serve": serve_main}
+
+
+def main(argv=None):
+    """``stream`` or ``serve`` as the first argument picks that command;
+    anything else (a WAV path, or ``separate``) separates."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in COMMANDS:
+        return COMMANDS[argv[0]](argv[1:])
+    return separate_main(argv)
+
+
 if __name__ == "__main__":
-    sys.exit(separate_main())
+    sys.exit(main())

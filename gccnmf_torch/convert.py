@@ -2,7 +2,8 @@
 
 The seeded NMF init (``nmf_init_numpy``), the steering planes
 (``gcc.steering_cos_sin``), the analysis window and a learned dictionary are
-all host NumPy arrays in the JAX package; this checks each one's dtype and
+all host NumPy arrays in the JAX package; so are the leaves of a streaming
+``StreamState`` once fetched. These functions check each one's dtype and
 shape before it becomes a tensor on ``device``.
 """
 
@@ -11,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_numpy_state"]
+from gccnmf_torch.models.realtime import StreamState
+
+__all__ = ["from_numpy_state", "stream_state_from_numpy"]
 
 # key → required rank (a leading batch axis is allowed on the NMF state)
 _RANKS = {"w0": (2, 3), "h0": (2, 3), "cos": (2,), "sin": (2,), "window": (1,), "w": (2,)}
@@ -46,3 +49,42 @@ def from_numpy_state(arrays: dict, device="cpu") -> dict:
     if len(f) > 1:
         raise ValueError(f"frequency bins disagree across the state: {sorted(f)}")
     return out
+
+
+# StreamState leaf → (dtype, rank); every leaf leads with the stream batch B
+_STREAM_LEAVES = {
+    "carry_in": (np.float32, 3),  # (B, C, window - hop)
+    "ola_acc": (np.float32, 3),  # (B, C, ola_length)
+    "gcc_history": (np.float32, 3),  # (B, history, D)
+    "hist_count": (np.int32, 1),  # (B,)
+    "target_idx": (np.float32, 1),  # (B,)
+    "delay_buf": (np.float32, 4),  # (B, C, extra_delay_blocks, block); may be 0 long
+}
+
+
+def stream_state_from_numpy(leaves, device="cpu") -> StreamState:
+    """A streaming state fetched from the JAX engine (a ``StreamState`` of
+    NumPy arrays, or a mapping of its field names) → the port's
+    :class:`StreamState` on ``device``. Missing or unknown leaves, another
+    dtype, another rank and a batch or channel count that disagrees across
+    leaves raise. ``delay_buf`` may have a zero-length FIFO axis."""
+    if hasattr(leaves, "_asdict"):
+        leaves = leaves._asdict()
+    leaves = dict(leaves)
+    if set(leaves) != set(_STREAM_LEAVES):
+        raise KeyError(f"stream state leaves {sorted(leaves)}: want {sorted(_STREAM_LEAVES)}")
+    out = {}
+    for key, (dtype, rank) in _STREAM_LEAVES.items():
+        arr = np.asarray(leaves[key])
+        if arr.dtype != dtype:
+            raise TypeError(f"{key}: expected {np.dtype(dtype).name}, got {arr.dtype}")
+        if arr.ndim != rank:
+            raise ValueError(f"{key}: expected rank {rank}, got shape {arr.shape}")
+        out[key] = torch.from_numpy(np.array(arr)).to(device)  # a copy: JAX's are read-only
+    batch = {v.shape[0] for v in out.values()}
+    if len(batch) > 1:
+        raise ValueError(f"stream batch disagrees across the state: {sorted(batch)}")
+    channels = {out[k].shape[1] for k in ("carry_in", "ola_acc", "delay_buf")}
+    if len(channels) > 1:
+        raise ValueError(f"channel count disagrees across the state: {sorted(channels)}")
+    return StreamState(**out)

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
+from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
+from gccnmf_torch.serving import StreamServer, StreamSettings, float_to_pcm
 from gccnmf_torch.ops import gcc, masks
 from gccnmf_torch.ops.enhance_cuda import (
     argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
@@ -492,3 +494,154 @@ def test_enhancer_h_updates_take_the_fp32_argmax(cuda, monkeypatch):
     want = literal(arg, target.to(torch.float32)[:, None, None], 5.0, 0.0, 0.0)
     assert torch.equal(seen[0], want)
     assert float(want.max()) < 1.0  # 0**0 = 1: exp(−1) at distance 0 too
+
+
+# ---- the streaming engine and the server: a captured CUDA graph per step --
+
+STREAM_CONFIGS = {
+    "default": StreamConfig(),
+    "delay-fifo-h-updates": StreamConfig(extra_delay_blocks=1, num_h_updates=2),
+    "low-latency-boxcar": StreamConfig(hop_size=128, block_size=128, target_mode=0,
+                                       analysis_window="asymmetric", synthesis_length=256),
+}
+
+
+def _stream_problem(cfg, batch, blocks, k=32, seed=0):
+    """A dictionary and (batch, 2, n) mixtures of one delayed noise source
+    and a little independent noise per channel."""
+    rng = np.random.default_rng(seed)
+    w = rng.random((cfg.num_freq, k)).astype(np.float32) + 1e-3
+    s = rng.standard_normal((batch, blocks * cfg.block_size)).astype(np.float32) * 0.1
+    noise = rng.standard_normal((batch, 2, s.shape[-1])).astype(np.float32) * 0.01
+    mix = np.stack([s, np.roll(s, 3, axis=-1)], axis=1) + noise
+    return w, mix.astype(np.float32)
+
+
+@pytest.mark.parametrize("name", list(STREAM_CONFIGS))
+def test_stream_graph_replay_matches_eager(cuda, name):
+    """The captured step equals the eager step on the card block by block
+    (output and every state leaf), through a parameter change that
+    re-captures nothing."""
+    cfg = STREAM_CONFIGS[name]
+    w, mix = _stream_problem(cfg, 3, 12)
+    proc = RTGCCNMFProcessor(w, cfg, device=cuda)
+    blocks = torch.as_tensor(proc.blocks_from_signal(mix), device=cuda)
+    params = [StreamParams.default(localization_window=4, device=cuda),
+              StreamParams.default(target_epsilon=2.0, target_beta=1.0, noise_floor=0.1,
+                                   localization_enabled=False, target_tdoa_index=20.0,
+                                   device=cuda)]
+    eager, graph = proc.init_state(3), proc.init_state(3)
+    for i in range(blocks.shape[0]):
+        p = params[i >= 6]
+        eager, want, tel_e = proc.eager_step(eager, blocks[i], p)
+        graph, got, tel_g = proc.step(graph, blocks[i], p)
+        scale = max(float(want.abs().max()), 1e-9)
+        assert float((got - want).abs().max()) <= 1e-6 * scale, f"block {i}"
+        for a, b in zip(graph, eager):
+            assert a.shape == b.shape
+            if b.numel():
+                assert float((a.double() - b.double()).abs().max()) <= 1e-6 * max(
+                    float(b.abs().max()), 1.0)
+        assert torch.equal(graph.target_idx, eager.target_idx)
+        assert torch.equal(tel_g["coefficient_mask"], tel_e["coefficient_mask"])
+    assert list(proc._graphs) == [3]  # one graph: the parameter change re-captured nothing
+
+
+def test_stream_on_card_matches_cpu(cuda):
+    """``enhance_signal`` on the card against the port's CPU path: the
+    streaming oracle's bars (SNR > 25 dB, > 0.93 of samples within 3e-4 x
+    max) and the coefficient masks agreeing on > 0.995."""
+    cfg = StreamConfig(num_h_updates=2)
+    w, mix = _stream_problem(cfg, 1, 30, k=64, seed=1)
+    params = dict(target_tdoa_index=30.0, localization_enabled=False)
+    want = RTGCCNMFProcessor(w, cfg, device="cpu").enhance_signal(
+        mix, StreamParams.default(**params, device="cpu"))
+    got = RTGCCNMFProcessor(w, cfg, device=cuda).enhance_signal(
+        mix, StreamParams.default(**params, device=cuda))
+    err = got - want
+    assert 10 * np.log10((want ** 2).sum() / (err ** 2).sum()) > 25.0
+    assert (np.abs(err) < 3e-4 * np.abs(want).max()).mean() > 0.93
+    masks_ = []
+    for dev in ("cpu", cuda):
+        proc = RTGCCNMFProcessor(w, cfg, device=dev)
+        blocks = proc.blocks_from_signal(mix)
+        _, (_, tel) = proc.scan_blocks(proc.init_state(1), blocks,
+                                       StreamParams.default(**params, device=dev), True)
+        masks_.append(tel["coefficient_mask"].cpu())
+    assert float((masks_[0] == masks_[1]).float().mean()) > 0.995
+
+
+def test_served_slot_equals_stream_alone(cuda):
+    """Every one of 64 served streams (pipeline depth 2, async fetch, other
+    settings per stream) gives what its stream gives through a batch-1
+    processor, at JAX's 1e-5: the argmax inputs are batch-invariant."""
+    cfg = StreamConfig()
+    n_streams, ticks = 64, 10
+    w, mix = _stream_problem(cfg, n_streams, ticks, k=64, seed=2)
+    server = StreamServer(w, cfg, max_streams=n_streams, pipeline_depth=2, async_fetch=True,
+                          device=cuda)
+    settings = [StreamSettings(target_tdoa_index=float(8 + i % 48),
+                               localization_enabled=bool(i % 2),
+                               target_epsilon=3.0 + i % 4) for i in range(n_streams)]
+    sids = [server.open_stream(s) for s in settings]
+    blocks = RTGCCNMFProcessor(w, cfg, device="cpu").blocks_from_signal(mix)
+    got = {sid: [] for sid in sids}
+    for t in range(ticks):
+        for sid, out in server.process({sid: blocks[t, i] for i, sid in enumerate(sids)}).items():
+            got[sid].append(out)
+    for tail in server.flush():
+        for sid, out in tail.items():
+            got[sid].append(out)
+    server.close()
+    proc = RTGCCNMFProcessor(w, cfg, device=cuda)
+    for i, sid in enumerate(sids):
+        s = settings[i]
+        params = StreamParams.default(
+            target_tdoa_index=s.target_tdoa_index, target_epsilon=s.target_epsilon,
+            localization_enabled=s.localization_enabled, device=cuda)
+        state = proc.init_state(1)
+        for t in range(ticks):
+            state, solo, _ = proc.step(state, blocks[t, i:i + 1], params)
+            np.testing.assert_allclose(got[sid][t], solo[0].cpu().numpy(), atol=1e-5)
+
+
+def test_int16_wire_on_card(cuda):
+    """The int16 wire converts inside the graph: it equals the float32
+    server up to output quantization on int16-born input; a NaN tenant's
+    output is 0 (JAX's rule on the CPU) and its co-tenant is bit-exact."""
+    cfg = StreamConfig()
+    w, mix = _stream_problem(cfg, 2, 6, k=16, seed=3)
+    blocks = RTGCCNMFProcessor(w, cfg, device="cpu").blocks_from_signal(mix)
+    blocks = (np.round(np.clip(blocks, -1, 0.999) * 32768.0) / 32768.0).astype(np.float32)
+    srv_f = StreamServer(w, cfg, max_streams=2, device=cuda)
+    srv_i = StreamServer(w, cfg, max_streams=2, wire_dtype="int16", device=cuda)
+    srv_nan = StreamServer(w, cfg, max_streams=2, wire_dtype="int16", device=cuda)
+    sf, si = srv_f.open_stream(), srv_i.open_stream()
+    good, bad = srv_nan.open_stream(), srv_nan.open_stream()
+    poison = np.full(blocks.shape[2:], np.nan, np.float32)
+    for t in range(blocks.shape[0]):
+        out_f = srv_f.process({sf: blocks[t, 0]})[sf]
+        out_i = srv_i.process({si: blocks[t, 0]})[si]
+        assert out_i.dtype == np.float32
+        np.testing.assert_allclose(out_i, out_f, atol=2.0**-15 + 1e-7)
+        out = srv_nan.process({good: blocks[t, 0], bad: poison})
+        assert np.array_equal(out[good], out_i)
+        assert np.array_equal(out[bad], np.zeros_like(out[bad]))
+    x = torch.tensor([np.nan, np.inf, -np.inf, 0.7, -0.99999, 1.0], device=cuda)
+    assert float_to_pcm(x).tolist() == [0, 32767, -32768, 22937, -32767, 32767]
+
+
+def test_default_stream_objects_live_on_the_card(cuda):
+    """``device=None`` puts every tensor of the processor, its state, the
+    default parameters and the server's state on the card."""
+    cfg = StreamConfig()
+    w, _ = _stream_problem(cfg, 1, 1, k=8)
+    proc = RTGCCNMFProcessor(w, cfg)
+    tensors = [v for v in vars(proc).values() if isinstance(v, torch.Tensor)]
+    tensors += [t for v in vars(proc).values() if isinstance(v, tuple)
+                for t in v if isinstance(t, torch.Tensor)]
+    tensors += list(proc.init_state(2)) + list(StreamParams.default())
+    server = StreamServer(w, cfg, max_streams=2)
+    tensors += list(server._state)
+    assert len(tensors) > 20
+    assert all(t.device.type == "cuda" for t in tensors)
