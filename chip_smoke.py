@@ -101,6 +101,37 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    equals the same blocks through a B = 1 processor (1e-5), the int16 wire
    the clipped float32 output within one PCM step. Then a profile of 20
    ticks. Neither phase launches any of the five kernels.
+10. ``pretrain``: 64 seeded 10 s 16 kHz stereo WAVs (``make_mixture``,
+    ``--seed + 2``, 39,808 frames, cut to the default 20,000) through
+    ``cli.pretrain_main`` with ``--sizes 64 128 256``, the default window,
+    hop and 100 iterations: each size's seconds and ``kl_nmf_cuda``
+    launches (1 each; 0 each on a second run, the cache hit), the cache
+    files named by the in-process corpus's fingerprint, each W equal to one
+    kernel call (float32) from the seeded init, that call within rtol 1e-4
+    of the plain version after 15 iterations and within 0.5 % of its KL at
+    100 (one CUDA-event time of each 100-iteration call per size);
+    ``checkpoint.kl_nmf_checkpointed`` (100 iterations in chunks of
+    25, and resumed from iteration 50) bit-equal to one call; the kernel
+    row of kernel 1 at the corpus shape (B = 1, T = 20,000, K = 256); and
+    ``get_dictionaries``' larger sizes (K = 512, 1,024) within rtol 1e-4 of
+    the plain version after 15 iterations on the same corpus.
+11. ``online``: ``OnlineGCCNMFEnhancer`` with the pretrained W_64 and the
+    default ``OnlineConfig`` (sliding, window 1024, hop 512, 64 TDOAs) on
+    10 s of the WAVs at B = 1 and 16, and with exponential and cumulative
+    smoothing and ``num_h_updates=2`` at B = 1, each the median of 5 calls
+    after a warm-up; each batch element within 1e-5 x max of itself alone,
+    each configuration against the CPU (> 25 dB, targets equal on >= 99 %
+    of frames), no kernel launched; then a profile of the B = 16 call.
+12. ``enhance_cli``: ``cli.enhance_main`` over 16 of the WAVs in one call,
+    ``--mode online`` and ``--mode offline`` with ``--dictionary-file
+    W_64.npy``: each output equal to the in-process enhancer's as the WAV
+    writer stores it; offline, the front-end, soft-mask and Wiener-synthesis
+    kernels launched once a file, the same command on the CPU matched
+    (> 45 dB per channel), and each of the three kernels held against its
+    plain version at the command's shapes (window 1024, hop 512, 64 TDOAs,
+    K = 64, B = 1: rows ``...@B1,hop512,D64,K64``) as in ``kernel``; then
+    ``stream`` without ``--dictionary-file`` trains W into the cache (one
+    launch) and finds it there (none).
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -117,6 +148,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -159,6 +191,12 @@ TIMED_CALLS = 5
 # eager, and the timed calls of each enhance_signal
 STREAM_BATCH = SERVE_SLOTS = 64
 SERVE_TICKS, REPLAY_BLOCKS, STREAM_CALLS = 300, 40, 3
+# pretraining: the WAVs of the corpus (2 × 311 frames each), the sizes the
+# command trains, and the frames the default cap keeps
+PRETRAIN_WAVS, PRETRAIN_SIZES, PRETRAIN_FRAMES = 64, (64, 128, 256), 20000
+# the enhance command on the card against the same command on the CPU, the
+# least SNR (dB) of any output channel: 49.39 dB measured on an H100
+CLI_SNR_DB = 45.0
 # the streaming step's device time by stage, for the profiler
 STREAM_STAGES = {"cuFFT": ("fft", "FFT"), "GEMMs (cuBLAS)": ("gemm", "gemv"),
                  "H2D copies": ("Memcpy HtoD",), "D2H copies": ("Memcpy DtoH",)}
@@ -312,13 +350,14 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
 
-    from gccnmf_torch import _build, cli
+    from gccnmf_torch import _build, checkpoint, cli, pretrain
     from gccnmf_torch.config import GCCNMFConfig
     from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
     from gccnmf_torch.ops import stft as stft_ops
     from gccnmf_torch.ops.windows import sqrt_hamming
     from gccnmf_torch.serving import StreamServer, StreamSettings
     from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
+    from gccnmf_torch.models.online import OnlineConfig, OnlineGCCNMFEnhancer
     from gccnmf_torch.ops import gcc, localize, masks
     from gccnmf_torch.models import offline as offline_mod
     from gccnmf_torch.ops import enhance_cuda
@@ -329,7 +368,7 @@ def main() -> int:
     from gccnmf_torch.ops.frontend_cuda import (
         frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
     )
-    from gccnmf_torch.ops.nmf import kl_divergence, nmf_init_numpy
+    from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, nmf_init_numpy
     from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
     from gccnmf_torch.ops.synthesis_cuda import (
         idft_rows, masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
@@ -421,28 +460,31 @@ def main() -> int:
         return sum(ev.device_time_total for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in keys)) / 1e3
 
-    def frontend_library_ms(md, b):
+    def frontend_library_ms(md, b, t_, basis, cos_, sin_):
         """The yardstick for a front-end row: the rDFT as one torch.matmul of
         the (B·2·T, win) frames against the (win, 2F) basis, plus the
         angular spectrogram as one of the (B·T, 2F) coherence rows against
         the (2F, D) steering planes, in the mode's operand type."""
         dt = torch.float32 if md == "float32" else torch.bfloat16
-        fr = torch.rand((b * 2 * t, WIN), device=dev).to(dt)
-        wb = torch.cat([fbasis.wcos, fbasis.wsin], dim=1).to(dt)
-        co = torch.rand((b * t, 2 * f), device=dev).to(dt)
-        st = torch.cat([cos_m, sin_m]).to(dt)
+        fr = torch.rand((b * 2 * t_, WIN), device=dev).to(dt)
+        wb = torch.cat([basis.wcos, basis.wsin], dim=1).to(dt)
+        co = torch.rand((b * t_, 2 * f), device=dev).to(dt)
+        st = torch.cat([cos_, sin_]).to(dt)
         ms = time_ms(torch, lambda: (fr @ wb, co @ st))
         del fr, wb, co, st
-        return ms, (f"({b * 2 * t}, win) @ (win, 2F) and ({b * t}, 2F) @ (2F, D) as torch.matmul "
-                    f"on {dt} operands; no |X|, no coherence, so library_ms stays null")
+        return ms, (f"({b * 2 * t_}, win) @ (win, 2F) and ({b * t_}, 2F) @ (2F, D) as "
+                    f"torch.matmul on {dt} operands; no |X|, no coherence, so library_ms "
+                    "stays null")
 
     def record(name, mode, b, source, replaces, got, want, tol, kernel_fn, plain_fn,
-               flops, nbytes, check_fn=None, err=None, note="", counted="", **extra):
+               flops, nbytes, check_fn=None, err=None, note="", counted="", shape="",
+               **extra):
         """Check ``got`` (a tuple of the kernel's outputs) against the plain
         version's ``want``, rerun the kernel (``check_fn``, default
         ``kernel_fn``) for bit-identity, time both, and keep the row;
-        ``counted`` says how ``flops`` was counted."""
-        label = f"{name}[{mode}]" + ("" if b == KERNEL_BATCH else f"@B{b}")
+        ``counted`` says how ``flops`` was counted; ``shape`` is added to
+        the row's name."""
+        label = f"{name}[{mode}]" + ("" if b == KERNEL_BATCH else f"@B{b}") + shape
         again = (check_fn or kernel_fn)()
         torch.cuda.synchronize()
         same = all(torch.equal(a, c) for a, c in zip(got, again))
@@ -465,36 +507,41 @@ def main() -> int:
         emit("kernel", **row)
         rows.append(row)
 
+    def check_frontend(x, md, basis, cos_, sin_, hop, shape=""):
+        """The front-end kernel in mode ``md`` on the (B, 2, n) signals
+        ``x`` against its plain version; returns the kernel's planes."""
+        kw = dict(hop_size=hop, matmul_dtype=md, plane_dtype=md)
+        kfn = lambda: stft_gcc_frontend_cuda(x, basis, cos_, sin_, **kw)  # noqa: E731
+        pfn = lambda: stft_gcc_frontend_plain(x, basis, cos_, sin_, **kw)  # noqa: E731
+        got, want = kfn(), pfn()
+        b, n_ = x.shape[0], x.shape[-1]
+        t_, d_ = got[5].shape[-2], cos_.shape[-1]
+        psize = 4 if md == "float32" else 2
+        dft, counted = dft_flops(b * 2 * t_, md)
+        lib_ms, lib_note = frontend_library_ms(md, b, t_, basis, cos_, sin_)
+        record(
+            "stft_gcc_frontend_cuda", md, b, "gccnmf_torch/csrc/frontend.cu",
+            "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
+            1e-4 if md == "float32" else 8e-3, kfn, pfn,
+            flops=dft + b * 4 * t_ * f * d_, counted=counted + ", angular GEMM",
+            nbytes=b * 2 * n_ * 4 + 4 * (basis_len(md) + 2 * f * d_)
+            + b * psize * (3 * 2 * t_ * f + 2 * t_ * f) + b * t_ * d_ * 4,
+            note=("1e-4" if md == "float32" else "8e-3 (one bf16 step)") + " x max|plain|",
+            design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+            gemm_library_note=lib_note, device_ms=device_ms(kfn, FRONTEND_KERNELS),
+            device_note="its kernels' device time in one call (torch.profiler); ms is CUDA "
+                        "events around the call, the wrapper's host time included",
+            shape=shape,
+        )
+        return got
+
     def check_kernels(b, fe_modes, nmf_modes, syn_modes, nmf_check_iters):
         """Each kernel at batch ``b`` of the reference shapes against its
         plain version. The first front-end mode's planes feed the NMF and
         the attribution, and the first NMF mode's W and H the synthesis, as
         they do on the main path."""
         x = torch.as_tensor(mix[:b], device=dev)
-        planes = {}
-        for md in fe_modes:
-            kw = dict(hop_size=HOP, matmul_dtype=md, plane_dtype=md)
-            kfn = lambda kw=kw: stft_gcc_frontend_cuda(x, fbasis, cos_m, sin_m, **kw)
-            pfn = lambda kw=kw: stft_gcc_frontend_plain(x, fbasis, cos_m, sin_m, **kw)
-            got, want = kfn(), pfn()
-            planes[md] = got
-            psize = 4 if md == "float32" else 2
-            dft, counted = dft_flops(b * 2 * t, md)
-            lib_ms, lib_note = frontend_library_ms(md, b)
-            record(
-                "stft_gcc_frontend_cuda", md, b, "gccnmf_torch/csrc/frontend.cu",
-                "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
-                1e-4 if md == "float32" else 8e-3, kfn, pfn,
-                flops=dft + b * 4 * t * f * D, counted=counted + ", angular GEMM",
-                nbytes=b * 2 * n * 4 + 4 * (basis_len(md) + 2 * f * D)
-                + b * psize * (3 * 2 * t * f + 2 * t * f) + b * t * D * 4,
-                note=("1e-4" if md == "float32" else "8e-3 (one bf16 step)") + " x max|plain|",
-                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
-                gemm_library_note=lib_note, device_ms=device_ms(kfn, FRONTEND_KERNELS),
-                device_note="its kernels' device time in one call (torch.profiler); ms is CUDA "
-                            "events around the call, the wrapper's host time included",
-            )
-            del want
+        planes = {md: check_frontend(x, md, fbasis, cos_m, sin_m, HOP) for md in fe_modes}
         feed = planes[fe_modes[0]]
 
         # NMF on the mixture's |X| (left‖right), the main path's V
@@ -607,17 +654,31 @@ def main() -> int:
     require(bool(torch.isfinite(w_enh).all()), "the learned dictionary is not finite")
     tbasis = tf_synthesis_basis(w_enh, window, HOP / WIN * 2.0, "bfloat16", device=dev)
 
-    def check_enhance_kernels(b, modes):
+    def check_enhance_kernels(b, modes, x=None, hop=HOP, fe=None, w=None, tb=None,
+                              mask=(ENH_EPS, ENH_BETA, ENH_FLOOR), shape=""):
         """The soft mask and the Wiener synthesis at batch ``b`` against
         their plain versions, on the front-end kernel's planes in each mode
-        and the utterances' own target TDOAs, as the enhancer feeds them."""
-        x = torch.as_tensor(mix[:b], device=dev)
+        and the utterances' own target TDOAs, as the enhancer feeds them.
+        By default on the first ``b`` mixtures at the enhancement
+        configuration; given ``x`` (B, 2, n), the hop, the front-end's
+        ``(basis, cos, sin)``, the dictionary, the Wiener basis and the mask
+        parameters of another enhancer, also the front-end kernel, each row
+        named with ``shape``."""
+        if x is None:
+            x = torch.as_tensor(mix[:b], device=dev)
+        basis, cos_, sin_ = fe or (ebasis, cos_e, sin_e)
+        w, tb = (w_enh, tbasis) if w is None else (w, tb)
+        k_, d_ = w.shape[-1], cos_.shape[-1]
         for md in modes:
-            sre, sim, _, cre, cim, ang = stft_gcc_frontend_cuda(
-                x, ebasis, cos_e, sin_e, hop_size=HOP, matmul_dtype=md, plane_dtype=md)
+            if fe is None:
+                sre, sim, _, cre, cim, ang = stft_gcc_frontend_cuda(
+                    x, basis, cos_, sin_, hop_size=hop, matmul_dtype=md, plane_dtype=md)
+            else:
+                sre, sim, _, cre, cim, ang = check_frontend(x, md, basis, cos_, sin_, hop, shape)
+            t_ = ang.shape[-2]
             tgt = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
-            mb = soft_mask_basis(cos_e, sin_e, w_enh, md)
-            margs = (cre, cim, mb, tgt, ENH_EPS, ENH_BETA, ENH_FLOOR)
+            mb = soft_mask_basis(cos_, sin_, w, md)
+            margs = (cre, cim, mb, tgt, *mask)
             kfn = lambda margs=margs, md=md: soft_mask_cuda(*margs, matmul_dtype=md,
                                                             return_argmax=True)
             got = kfn()
@@ -625,35 +686,36 @@ def main() -> int:
             flipped, gap, scale = argmax_flips(cre, cim, mb, got[1], matmul_dtype=md)
             flips = int(flipped.sum())
             require(gap <= TIE_TOL * scale,
-                    f"soft_mask_cuda[{md}]@B{b}: an argmax flip {gap} > {TIE_TOL} x {scale}")
+                    f"soft_mask_cuda[{md}]@B{b}{shape}: an argmax flip {gap} > {TIE_TOL} x {scale}")
             ulps = int((got[0].view(torch.int32).long() - want.view(torch.int32).long())
                        .abs()[~flipped].max())
             require(ulps <= MASK_ULPS,
-                    f"soft_mask_cuda[{md}]@B{b}: masks {ulps} ulps apart where the argmax "
+                    f"soft_mask_cuda[{md}]@B{b}{shape}: masks {ulps} ulps apart where the argmax "
                     "agrees")
             agree = float(torch.isclose(got[0], want, rtol=1e-6, atol=0.0).float().mean())
             require(agree >= MASK_AGREE[md],
-                    f"soft_mask_cuda[{md}]@B{b}: masks agree on {agree} < {MASK_AGREE[md]}")
+                    f"soft_mask_cuda[{md}]@B{b}{shape}: masks agree on {agree} < {MASK_AGREE[md]}")
             psize = 4 if md == "float32" else 2
             # the yardstick: the same scores as one torch.matmul of the
             # [Re c | Im c] rows against the (2F, D·K) fold, in the mode's
             # operand type
             dt = torch.float32 if md == "float32" else torch.bfloat16
             rows_ = idft_rows(cre, cim, f, dt)
-            fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt)).reshape(D * K, -1)
+            fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt)).reshape(d_ * k_, -1)
             gemm_library_ms = time_ms(torch, lambda rows_=rows_, fold_=fold_: rows_ @ fold_.T)
             del rows_, fold_
             if md == "float32":  # Re c·cos_d + Im c·sin_d, then one GEMM against W
-                flops, counted = 2 * b * t * f * D * K + 3 * b * t * f * D, "Y_d, then Y_d·W"
+                flops, counted = 2 * b * t_ * f * d_ * k_ + 3 * b * t_ * f * d_, "Y_d, then Y_d·W"
             else:  # JAX rounds the folded product bf16(cos_d·W): no cheaper form
-                flops, counted = 4 * b * t * f * D * K, "GEMMs on the bf16-rounded fold"
+                flops, counted = 4 * b * t_ * f * d_ * k_, "GEMMs on the bf16-rounded fold"
             record(
                 "soft_mask_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
                 "gccnmf_tpu/ops/enhance_pallas.py:111", got, None, 0.0,
                 lambda margs=margs, md=md: soft_mask_cuda(*margs, matmul_dtype=md),
                 lambda margs=margs, md=md: soft_mask_plain(*margs, matmul_dtype=md),
                 flops=flops, counted=counted,
-                nbytes=b * 2 * t * f * psize + 4 * (f * K + 2 * f * D) + b * 16 + b * t * K * 4,
+                nbytes=(b * 2 * t_ * f * psize + 4 * (f * k_ + 2 * f * d_) + b * 16
+                        + b * t_ * k_ * 4),
                 check_fn=kfn, err=max_err(torch, got[0], want)[0],
                 note=(f"argmax flips only at near-ties ({flips} of {flipped.numel()}; plain "
                       f"score at the kernel's TDOA within {gap:.3g} <= {TIE_TOL} x {scale:.4g} "
@@ -666,25 +728,26 @@ def main() -> int:
                 gemm_library_note=(f"[Re c | Im c] rows @ the (2F, D·K) fold as one torch.matmul "
                                    f"on {dt} operands at B = {b}; the scores alone (no argmax, "
                                    "no mask), so library_ms stays null"),
+                shape=shape,
             )
             hm = got[0]
             kfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_cuda(
-                sre, sim, hm, tbasis, hop_size=HOP, matmul_dtype=md)
+                sre, sim, hm, tb, hop_size=hop, matmul_dtype=md)
             pfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_plain(
-                sre, sim, hm, tbasis, hop_size=HOP, matmul_dtype=md)
-            dft, counted = dft_flops(b * 2 * t, md)
-            lib_ms, lib_note = idft_library_ms(md, b * 2 * t)
+                sre, sim, hm, tb, hop_size=hop, matmul_dtype=md)
+            dft, counted = dft_flops(b * 2 * t_, md)
+            lib_ms, lib_note = idft_library_ms(md, b * 2 * t_)
             record(
                 "tf_synthesis_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
                 "gccnmf_tpu/ops/enhance_pallas.py:356", (kfn(),), (pfn(),),
                 1e-4 if md == "float32" else 1e-2, kfn, pfn,
-                flops=2 * b * t * K * f + dft, counted="Wiener GEMM, " + counted,
-                nbytes=b * 2 * 2 * t * f * psize + b * t * K * 4 + K * f * 4
-                + 4 * basis_len(md) + b * 2 * (t - 1) * HOP * 4,
+                flops=2 * b * t_ * k_ * f + dft, counted="Wiener GEMM, " + counted,
+                nbytes=b * 2 * 2 * t_ * f * psize + b * t_ * k_ * 4 + k_ * f * 4
+                + 4 * basis_len(md) + b * 2 * (t_ - 1) * hop * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
                 design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
-                gemm_library_note=lib_note,
+                gemm_library_note=lib_note, shape=shape,
             )
 
     check_enhance_kernels(KERNEL_BATCH, ("float32", "bfloat16"))
@@ -1255,6 +1318,306 @@ def main() -> int:
                  ticks20, STREAM_STAGES)
     server.close()
 
+    # ---- 10. pretraining: the pretrain command on a seeded WAV corpus -----
+    corpus_tmp = tempfile.TemporaryDirectory()
+    tmp = corpus_tmp.name
+    corpus_mix = make_mixture(args.seed + 2, PRETRAIN_WAVS)
+    wav_paths = [os.path.join(tmp, f"corpus_{i:02d}.wav") for i in range(PRETRAIN_WAVS)]
+    for x, path in zip(corpus_mix, wav_paths):
+        wav.write_wav(x, path, SR)
+    del corpus_mix
+    cache_dir, save_dir = os.path.join(tmp, "cache"), os.path.join(tmp, "W")
+    # each size's seconds and launches, read around pretrain_dictionary as
+    # the command calls it
+    per_size, train = [], pretrain.pretrain_dictionary
+
+    def timed_once(fn):
+        """``(*fn(), ms)``: one call of ``fn`` between two CUDA events."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return (*out, start.elapsed_time(end))
+
+    def timed_pretrain(corpus, size, **kw):
+        before = kl_nmf_cuda.launches
+        t1 = time.perf_counter()
+        w = train(corpus, size, **kw)
+        per_size.append(dict(size=size, seconds=time.perf_counter() - t1,
+                             launches=kl_nmf_cuda.launches - before))
+        return w
+
+    pretrain_argv = [*wav_paths, "--sizes", *map(str, PRETRAIN_SIZES), "--cache-dir", cache_dir,
+                     "--save-dir", save_dir]
+    pretrain_runs = []
+    pretrain.pretrain_dictionary = timed_pretrain
+    try:
+        for run in ("train", "cache hit"):
+            per_size.clear()
+            buf = io.StringIO()
+            reset_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.pretrain_main(pretrain_argv)
+            seconds = time.perf_counter() - t1
+            c = counts()
+            info = json.loads(buf.getvalue().strip().splitlines()[-1])
+            want = int(run == "train")
+            require(rc == 0 and info["corpus_frames"] == PRETRAIN_FRAMES
+                    and info["dictionaries"] == {str(k): [f, k] for k in PRETRAIN_SIZES},
+                    f"pretrain ({run}): {info}")
+            require(c["kl_nmf_cuda"] == want * len(PRETRAIN_SIZES)
+                    and sum(c.values()) == c["kl_nmf_cuda"]
+                    and [r["launches"] for r in per_size] == [want] * len(PRETRAIN_SIZES),
+                    f"pretrain ({run}): launches {c}, per size {per_size}")
+            pretrain_runs.append(dict(run=run, seconds=seconds, launches=c,
+                                      sizes=list(per_size)))
+    finally:
+        pretrain.pretrain_dictionary = train
+    pretrain_launches = pretrain_runs[0]["launches"]["kl_nmf_cuda"]
+    # the corpus again in-process: the cache files carry its fingerprint
+    corpus = pretrain.training_corpus_from_wavs(wav_paths)
+    tag = pretrain._corpus_fingerprint(corpus)
+    v_c = torch.as_tensor(corpus, device=dev)
+    t_c = corpus.shape[0]
+    pretrain_checks = {}
+    for k in PRETRAIN_SIZES:
+        name = f"W_{k}_win{WIN}_it{NMF_ITERS}_s0_{tag}.npy"
+        require(os.path.exists(os.path.join(cache_dir, name)), f"pretrain: no cache file {name}")
+        w_saved = np.load(os.path.join(save_dir, f"W_{k}.npy"))
+        require(np.array_equal(w_saved, np.load(os.path.join(cache_dir, name))),
+                f"pretrain: W_{k}.npy is not the cached W")
+        w0c, h0c = (torch.as_tensor(x, device=dev) for x in nmf_init_numpy(f, k, t_c))
+        got = kl_nmf_cuda(v_c, w0c, h0c, NMF_CHECK_ITERS, matmul_dtype="float32")
+        want = kl_nmf(v_c, w0c, h0c, NMF_CHECK_ITERS)
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
+        # one timed call each (CUDA events), both warm: the command ran
+        # the kernel at this size, and the check above the plain version
+        w_k, h_k, kernel_ms = timed_once(
+            lambda: kl_nmf_cuda(v_c, w0c, h0c, NMF_ITERS, matmul_dtype="float32"))
+        require(np.array_equal(w_k.cpu().numpy(), w_saved),
+                f"pretrain: W_{k} is not one kernel call from the seeded init")
+        w_p, h_p, unguarded_ms = timed_once(lambda: kl_nmf(v_c, w0c, h0c, NMF_ITERS))
+        kl_k, kl_p = (float(kl_divergence(v_c, w_.double(), h_.double()))
+                      for w_, h_ in ((w_k, h_k), (w_p, h_p)))
+        require(abs(kl_k - kl_p) <= 0.005 * kl_p, f"pretrain K={k}: KL {kl_k} vs plain {kl_p}")
+        pretrain_checks[k] = dict(
+            rtol_1e4_after=NMF_CHECK_ITERS, kl_kernel=kl_k, kl_plain=kl_p,
+            kl_rel_diff=abs(kl_k - kl_p) / kl_p,
+            max_abs_err_w=max_err(torch, got[0], want[0])[0],
+            kernel_ms=kernel_ms, unguarded_plain_ms=unguarded_ms,
+            timed=f"one call of {NMF_ITERS} iterations; the plain version is JAX's unguarded "
+                  "kl_nmf, which the CPU path runs")
+        if k == PRETRAIN_SIZES[-1]:  # the kernel row at the corpus shape
+            dt_ = torch.float32
+            hb_, wb_, q_ = (torch.rand(shape, device=dev, dtype=dt_)
+                            for shape in ((t_c, k), (f, k), (t_c, f)))
+            products = lambda hb_=hb_, wb_=wb_, q_=q_: (  # noqa: E731
+                hb_ @ wb_.T, q_ @ wb_, q_.T @ hb_, hb_ @ wb_.T)
+            gemm_library_ms = time_ms(torch, products) * NMF_ITERS
+            del hb_, wb_, q_, products
+            args_ = (v_c, w0c, h0c)
+            record(
+                "kl_nmf_cuda", "float32", 1, "gccnmf_torch/csrc/nmf.cu",
+                "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
+                lambda: kl_nmf_cuda(*args_, NMF_ITERS, matmul_dtype="float32"),
+                lambda: kl_nmf_plain(*args_, NMF_ITERS, matmul_dtype="float32"),
+                flops=8 * t_c * f * k * NMF_ITERS, shape=f",T{t_c},K{k}",
+                counted=f"4 GEMMs of 2·T·F·K per iteration, {NMF_ITERS} iterations",
+                nbytes=t_c * f * 4 + 2 * 4 * (f * k + t_c * k),
+                check_fn=lambda: kl_nmf_cuda(*args_, NMF_CHECK_ITERS, matmul_dtype="float32"),
+                err=pretrain_checks[k]["max_abs_err_w"],
+                note=(f"{NMF_CHECK_ITERS} iterations: rtol 1e-4, atol 1e-6 x max|plain|; "
+                      f"KL within 0.5 % of the plain version's at {NMF_ITERS}"),
+                iterations_timed=NMF_ITERS, design="simt", gemm_library_ms=gemm_library_ms,
+                gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on float32 "
+                                   f"operands at T = {t_c}, times {NMF_ITERS}; not the same "
+                                   "function, so library_ms stays null"),
+                launches_on=("pretrain_main --sizes 64 128 256: one launch per size "
+                             "(0 on the cache hit)"))
+            rows[-1]["launches"] = pretrain_launches
+        if k == PRETRAIN_SIZES[0]:  # chunked and resumed, against one call
+            reset_counts()
+            ck = checkpoint.kl_nmf_checkpointed(v_c, w0c, h0c, NMF_ITERS,
+                                                os.path.join(tmp, "ck_a"), checkpoint_every=25)
+            ck_launches = counts()["kl_nmf_cuda"]
+            checkpoint.kl_nmf_checkpointed(v_c, w0c, h0c, NMF_ITERS // 2,
+                                           os.path.join(tmp, "ck_b"), checkpoint_every=25)
+            resumed = checkpoint.kl_nmf_checkpointed(v_c, w0c, h0c, NMF_ITERS,
+                                                     os.path.join(tmp, "ck_b"),
+                                                     checkpoint_every=25)
+            require(ck_launches == NMF_ITERS // 25, f"kl_nmf_checkpointed: {ck_launches} launches")
+            require(all(torch.equal(a, b) for a, b in zip((*ck, *resumed), (w_k, h_k) * 2)),
+                    "kl_nmf_checkpointed: chunked or resumed run is not one call bit for bit")
+    # get_dictionaries' larger sizes (a 33.6 MB part buffer at K = 1,024),
+    # which the command's --sizes leave out: the kernel against the plain
+    # version at the corpus shape
+    for k in (k for k in pretrain.DEFAULT_SIZES if k not in PRETRAIN_SIZES):
+        w0c, h0c = (torch.as_tensor(x, device=dev) for x in nmf_init_numpy(f, k, t_c))
+        got = kl_nmf_cuda(v_c, w0c, h0c, NMF_CHECK_ITERS, matmul_dtype="float32")
+        want = kl_nmf(v_c, w0c, h0c, NMF_CHECK_ITERS)
+        for g, w_ in zip(got, want):
+            torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
+        require(all(bool(torch.isfinite(g).all()) for g in got), f"pretrain K={k}: not finite")
+        pretrain_checks[k] = dict(rtol_1e4_after=NMF_CHECK_ITERS,
+                                  max_abs_err_w=max_err(torch, got[0], want[0])[0])
+        del got, want
+    del v_c
+    emit("pretrain", device=kind, nvidia_smi=smi,
+         argv=f"{PRETRAIN_WAVS} WAVs --sizes 64 128 256 (window {WIN}, hop 512, "
+              f"{NMF_ITERS} iterations)", corpus_frames=t_c, runs=pretrain_runs,
+         checks=pretrain_checks,
+         checkpointed=dict(iterations=NMF_ITERS, every=25, launches=ck_launches,
+                           resumed_from=NMF_ITERS // 2, bit_equal_to_one_call=True))
+
+    # ---- 11. online: OnlineGCCNMFEnhancer with the pretrained W_64 -------
+    w64_path = os.path.join(save_dir, "W_64.npy")
+    w64 = np.load(w64_path)
+    audio = np.stack([wav.read_wav(p)[0] for p in wav_paths[:MAIN_BATCH]])
+    online_cfgs = {"sliding": OnlineConfig(), "exponential": OnlineConfig(smoothing="exponential"),
+                   "cumulative": OnlineConfig(smoothing="cumulative"),
+                   "num_h_updates=2": OnlineConfig(num_h_updates=2)}
+    online_rows = {}
+    for name, oc in online_cfgs.items():
+        enh = OnlineGCCNMFEnhancer(w64, oc)
+        paths = [("b1", lambda enh=enh: enh.enhance(audio[0]))]
+        if name == "sliding":
+            paths.append(("b16", lambda enh=enh: enh.enhance(audio)))
+        run = run_paths(paths)
+        require(all(v == 0 for c in run["counts"].values() for v in c.values()),
+                f"online {name}: a kernel launched: {run['counts']}")
+        one = run["b1"]
+        n_on = one["enhanced"].shape[-1]
+        require(one["enhanced"].shape == (2, n_on) and np.isfinite(one["enhanced"]).all(),
+                f"online {name}: output")
+        cpu = OnlineGCCNMFEnhancer(w64, oc, device="cpu").enhance(audio[0])
+        snrs = [snr_db(r, e) for r, e in zip(cpu["enhanced"], one["enhanced"])]
+        agree = float((cpu["target_tdoa_index"] == one["target_tdoa_index"]).mean())
+        require(min(snrs) > 25.0 and agree >= 0.99,
+                f"online {name}: card against CPU {snrs} dB, targets {agree}")
+        row = dict(b1_s=run["s_b1"], audio_s_per_s_b1=SECONDS / run["s_b1"],
+                   seconds_per_call=run["seconds"], card_vs_cpu=dict(
+                       snr_db=snrs, target_agreement=agree, bars="> 25 dB, >= 0.99"))
+        if name == "sliding":
+            many = run["b16"]
+            err, scale = 0.0, 0.0
+            for i in range(MAIN_BATCH):
+                alone = one if i == 0 else enh.enhance(audio[i])
+                require(np.array_equal(many["target_tdoa_index"][i], alone["target_tdoa_index"]),
+                        f"online batch[{i}]: targets differ from alone")
+                err = max(err, float(np.abs(many["enhanced"][i] - alone["enhanced"]).max()))
+                scale = max(scale, float(np.abs(alone["enhanced"]).max()))
+            require(err <= BATCH_TOL * scale, f"online batch against alone: {err} > "
+                                              f"{BATCH_TOL} x {scale}")
+            row.update(batch=MAIN_BATCH, b16_s=run["s_b16"],
+                       audio_s_per_s_b16=MAIN_BATCH * SECONDS / run["s_b16"],
+                       batch_vs_alone=dict(max_abs_err=err, bar=f"{BATCH_TOL} x {scale}"))
+            enh_online = enh
+        online_rows[name] = row
+    emit("online", device=kind, nvidia_smi=smi,
+         config="OnlineConfig() (sliding 6, window 1024, hop 512, 64 TDOAs at 0.1 m), W_64",
+         configs=online_rows, launches="0 of every wrapper")
+    profile_call(f"online enhance (B={MAIN_BATCH}, {SECONDS} s, OnlineConfig())",
+                 lambda: enh_online.enhance(audio), STREAM_STAGES)
+    del enh_online
+
+    # ---- 12. enhance_cli: the enhance command over 16 WAVs ----------------
+    cli_dirs = {d: os.path.join(tmp, d) for d in ("card", "cpu")}
+    cli_paths = {}
+    for d, base in cli_dirs.items():
+        os.makedirs(base)
+        cli_paths[d] = [shutil.copy(p, base) for p in wav_paths[:MAIN_BATCH]]
+    gcfg = GCCNMFConfig()
+    in_process = {
+        "online": OnlineGCCNMFEnhancer(w64, OnlineConfig(
+            sample_rate=SR, window_size=gcfg.window_size, hop_size=gcfg.hop_size,
+            num_tdoas=gcfg.num_tdoas, mic_separation_m=gcfg.microphone_separation_in_metres,
+            smoothing_window=gcfg.localization_window_size)),
+        "offline": GCCNMFEnhancer(w64, OfflineConfig(
+            window_size=gcfg.window_size, hop_size=gcfg.hop_size, num_tdoas=gcfg.num_tdoas,
+            mic_separation_m=gcfg.microphone_separation_in_metres, sample_rate=SR))}
+
+    def enhance_command(mode, device):
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["enhance", *cli_paths[device], "--mode", mode, "--dictionary-file",
+                           w64_path, "--device", "cuda" if device == "card" else "cpu"])
+        seconds = time.perf_counter() - t1
+        outs = json.loads(buf.getvalue().strip().splitlines()[-1])["outputs"]
+        require(rc == 0 and len(outs) == MAIN_BATCH, f"enhance {mode} on {device}: {outs}")
+        return [wav.read_wav(p)[0] for p in outs], seconds, counts()
+
+    cli_rows = {}
+    for mode in ("online", "offline"):
+        outs, seconds, c = enhance_command(mode, "card")
+        want_k = enh_kernels if mode == "offline" else ()
+        require(all(c[k] == MAIN_BATCH for k in want_k)
+                and sum(c.values()) == MAIN_BATCH * len(want_k),
+                f"enhance --mode {mode}: launches {c}")
+        for i, out in enumerate(outs):  # the in-process enhancer, as the WAV writer stores it
+            ref_path = os.path.join(tmp, "in_process.wav")
+            wav.write_wav(in_process[mode].enhance(audio[i])["enhanced"], ref_path, SR)
+            require(np.array_equal(out, wav.read_wav(ref_path)[0]),
+                    f"enhance --mode {mode}: file {i} differs from the in-process enhancer")
+        cli_rows[mode] = dict(files=MAIN_BATCH, seconds=seconds,
+                              audio_s_per_s=MAIN_BATCH * SECONDS / seconds, launches=c,
+                              equals_in_process=True)
+        if mode == "offline":
+            cpu_outs, cpu_s, cpu_c = enhance_command(mode, "cpu")
+            require(sum(cpu_c.values()) == 0, f"enhance on the CPU launched {cpu_c}")
+            snrs = [snr_db(r, e) for ro, eo in zip(cpu_outs, outs) for r, e in zip(ro, eo)]
+            require(min(snrs) > CLI_SNR_DB,
+                    f"enhance --mode offline: card against CPU {min(snrs)} dB")
+            cli_rows[mode]["card_vs_cpu"] = dict(min_snr_db=min(snrs), bar=f"> {CLI_SNR_DB} dB",
+                                                 cpu_seconds=cpu_s)
+            # each kernel the command ran, at its shapes (window 1024, hop
+            # 512, 64 TDOAs, W_64, one file a call), against its plain
+            # version on the first file, with the enhancer's own operands
+            off, first = in_process["offline"], len(rows)
+            ocfg = off.config
+            check_enhance_kernels(
+                1, (offline_mod.gemm_dtype(ocfg),), x=torch.as_tensor(audio[:1], device=dev),
+                hop=ocfg.hop_size, fe=(off._dft_basis, off._cos, off._sin), w=off.w,
+                tb=off._tf_basis, mask=(off.target_epsilon, off.target_beta, off.noise_floor),
+                shape=f",hop{ocfg.hop_size},D{ocfg.num_tdoas},K{off.w.shape[-1]}")
+            for row in rows[first:]:
+                row["launches"] = c[row["kernel"]]
+                row["launches_on"] = (f"enhance --mode offline over {MAIN_BATCH} files "
+                                      "(one launch a file)")
+    del in_process
+    # stream without --dictionary-file: W from the pretraining cache
+    stream_cache = os.path.join(tmp, "stream_cache")
+    os.environ["GCCNMF_TPU_CACHE_DIR"] = stream_cache
+    try:
+        stream_launches = []
+        for _ in range(2):
+            buf = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["stream", "-i", cli_paths["card"][0], "-o",
+                               os.path.join(tmp, "stream.wav")])
+            stream_launches.append(counts()["kl_nmf_cuda"])
+            out, _ = wav.read_wav(json.loads(buf.getvalue().strip().splitlines()[-1])["output"])
+            require(rc == 0 and np.isfinite(out).all() and np.abs(out).max() > 0,
+                    "stream without --dictionary-file: output")
+    finally:
+        del os.environ["GCCNMF_TPU_CACHE_DIR"]
+    cached = os.listdir(stream_cache)
+    require(stream_launches == [1, 0] and len(cached) == 1
+            and cached[0].startswith(f"W_{gcfg.dictionary_size}_win{WIN}_it{NMF_ITERS}_s0_"),
+            f"stream without --dictionary-file: launches {stream_launches}, cache {cached}")
+    emit("enhance_cli", device=kind, nvidia_smi=smi,
+         argv=f"enhance <{MAIN_BATCH} WAVs> --mode online|offline --dictionary-file W_64.npy",
+         modes=cli_rows, stream_without_dictionary=dict(kl_nmf_cuda_launches=stream_launches,
+                                                        cache_file=cached[0]))
+    corpus_tmp.cleanup()
+
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,
     # separate / enhance of one mixture for the B = 2 rows; bf16 front-end
@@ -1262,6 +1625,9 @@ def main() -> int:
     runs = {"float32": f32, "bfloat16": bf16, "bfloat16_q": main, "bfloat16_q_simul": turbo}
     for row in rows:
         name, mode = row["kernel"], row["mode"]
+        if "launches_on" in row:  # set by its own phase (pretrain, enhance_cli)
+            require(row["launches"] > 0, f"{row['name']} never launched on the main path")
+            continue
         if name in ("soft_mask_cuda", "tf_synthesis_cuda"):
             run = enh32[0] if mode == "float32" else enh_main
             path = "enhance_batch" if row["batch"] == MAIN_BATCH else "enhance"

@@ -16,5 +16,6 @@ __version__ = "0.1.0"
 
 from gccnmf_torch.defs import SPEED_OF_SOUND_M_S
 from gccnmf_torch.models.offline import GCCNMFEnhancer
+from gccnmf_torch.models.online import OnlineGCCNMFEnhancer
 
-__all__ = ["GCCNMFEnhancer", "SPEED_OF_SOUND_M_S", "__version__"]
+__all__ = ["GCCNMFEnhancer", "OnlineGCCNMFEnhancer", "SPEED_OF_SOUND_M_S", "__version__"]

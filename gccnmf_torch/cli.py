@@ -1,17 +1,24 @@
 """Command-line entry points of the port (counterparts of ``gccnmf-separate``,
-``gccnmf-stream`` and ``gccnmf-serve`` in ``gccnmf_tpu/cli.py``):
+``gccnmf-enhance``, ``gccnmf-stream``, ``gccnmf-serve`` and
+``gccnmf-pretrain`` in ``gccnmf_tpu/cli.py``):
 
     python -m gccnmf_torch.cli mix_a.wav [mix_b.wav ...] [--turbo] [--auto-sources]
+    python -m gccnmf_torch.cli enhance a.wav [b.wav ...] [--mode online|offline] [-o out.wav]
     python -m gccnmf_torch.cli stream -i mix.wav [-o out.wav] [--low-latency] [--realtime]
     python -m gccnmf_torch.cli serve -i a.wav b.wav ... [--wire-dtype int16]
+    python -m gccnmf_torch.cli pretrain corpus/*.wav [--sizes 64 128 256] [--save-dir DIR]
 
 The first separates stereo WAVs offline (the reference's ``runGCCNMF.py``),
-writing ``<prefix>_sim_<n>.wav`` per source; ``stream`` enhances one WAV
-block by block (the reference's ``runRealtimeGCCNMF.py --no-gui``);
-``serve`` enhances one stream per WAV in lockstep ticks. Each runs on the
-card unless ``--device cpu`` is given and prints one JSON line, with the
-JAX commands' keys. ``stream`` and ``serve`` take their dictionary from
-``--dictionary-file`` or the INI's ``dictionaryFile``.
+writing ``<prefix>_sim_<n>.wav`` per source; ``enhance`` writes
+``<input>_enhanced.wav`` per WAV, with the online (causal) enhancer or the
+offline one; ``stream`` enhances one WAV block by block (the reference's
+``runRealtimeGCCNMF.py --no-gui``); ``serve`` enhances one stream per WAV in
+lockstep ticks; ``pretrain`` learns dictionaries from a WAV corpus into the
+corpus-keyed cache and, with ``--save-dir``, into ``W_<size>.npy`` files.
+Each runs on the card unless ``--device cpu`` is given and prints one JSON
+line, with the JAX commands' keys. ``enhance``, ``stream`` and ``serve``
+take their dictionary from ``--dictionary-file`` (or the INI's
+``dictionaryFile``), else from the pretraining cache.
 """
 
 from __future__ import annotations
@@ -24,14 +31,13 @@ import sys
 
 import numpy as np
 
-__all__ = ["separate_main", "stream_main", "serve_main", "main"]
+__all__ = ["separate_main", "enhance_main", "stream_main", "serve_main", "pretrain_main", "main"]
 
 _LONG_AUDIO = (
     "is the long-audio pipeline, which is not ported yet (ROADMAP.md, Queue 1 item 6)"
 )
-_NO_DICTIONARY = (
-    "no dictionary: pass --dictionary-file or set dictionaryFile in the INI config "
-    "(a .npy (F, K) array); pretraining one is not ported yet (ROADMAP.md, Queue 1 item 5)"
+_DATA_SHARDS = (
+    "--data-shards: data-parallel pretraining is not ported yet (ROADMAP.md, Queue 1 item 6)"
 )
 
 
@@ -134,23 +140,110 @@ def _require_stereo(audio, path, num_channels=2):
         )
 
 
-def _load_dictionary(cfg) -> np.ndarray:
-    """The (F, K) nonnegative dictionary of ``cfg.dictionary_file``, checked
-    as the JAX package's ``pretrain.load_dictionary_file`` checks it."""
-    path = cfg.dictionary_file
-    if not path:
-        raise SystemExit(_NO_DICTIONARY)
-    w = np.load(path)
-    if w.ndim != 2:
-        raise ValueError(f"{path}: expected a (F, K) array, got {w.shape}")
-    if w.shape[0] != cfg.num_freq:
-        raise ValueError(
-            f"{path}: dictionary has {w.shape[0]} frequency rows but the "
-            f"configured window expects {cfg.num_freq}"
+def _resolve_dictionary(cfg, size=None, device=None) -> np.ndarray:
+    """The explicit artifact (``cfg.dictionary_file``) wins; otherwise the
+    corpus-keyed pretraining cache, trained on ``device`` on a miss."""
+    from gccnmf_torch import pretrain
+
+    if cfg.dictionary_file:
+        return pretrain.load_dictionary_file(cfg.dictionary_file, cfg.num_freq)
+    size = size or cfg.dictionary_size
+    banks = pretrain.get_dictionaries(cfg.window_size, sizes=(size,), device=device)
+    return banks[cfg.dictionary_type][size]
+
+
+def enhance_main(argv=None):
+    ap = argparse.ArgumentParser(description="GCC-NMF speech enhancement")
+    ap.add_argument("input", nargs="+",
+                    help="stereo WAV(s). The NMF dictionary is resolved once "
+                         "(--dictionary-file, else the corpus-pretrained cache; "
+                         "never trained on the input audio) and reused for every file")
+    ap.add_argument("-o", "--output", default=None,
+                    help="output path (single input only; multiple inputs "
+                         "write <input>_enhanced.wav next to each file)")
+    ap.add_argument("--mode", choices=["offline", "online"], default="online")
+    ap.add_argument("-c", "--config", default=None, help="INI config file")
+    ap.add_argument("--dictionary-size", type=int, default=None)
+    ap.add_argument("--dictionary-file", default=None,
+                    help=".npy (F, K) dictionary artifact (bypasses "
+                         "pretraining; e.g. from pretrain --save-dir)")
+    ap.add_argument("--num-h-updates", type=int, default=None)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the card (default) or on the CPU")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO)
+
+    from gccnmf_torch.config import load_config
+    from gccnmf_torch.utils import wav
+
+    if args.output is not None and len(args.input) > 1:
+        ap.error("-o/--output only applies to a single input")
+    cfg = load_config(
+        args.config,
+        dictionary_size=args.dictionary_size,
+        dictionary_file=args.dictionary_file,
+        num_h_updates=args.num_h_updates,
+        audio_path=args.input[0],
+    )
+    w = _resolve_dictionary(cfg, device=args.device)
+
+    enhancers = {}  # one per sample rate, reused across files
+    outputs = []
+    for path in args.input:
+        stereo, sr = wav.read_wav(path)
+        _require_stereo(stereo, path)
+        if sr not in enhancers:
+            enhancers[sr] = _make_enhancer(args.mode, cfg, w, sr, args.device)
+        out = enhancers[sr].enhance(stereo)["enhanced"]
+        out_path = args.output or os.path.splitext(path)[0] + "_enhanced.wav"
+        wav.write_wav(out, out_path, sr)
+        outputs.append(out_path)
+    if len(outputs) == 1:  # the flat JSON shape
+        print(json.dumps(dict(output=outputs[0])))
+    else:
+        print(json.dumps(dict(outputs=outputs)))
+    return 0
+
+
+def _make_enhancer(mode, cfg, w, sr, device):
+    """The online or offline enhancer of ``cfg`` (a ``GCCNMFConfig``) at
+    sample rate ``sr``, as ``gccnmf-enhance`` builds it."""
+    if mode == "online":
+        from gccnmf_torch.models.online import OnlineConfig, OnlineGCCNMFEnhancer
+
+        ocfg = OnlineConfig(
+            sample_rate=sr,
+            window_size=cfg.window_size,
+            hop_size=cfg.hop_size,
+            num_tdoas=cfg.num_tdoas,
+            mic_separation_m=cfg.microphone_separation_in_metres,
+            num_h_updates=cfg.num_h_updates,
+            smoothing_window=cfg.localization_window_size,
+            target_epsilon=cfg.target_tdoa_epsilon,
+            target_beta=cfg.target_tdoa_beta,
+            noise_floor=cfg.target_tdoa_noise_floor,
         )
-    if np.min(w) < 0:
-        raise ValueError(f"{path}: dictionary must be nonnegative")
-    return np.ascontiguousarray(w, np.float32)
+        return OnlineGCCNMFEnhancer(w, ocfg, device=device)
+    from gccnmf_torch.models.offline import GCCNMFEnhancer, OfflineConfig
+
+    ecfg = OfflineConfig(
+        window_size=cfg.window_size,
+        hop_size=cfg.hop_size,
+        num_tdoas=cfg.num_tdoas,
+        mic_separation_m=cfg.microphone_separation_in_metres,
+        sample_rate=sr,
+    )
+    return GCCNMFEnhancer(
+        w,
+        ecfg,
+        target_epsilon=cfg.target_tdoa_epsilon,
+        target_beta=cfg.target_tdoa_beta,
+        noise_floor=cfg.target_tdoa_noise_floor,
+        num_h_updates=cfg.num_h_updates,
+        device=device,
+    )
 
 
 def stream_main(argv=None):
@@ -218,7 +311,7 @@ def stream_main(argv=None):
     _require_stereo(stereo, args.input)
     if stereo.shape[-1] < block:
         ap.error("input is shorter than one %d-sample block" % block)
-    w = _load_dictionary(cfg)
+    w = _resolve_dictionary(cfg, device=args.device)
     scfg = StreamConfig.from_app_config(
         cfg,
         sample_rate=sr,
@@ -292,8 +385,8 @@ def serve_main(argv=None):
     ap.add_argument("--max-streams", type=int, default=None,
                     help="slot count (default: number of inputs)")
     ap.add_argument("--dictionary-size", type=int, default=None,
-                    help="atoms of a pretrained dictionary (pretraining is not "
-                         "ported; the size of --dictionary-file rules)")
+                    help="atoms of the pretrained dictionary (without "
+                         "--dictionary-file)")
     ap.add_argument("--blocks", type=int, default=None,
                     help="stop each stream after N blocks")
     ap.add_argument("--pipeline-depth", type=int, default=2,
@@ -329,7 +422,7 @@ def serve_main(argv=None):
             f"--max-streams {args.max_streams} < {len(args.inputs)} inputs "
             "(each input holds a slot for its whole run)"
         )
-    w = _load_dictionary(cfg)
+    w = _resolve_dictionary(cfg, size=args.dictionary_size, device=args.device)
     server = StreamServer(
         w, scfg, max_streams=args.max_streams or len(args.inputs),
         pipeline_depth=args.pipeline_depth,
@@ -400,12 +493,84 @@ def serve_main(argv=None):
     return 0
 
 
-COMMANDS = {"separate": separate_main, "stream": stream_main, "serve": serve_main}
+def pretrain_main(argv=None):
+    """Pre-learn NMF dictionaries from a WAV corpus.
+
+    Two outputs: the corpus-keyed artifact cache (reused only by runs with
+    the same corpus, iterations and seed), and with ``--save-dir`` stable
+    ``W_<size>.npy`` artifacts (the reference's pretrainedW naming,
+    gccNMFPretraining.py:36-37) that every entry point loads via
+    ``--dictionary-file`` / ``dictionaryFile``."""
+    ap = argparse.ArgumentParser(
+        description="Pre-learn GCC-NMF dictionaries from a WAV corpus"
+    )
+    ap.add_argument("wavs", nargs="+", help="training WAV paths")
+    ap.add_argument("--sizes", type=int, nargs="+", default=[64, 128, 256],
+                    help="dictionary sizes (atoms) to train")
+    ap.add_argument("--window-size", type=int, default=1024)
+    ap.add_argument("--hop-size", type=int, default=512,
+                    help="corpus framing hop (the reference pretrains at window/2)")
+    ap.add_argument("--num-iterations", type=int, default=None,
+                    help="KL-NMF iterations (default: GCCNMF_TPU_PRETRAIN_ITERS or 100)")
+    ap.add_argument("--max-frames", type=int, default=None,
+                    help="cap the corpus frame count (uniform subsample)")
+    ap.add_argument("--cache-dir", default=None,
+                    help="artifact cache directory (default: "
+                         "GCCNMF_TPU_CACHE_DIR or the package cache)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save-dir", default=None,
+                    help="also export stable W_<size>.npy artifacts here "
+                         "(consumed via --dictionary-file / dictionaryFile)")
+    ap.add_argument("--data-shards", type=int, default=0,
+                    help="data-parallel training over N devices (not ported)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="train on the card (default) or on the CPU")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO)
+    if args.data_shards:
+        raise SystemExit(_DATA_SHARDS)
+
+    from gccnmf_torch import pretrain
+
+    corpus = pretrain.training_corpus_from_wavs(
+        args.wavs, args.window_size, args.hop_size, max_frames=args.max_frames,
+        device=args.device,
+    )
+    trained = {}
+    saved = []
+    if args.save_dir:
+        os.makedirs(args.save_dir, exist_ok=True)
+    for size in args.sizes:
+        w = pretrain.pretrain_dictionary(
+            corpus, size, num_iterations=args.num_iterations,
+            cache_dir=args.cache_dir, window_size=args.window_size,
+            seed_value=args.seed, device=args.device,
+        )
+        trained[size] = list(w.shape)
+        if args.save_dir:
+            path = os.path.join(args.save_dir, f"W_{size}.npy")
+            np.save(path, w)
+            saved.append(path)
+    print(json.dumps(dict(
+        corpus_frames=int(corpus.shape[0]),
+        num_freq=int(corpus.shape[1]),
+        dictionaries={str(k): v for k, v in trained.items()},
+        cache_dir=args.cache_dir or "(default)",
+        saved=saved,
+    )))
+    return 0
+
+
+COMMANDS = {"separate": separate_main, "enhance": enhance_main, "stream": stream_main,
+            "serve": serve_main, "pretrain": pretrain_main}
 
 
 def main(argv=None):
-    """``stream`` or ``serve`` as the first argument picks that command;
-    anything else (a WAV path, or ``separate``) separates."""
+    """``enhance``, ``stream``, ``serve`` or ``pretrain`` as the first
+    argument picks that command; anything else (a WAV path, or
+    ``separate``) separates."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in COMMANDS:
         return COMMANDS[argv[0]](argv[1:])

@@ -3,8 +3,9 @@
 The seeded NMF init (``nmf_init_numpy``), the steering planes
 (``gcc.steering_cos_sin``), the analysis window and a learned dictionary are
 all host NumPy arrays in the JAX package; so are the leaves of a streaming
-``StreamState`` once fetched. These functions check each one's dtype and
-shape before it becomes a tensor on ``device``.
+``StreamState`` once fetched, and the factors of an NMF checkpoint. These
+functions check each one's dtype and shape before it becomes a tensor on
+``device``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from gccnmf_torch.models.realtime import StreamState
 
-__all__ = ["from_numpy_state", "stream_state_from_numpy"]
+__all__ = ["from_numpy_state", "nmf_state_from_numpy", "stream_state_from_numpy"]
 
 # key → required rank (a leading batch axis is allowed on the NMF state)
 _RANKS = {"w0": (2, 3), "h0": (2, 3), "cos": (2,), "sin": (2,), "window": (1,), "w": (2,)}
@@ -49,6 +50,24 @@ def from_numpy_state(arrays: dict, device="cpu") -> dict:
     if len(f) > 1:
         raise ValueError(f"frequency bins disagree across the state: {sorted(f)}")
     return out
+
+
+def nmf_state_from_numpy(w, h, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """The factors of an NMF state (a checkpoint's ``w`` (F, K) and ``h``
+    (T, K), float32 NumPy arrays) → float32 tensors on ``device``. Another
+    dtype, another rank and a dictionary size K that disagrees raise."""
+    out = []
+    for key, arr in (("w", w), ("h", h)):
+        arr = np.asarray(arr)
+        if arr.dtype != np.float32:
+            raise TypeError(f"{key}: expected float32, got {arr.dtype}")
+        if arr.ndim != 2:
+            raise ValueError(f"{key}: expected rank 2, got shape {arr.shape}")
+        # a copy: the caller keeps its array
+        out.append(torch.from_numpy(np.array(arr)).to(device))
+    if out[0].shape[1] != out[1].shape[1]:
+        raise ValueError(f"w {tuple(out[0].shape)} and h {tuple(out[1].shape)} disagree on K")
+    return out[0], out[1]
 
 
 # StreamState leaf → (dtype, rank); every leaf leads with the stream batch B

@@ -19,3 +19,11 @@ DATA_DIR = os.environ.get("GCCNMF_TPU_DATA_DIR") or join(ROOT_DIR, "data")
 
 DEFAULT_AUDIO_FILE = join(DATA_DIR, "dev_Sq1_Co_A_mix.wav")
 DEFAULT_SEPARATION_FILE = join(DATA_DIR, "dev1_female3_liverec_130ms_1m_mix.wav")
+
+# Cache dir for pre-learned NMF dictionaries (reference:
+# gccNMF/realtime/gccNMFPretraining.py:36-37 uses data/pretrainedW/W_<size>.npy).
+# ``GCCNMF_TPU_CACHE_DIR`` is shared with the JAX package too, and so is the
+# cache key (``pretrain.pretrain_dictionary``).
+PRETRAINED_W_DIR = os.environ.get(
+    "GCCNMF_TPU_CACHE_DIR", join(ROOT_DIR, ".cache", "pretrainedW")
+)

@@ -26,7 +26,7 @@ from gccnmf_torch.precision import round_bf16
 
 __all__ = [
     "nmf_init_numpy", "kl_nmf", "kl_nmf_simul", "h_infer", "kl_divergence", "safe_div",
-    "MATMUL_DTYPES",
+    "order_atoms_by_centroid", "MATMUL_DTYPES",
 ]
 
 _TINY = 1e-30
@@ -183,3 +183,12 @@ def kl_divergence(v: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     rec = h @ w.transpose(-1, -2)
     v = v.to(rec.dtype)
     return torch.sum(v * (torch.log(v + epsilon) - torch.log(rec + epsilon)) - v + rec)
+
+
+def order_atoms_by_centroid(w: np.ndarray) -> np.ndarray:
+    """Sort dictionary atoms (the columns of a NumPy ``w`` (F, K)) by
+    spectral centroid, for display parity with the reference
+    (gccNMF/realtime/gccNMFPretraining.py:60-66)."""
+    num_freq = w.shape[0]
+    centroids = (np.arange(num_freq)[:, None] * w).sum(0) / w.sum(0)
+    return w[:, np.argsort(centroids)]

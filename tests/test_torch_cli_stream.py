@@ -1,8 +1,9 @@
 """The port's ``stream`` and ``serve`` commands (``python -m gccnmf_torch.cli
 stream|serve``) on the CPU against the JAX package's ``gccnmf-stream`` and
 ``gccnmf-serve`` on the same seeded WAVs and dictionary: the same JSON keys,
-output WAVs at the streaming oracle's bars, the exit without a dictionary,
-and the INI reader against JAX's."""
+output WAVs at the streaming oracle's bars, the dictionary from the
+pretraining cache without ``--dictionary-file``, and the INI reader against
+JAX's."""
 
 import json
 import os
@@ -89,11 +90,30 @@ def test_serve_int16_matches_jax_command(files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("command", ["stream", "serve"])
-def test_exits_without_a_dictionary(files, command):
+def test_exits_without_a_dictionary(files, tmp_path, capsys, monkeypatch, command):
+    """Without --dictionary-file the command exits cleanly (0), its
+    dictionary trained into the pretraining cache as JAX's command trains
+    it: the same cache file (the fallback corpus is seeded) and outputs at
+    the streaming oracle's bars."""
     (path, _), _ = files
-    argv = [command, "-i", path, "--device", "cpu"]
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
-        cli.main(argv)
+    monkeypatch.setenv("GCCNMF_TPU_PRETRAIN_ITERS", "3")
+    ini = tmp_path / "s.cfg"
+    ini.write_text("[NMF]\ndictionarySize = 16\n")
+    outs, caches = {}, {}
+    jax_main = {"stream": jcli.stream_main, "serve": jcli.serve_main}[command]
+    for side, main in (("port", cli.COMMANDS[command]), ("jax", jax_main)):
+        caches[side] = tmp_path / f"cache_{side}"
+        monkeypatch.setenv("GCCNMF_TPU_CACHE_DIR", str(caches[side]))
+        out = str(tmp_path / (f"{side}.wav" if command == "stream" else side))
+        argv = ["-i", path, "-c", str(ini), "-o", out]
+        if command == "serve":
+            argv += ["--blocks", "8"]
+        assert main(argv + (["--device", "cpu"] if side == "port" else [])) == 0
+        info = _json(capsys)
+        outs[side] = info["output"] if command == "stream" else info["outputs"][0]
+    (name,) = os.listdir(caches["port"])
+    assert os.listdir(caches["jax"]) == [name] and name.startswith("W_16_win1024_it3_s0_")
+    _close(outs["port"], outs["jax"])
 
 
 def test_stream_rejects_bad_block_size(files):

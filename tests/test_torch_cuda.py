@@ -11,11 +11,16 @@ masked edges are exercised; chip_smoke.py repeats the comparison at the
 reference shapes.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
 
+from gccnmf_torch import checkpoint, cli, pretrain
+from gccnmf_torch.config import GCCNMFConfig
 from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
+from gccnmf_torch.models.online import OnlineConfig, OnlineGCCNMFEnhancer
 from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
 from gccnmf_torch.serving import StreamServer, StreamSettings, float_to_pcm
 from gccnmf_torch.ops import gcc, masks
@@ -26,12 +31,13 @@ from gccnmf_torch.ops.enhance_cuda import (
 from gccnmf_torch.ops.frontend_cuda import (
     frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
 )
-from gccnmf_torch.ops.nmf import kl_divergence, nmf_init_numpy
+from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, nmf_init_numpy
 from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
 from gccnmf_torch.ops.synthesis_cuda import (
     masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
 )
 from gccnmf_torch.ops.windows import hann_symmetric
+from gccnmf_torch.utils import wav
 
 pytestmark = pytest.mark.cuda
 
@@ -135,7 +141,7 @@ def test_nmf_kernel_rejects_mixed_devices(cuda):
 # rows; F = 513 and 129 leave one bin in their last 64-bin group; D = 37
 # (one partial column tile, scalar stores)
 FRONTEND_SHAPES = [(1024, 128, 77, 100), (1024, 100, 77, 100), (256, 64, 200, 37),
-                   (256, 36, 130, 37)]
+                   (256, 36, 130, 37), (1024, 512, 61, 64)]
 
 
 @pytest.mark.parametrize("shape", FRONTEND_SHAPES, ids=lambda s: "win%d-hop%d-t%d-d%d" % s)
@@ -199,7 +205,7 @@ def test_frontend_kernel_needs_the_basis_rows(cuda):
 # rows Z·T (840, 1,800; 148, 600 for the Wiener synthesis) no multiple of
 # 128
 SYNTHESIS_SHAPES = [(32, 2, 70), (256, 32, 150)]
-TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150)]
+TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150), (1024, 512, 61)]
 
 
 @pytest.mark.parametrize("shape", SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
@@ -645,3 +651,145 @@ def test_default_stream_objects_live_on_the_card(cuda):
     tensors += list(server._state)
     assert len(tensors) > 20
     assert all(t.device.type == "cuda" for t in tensors)
+
+
+WRAPPERS = (stft_gcc_frontend_cuda, kl_nmf_cuda, masked_synthesis_cuda, soft_mask_cuda,
+            tf_synthesis_cuda)
+
+
+def _launches():
+    return [fn.launches for fn in WRAPPERS]
+
+
+def _corpus(t=700, f=513, seed=4):
+    rng = np.random.default_rng(seed)
+    v = (rng.random((t, 6)) + 0.05) @ (rng.random((f, 6)) + 0.05).T + 0.01
+    return v.astype(np.float32)
+
+
+def test_pretrain_through_the_kernel_matches_plain(cuda, tmp_path):
+    """pretrain_dictionary on the card: one launch of kernel 1 (float32)
+    per trained size, none on a cache hit; W within rtol 1e-4 of the plain
+    kl_nmf on the card after 15 iterations."""
+    corpus = _corpus()
+    cache = str(tmp_path / "cache")
+    before = kl_nmf_cuda.launches
+    got = pretrain.pretrain_dictionary(corpus, 24, num_iterations=15, cache_dir=cache,
+                                       device=cuda)
+    assert kl_nmf_cuda.launches == before + 1
+    again = pretrain.pretrain_dictionary(corpus, 24, num_iterations=15, cache_dir=cache,
+                                         device=cuda)
+    assert kl_nmf_cuda.launches == before + 1
+    np.testing.assert_array_equal(got, again)
+    w0, h0 = nmf_init_numpy(513, 24, corpus.shape[0])
+    want, _ = kl_nmf(*(torch.as_tensor(x, device=cuda) for x in (corpus, w0, h0)), 15)
+    torch.testing.assert_close(torch.as_tensor(got, device=cuda), want, rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_checkpointed_chunks_equal_one_kernel_call(cuda, tmp_path):
+    """Chunks of 7, and a run resumed from its 14-iteration checkpoint,
+    equal one 20-iteration kernel call bit for bit: each launch copies W and
+    H into fresh buffers, and mode 0 carries no other state."""
+    v = torch.as_tensor(_corpus(t=400, f=65), device=cuda)
+    w0, h0 = (torch.as_tensor(x, device=cuda) for x in nmf_init_numpy(65, 16, 400))
+    w_one, h_one = kl_nmf_cuda(v, w0, h0, 20, matmul_dtype="float32")
+    before = kl_nmf_cuda.launches
+    w_ck, h_ck = checkpoint.kl_nmf_checkpointed(v, w0, h0, 20, str(tmp_path / "a"),
+                                                checkpoint_every=7, device=cuda)
+    assert kl_nmf_cuda.launches == before + 3
+    assert torch.equal(w_ck, w_one) and torch.equal(h_ck, h_one)
+    checkpoint.kl_nmf_checkpointed(v, w0, h0, 14, str(tmp_path / "b"), checkpoint_every=7,
+                                   device=cuda)
+    w_re, h_re = checkpoint.kl_nmf_checkpointed(v, w0, h0, 20, str(tmp_path / "b"),
+                                                checkpoint_every=7, device=cuda)
+    assert torch.equal(w_re, w_one) and torch.equal(h_re, h_one)
+
+
+def test_guarded_corpus_nmf_on_a_silent_frame(cuda, tmp_path):
+    """A corpus frame of digital silence: on the card the guarded kernel
+    sends its H row to 0 and keeps W finite; the CPU path (JAX's unguarded
+    updates) turns W into NaN. Elsewhere the two agree (rtol 1e-4)."""
+    corpus = _corpus(t=300, f=65)
+    corpus[7] = 0.0
+    w0, h0 = nmf_init_numpy(65, 8, 300)
+    w, h = pretrain.corpus_nmf(*(torch.as_tensor(x, device=cuda) for x in (corpus, w0, h0)), 5)
+    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(h).all())
+    assert bool((h[7] == 0).all()) and bool((h[np.arange(300) != 7] > 0).all())
+    w_cpu, _ = pretrain.corpus_nmf(*(torch.as_tensor(x) for x in (corpus, w0, h0)), 5)
+    assert bool(torch.isnan(w_cpu).all())
+    clean = np.delete(corpus, 7, axis=0)
+    w_c, _ = pretrain.corpus_nmf(*(torch.as_tensor(x, device=cuda) for x in
+                                   (clean, w0, np.delete(h0, 7, axis=0))), 5)
+    w_p, _ = pretrain.corpus_nmf(*(torch.as_tensor(x) for x in
+                                   (clean, w0, np.delete(h0, 7, axis=0))), 5)
+    torch.testing.assert_close(w_c.cpu(), w_p, rtol=1e-4, atol=1e-6 * float(w_p.abs().max()))
+
+
+@pytest.mark.parametrize("smoothing", ["sliding", "exponential"])
+def test_online_enhancer_batch_invariant_and_matches_cpu(cuda, smoothing):
+    """Each batch element of the online enhancer on the card equals the
+    element alone (1e-5 x max) and the CPU's run (> 25 dB, targets equal on
+    >= 99 % of frames); no kernel launches."""
+    cfg = StreamConfig()
+    w, mix = _stream_problem(cfg, 3, 40, k=24, seed=6)
+    ocfg = OnlineConfig(smoothing=smoothing, num_h_updates=2)
+    before = _launches()
+    enh = OnlineGCCNMFEnhancer(w, ocfg, device=cuda)
+    batch = enh.enhance(mix)
+    assert _launches() == before
+    for i in range(3):
+        one = enh.enhance(mix[i])
+        np.testing.assert_allclose(batch["enhanced"][i], one["enhanced"], rtol=0,
+                                   atol=1e-5 * np.abs(one["enhanced"]).max())
+        np.testing.assert_array_equal(batch["target_tdoa_index"][i], one["target_tdoa_index"])
+    cpu = OnlineGCCNMFEnhancer(w, ocfg, device="cpu").enhance(mix)
+    assert (cpu["target_tdoa_index"] == batch["target_tdoa_index"]).mean() >= 0.99
+    n_out = batch["enhanced"].shape[-1]
+    for ref, est in zip(cpu["enhanced"].reshape(-1, n_out), batch["enhanced"].reshape(-1, n_out)):
+        assert 10 * np.log10((ref**2).sum() / ((ref - est) ** 2).sum()) > 25.0
+
+
+def test_enhance_command_offline_at_hop_512(cuda, tmp_path, capsys):
+    """``enhance --mode offline`` on the card runs the front-end, soft-mask
+    and Wiener-synthesis kernels at the command's window 1024 / hop 512,
+    within 25 dB of the same command on the CPU; each of the three, fed
+    the command's enhancer's own operands on the same WAV, meets its plain
+    version at the per-kernel bars of the tests above."""
+    cfg = StreamConfig()
+    w, mix = _stream_problem(cfg, 1, 60, k=32, seed=9)
+    dic = str(tmp_path / "W.npy")
+    np.save(dic, w)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        path = str(tmp_path / f"{device}.wav")
+        wav.write_wav(mix[0], path, 16000)
+        before = _launches()
+        assert cli.main(["enhance", path, "--mode", "offline", "--dictionary-file", dic,
+                         "--device", device]) == 0
+        ran = [a - b for a, b in zip(_launches(), before)]
+        assert ran == ([1, 0, 0, 1, 1] if device == "cuda" else [0] * 5)
+        outs[device] = wav.read_wav(json.loads(capsys.readouterr().out)["output"])[0]
+    for ref, est in zip(outs["cpu"], outs["cuda"]):
+        assert 10 * np.log10((ref**2).sum() / ((ref - est) ** 2).sum()) > 25.0
+
+    enh = cli._make_enhancer("offline", GCCNMFConfig(), w, 16000, cuda)
+    x = torch.as_tensor(wav.read_wav(str(tmp_path / "cuda.wav"))[0][None], device=cuda)
+    kw = dict(hop_size=512, matmul_dtype="bfloat16")
+    fe_args = (x, enh._dft_basis, enh._cos, enh._sin)
+    planes = stft_gcc_frontend_cuda(*fe_args, plane_dtype="bfloat16", **kw)
+    for g, p in zip(planes, stft_gcc_frontend_plain(*fe_args, plane_dtype="bfloat16", **kw)):
+        assert float((g.float() - p.float()).abs().max()) <= 8e-3 * float(p.float().abs().max())
+    sre, sim, _, cre, cim, ang = planes
+    tgt = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
+    margs = (cre, cim, enh._mask_basis, tgt, enh.target_epsilon, enh.target_beta,
+             enh.noise_floor)
+    got, arg = soft_mask_cuda(*margs, matmul_dtype="bfloat16", return_argmax=True)
+    want = soft_mask_plain(*margs, matmul_dtype="bfloat16")
+    flipped, gap, scale = argmax_flips(cre, cim, enh._mask_basis, arg, matmul_dtype="bfloat16")
+    assert gap <= 1e-5 * scale
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps[~flipped].max()) <= 2 and float(flipped.float().mean()) <= 1e-2
+    syn = tf_synthesis_cuda(sre, sim, got, enh._tf_basis, **kw)
+    syn_plain = tf_synthesis_plain(sre, sim, got, enh._tf_basis, **kw)
+    assert float((syn - syn_plain).abs().max()) <= 1e-2 * float(syn_plain.abs().max())

@@ -526,7 +526,22 @@ def test_server_matches_jax(w, cfg, mode):
     ids = [(port.open_stream(StreamSettings(**vars(s))), jax_.open_stream(s))
            for s in settings]
     blocks = _signal(11, 12, cfg)
-    got = {}
+    # each server's outputs per stream in the order they arrive. The sync
+    # and pipelined servers deliver the same streams on the same tick; with
+    # the async fetch a tick's output surfaces when its copy is done, which
+    # may be a tick earlier on one server than on the other
+    paired = not mode.get("async_fetch", False)
+    pair_of_jax = {j: p for p, j in ids}
+    got = {side: {} for side in ("port", "jax")}
+
+    def collect(port_out, jax_out):
+        if paired:
+            assert set(port_out) == {pair_of_jax[j] for j in jax_out}
+        for p, block in port_out.items():
+            got["port"].setdefault(p, []).append(block)
+        for j, block in jax_out.items():
+            got["jax"].setdefault(pair_of_jax[j], []).append(block)
+
     for t in range(12):
         if t == 4:
             port.update_stream(ids[0][0], target_epsilon=1.5, noise_floor=0.2)
@@ -535,24 +550,26 @@ def test_server_matches_jax(w, cfg, mode):
             port.close_stream(ids[2][0])
             jax_.close_stream(ids[2][1])
             ids[2] = (port.open_stream(), jax_.open_stream())
+            pair_of_jax[ids[2][1]] = ids[2][0]
         live = [pair for i, pair in enumerate(ids) if not (t == 5 and i == 1)]
-        outs = (port.process({p: blocks[t] * (1 + i) for i, (p, _) in enumerate(live)}),
+        collect(port.process({p: blocks[t] * (1 + i) for i, (p, _) in enumerate(live)}),
                 jax_.process({j: blocks[t] * (1 + i) for i, (_, j) in enumerate(live)}))
-        for p, j in ids:
-            if p in outs[0]:
-                got.setdefault(p, []).append((outs[0][p], outs[1][j]))
         tp, tj = port.telemetry, jax_.telemetry
         assert [tp[p]["target_tdoa_index"] for p, _ in ids] == \
             [tj[j]["target_tdoa_index"] for _, j in ids]
-    for tails in zip(port.flush(), jax_.flush()):
-        for p, j in ids:
-            if p in tails[0]:
-                got.setdefault(p, []).append((tails[0][p], tails[1][j]))
+    if paired:
+        tails = list(zip(port.flush(), jax_.flush(), strict=True))
+    else:
+        tails = [(tail, {}) for tail in port.flush()] + [({}, tail) for tail in jax_.flush()]
+    for port_out, jax_out in tails:
+        collect(port_out, jax_out)
     port.close()
     jax_.close()
-    for pairs in got.values():
-        a = np.concatenate([x for x, _ in pairs], axis=-1)
-        b = np.concatenate([y for _, y in pairs], axis=-1)
+    assert set(got["port"]) == set(got["jax"])
+    for p, port_blocks in got["port"].items():
+        a = np.concatenate(port_blocks, axis=-1)
+        b = np.concatenate(got["jax"][p], axis=-1)
+        assert a.shape == b.shape
         err = a - b
         assert 10 * np.log10((b ** 2).sum() / max((err ** 2).sum(), 1e-30)) > 25.0
         assert (np.abs(err) < 3e-4 * np.abs(b).max()).mean() > 0.93
