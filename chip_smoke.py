@@ -104,15 +104,16 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
 10. ``pretrain``: 64 seeded 10 s 16 kHz stereo WAVs (``make_mixture``,
     ``--seed + 2``, 39,808 frames, cut to the default 20,000) through
     ``cli.pretrain_main`` with ``--sizes 64 128 256``, the default window,
-    hop and 100 iterations: each size's seconds and ``kl_nmf_cuda``
-    launches (1 each; 0 each on a second run, the cache hit), the cache
-    files named by the in-process corpus's fingerprint, each W equal to one
-    kernel call (float32) from the seeded init, that call within rtol 1e-4
-    of the plain version after 15 iterations and within 0.5 % of its KL at
-    100 (one CUDA-event time of each 100-iteration call per size);
-    ``checkpoint.kl_nmf_checkpointed`` (100 iterations in chunks of
-    25, and resumed from iteration 50) bit-equal to one call; the kernel
-    row of kernel 1 at the corpus shape (B = 1, T = 20,000, K = 256); and
+    hop and 100 iterations: each size's seconds and its launches (none:
+    pretraining runs JAX's unguarded plain updates, trained or from the
+    cache), the cache files named by the in-process corpus's fingerprint,
+    each W equal to one plain ``kl_nmf`` call from the seeded init; kernel
+    1 (float32) at each size within rtol 1e-4 of the plain version after 15
+    iterations and within 0.5 % of its KL at 100 (one CUDA-event time of
+    each 100-iteration call per size); ``checkpoint.kl_nmf_checkpointed``
+    (100 iterations in chunks of 25, and resumed from iteration 50)
+    bit-equal to one plain call, no launch; the kernel row of kernel 1 at
+    the corpus shape (B = 1, T = 20,000, K = 256); and
     ``get_dictionaries``' larger sizes (K = 512, 1,024) within rtol 1e-4 of
     the plain version after 15 iterations on the same corpus.
 11. ``online``: ``OnlineGCCNMFEnhancer`` with the pretrained W_64 and the
@@ -130,8 +131,28 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     (> 45 dB per channel), and each of the three kernels held against its
     plain version at the command's shapes (window 1024, hop 512, 64 TDOAs,
     K = 64, B = 1: rows ``...@B1,hop512,D64,K64``) as in ``kernel``; then
-    ``stream`` without ``--dictionary-file`` trains W into the cache (one
-    launch) and finds it there (none).
+    ``stream`` without ``--dictionary-file`` trains W into the cache and
+    finds it there unchanged, no launch either time.
+13. ``long_audio``: ``LongAudioSeparator`` on the card. Parity on a 60 s
+    int16 WAV (``--seed + 3``) with ``chunk_frames=1024`` (the last chunk
+    ragged): ``separate_streamed`` in float32 within 3/32768 of the card's
+    ``GCCNMFSeparator`` (the kernels' float32 path), the one-shard
+    ``separate`` above 40 dB against it, the default mode (bf16 planes)
+    above 20 dB against it, all with the mixture's three targets; a 10 s
+    file at the default config streamed on the card and on the CPU, the
+    same targets and >= 40 dB per output; no kernel launched on any of
+    them. Then one hour (``--seed + 5``, 449,993 frames, 899,986 NMF rows)
+    through ``separate_streamed`` at ``OfflineConfig()`` and chunks of
+    8,192 frames: wall seconds, audio-s/s, the stage seconds and transfer
+    MB, the peak of ``torch.cuda.max_memory_allocated`` and the host's
+    memory before, after and at its peak (sampled every 20 ms): its
+    anonymous part (``RssAnon``, or where ``/proc`` has none ``VmData``
+    less the input's copy-on-write memory map) may grow by at most twice
+    one chunk's host buffers; the three
+    targets, every output the expected length and nonzero. Last, kernel 1
+    (float32) at the hour's NMF shape (B = 1, T = 899,986, K = 128) against
+    the guarded plain ``kl_nmf`` that the path runs, rtol 1e-4 after 15
+    iterations, both timed once at 100 after a warm-up.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -161,6 +182,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 SR, SECONDS, WIN, HOP, K, D, SOURCES = 16000, 10, 1024, 128, 128, 128, 3
+# the mixture's delays (samples) of the right mic behind the left, per source
+DELAYS = (8, -11, 3)
 KERNEL_BATCH, MAIN_BATCH, NMF_CHECK_ITERS, NMF_ITERS = 2, 16, 15, 100
 # separate_batches runs CHUNKS chunks of MAIN_BATCH; the device source count
 # keeps up to AUTO_MAX sources
@@ -194,6 +217,9 @@ SERVE_TICKS, REPLAY_BLOCKS, STREAM_CALLS = 300, 40, 3
 # pretraining: the WAVs of the corpus (2 × 311 frames each), the sizes the
 # command trains, and the frames the default cap keeps
 PRETRAIN_WAVS, PRETRAIN_SIZES, PRETRAIN_FRAMES = 64, (64, 128, 256), 20000
+# long audio: the parity file's seconds and macro-chunk width (its last
+# chunk ragged), and the seconds of the hour-long file
+LONG_PARITY_S, LONG_CHUNK, HOUR_S = 60, 1024, 3600
 # the enhance command on the card against the same command on the CPU, the
 # least SNR (dB) of any output channel: 49.39 dB measured on an H100
 CLI_SNR_DB = 45.0
@@ -218,14 +244,36 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def make_mixture(seed: int, batch: int) -> np.ndarray:
+def make_mixture(seed: int, batch: int, seconds: int = SECONDS) -> np.ndarray:
     """(batch, 2, n) float32: three white-noise sources at 0.1 RMS, delayed
-    by 8, -11 and 3 samples between the mics (as bench.py's synthetic
-    fallback does with two)."""
+    by DELAYS samples between the mics (as bench.py's synthetic fallback
+    does with two)."""
     rng = np.random.default_rng(seed)
-    src = rng.standard_normal((batch, SOURCES, SR * SECONDS), dtype=np.float32) * 0.1
-    right = sum(np.roll(src[:, i], d, axis=-1) for i, d in enumerate((8, -11, 3)))
+    src = rng.standard_normal((batch, SOURCES, SR * seconds), dtype=np.float32) * 0.1
+    right = sum(np.roll(src[:, i], d, axis=-1) for i, d in enumerate(DELAYS))
     return np.stack([src.sum(axis=1), right], axis=1).astype(np.float32)
+
+
+def host_memory_mib() -> dict[str, float]:
+    """This process's host memory in MiB from ``/proc/self/status``:
+    ``RssAnon`` (anonymous resident pages) where the kernel reports it,
+    ``VmData`` (private data mappings: anonymous memory, resident or not)
+    and ``VmRSS`` (every resident page, a memory-mapped input's included)."""
+    out = {}
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            key = line.split(":", 1)[0]
+            if key in ("RssAnon", "VmData", "VmRSS"):
+                out[key] = int(line.split()[1]) / 1024.0
+    return out
+
+
+def delay_targets(gcc) -> list[int]:
+    """The TDOA indexes of the mixture's DELAYS on the default grid (128
+    TDOAs over ±1 m / c): the nearest grid point to each delay, negated,
+    since the right channel lags by d."""
+    grid = gcc.tdoa_grid(1.0, D) * SR
+    return sorted(int(np.argmin(np.abs(grid + d))) for d in DELAYS)
 
 
 def time_ms(torch, fn, reps: int = 5) -> float:
@@ -337,6 +385,207 @@ def max_err(torch, got, want) -> tuple[float, float]:
 
 def snr_db(ref: np.ndarray, est: np.ndarray) -> float:
     return float(10 * np.log10((ref**2).sum() / max(((ref - est) ** 2).sum(), 1e-30)))
+
+
+def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts, counts):
+    """Phase 13: ``LongAudioSeparator`` on the card (module docstring).
+    ``record`` keeps kernel 1's row at the hour's NMF shape; returns the
+    phase's fields."""
+    import threading
+
+    from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+    from gccnmf_torch.ops import gcc
+    from gccnmf_torch.ops import stft as stft_ops
+    from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
+    from gccnmf_torch.parallel.long_audio import LOOKAHEAD, UPLOAD_SLOTS, LongAudioSeparator
+    from gccnmf_torch.utils import wav
+    from gccnmf_torch.utils.hostmem import trim_host_heap
+
+    dev = torch.device("cuda")
+    want_targets = delay_targets(gcc)
+    cfg32 = OfflineConfig(nmf_matmul_dtype="float32")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+
+    def mixture_wav(name, seed_, seconds):
+        path = os.path.join(tmp, f"{name}_mix.wav")
+        wav.write_wav(make_mixture(seed_, 1, seconds)[0], path, SR)
+        return path
+
+    def outputs(result):
+        return [wav.read_wav(p)[0] for p in result["paths"]]
+
+    # ---- parity at 60 s and 10 s: no kernel launches on these paths
+    p60, p10 = mixture_wav("m60", seed + 3, LONG_PARITY_S), mixture_wav("m10", seed + 4, SECONDS)
+    x60 = wav.read_wav(p60)[0]
+    ref32 = GCCNMFSeparator(cfg32).separate(x60)  # the kernels' float32 path
+    reset_counts()
+    t1 = time.perf_counter()
+    st32 = LongAudioSeparator(cfg32, chunk_frames=LONG_CHUNK).separate_streamed(
+        p60, os.path.join(tmp, "st32"))
+    st32_s = time.perf_counter() - t1
+    mem32 = LongAudioSeparator(cfg32).separate(x60)
+    stdef = LongAudioSeparator(OfflineConfig(), chunk_frames=LONG_CHUNK).separate_streamed(
+        p60, os.path.join(tmp, "stdef"))
+    card10 = LongAudioSeparator(OfflineConfig(), chunk_frames=LONG_CHUNK).separate_streamed(
+        p10, os.path.join(tmp, "card10"))
+    parity_launches = counts()
+    cpu10 = LongAudioSeparator(OfflineConfig(), device="cpu",
+                               chunk_frames=LONG_CHUNK).separate_streamed(
+        p10, os.path.join(tmp, "cpu10"))
+    streamed_err = max(float(np.abs(g - e).max()) for g, e in zip(outputs(st32),
+                                                                  ref32["estimates"]))
+    mem_snr = [snr_db(e, g) for g, e in zip(mem32["estimates"], ref32["estimates"])]
+    def_snr = [snr_db(e, g) for g, e in zip(outputs(stdef), ref32["estimates"])]
+    cpu_snr = [snr_db(c, g) for g, c in zip(outputs(card10), outputs(cpu10))]
+    parity = dict(
+        targets=dict(streamed_f32=st32["target_tdoa_indexes"],
+                     separate=mem32["target_tdoa_indexes"],
+                     streamed_default=stdef["target_tdoa_indexes"],
+                     gccnmf_separator=ref32["target_tdoa_indexes"], expected=want_targets,
+                     card_10s=card10["target_tdoa_indexes"],
+                     cpu_10s=cpu10["target_tdoa_indexes"]),
+        streamed_f32_vs_separator=dict(max_abs_err=streamed_err, bar="3/32768",
+                                       seconds=st32_s),
+        separate_vs_separator=dict(snr_db=mem_snr, bar="> 40 dB"),
+        default_vs_f32=dict(snr_db=def_snr, bar="> 20 dB"),
+        card_vs_cpu_10s=dict(snr_db=cpu_snr, bar=">= 40 dB"),
+        launches=parity_launches)
+    require(all(v == 0 for v in parity_launches.values()),
+            f"long_audio: a kernel launched on the long-audio paths: {parity_launches}")
+    require(ref32["target_tdoa_indexes"] == want_targets and all(
+        r["target_tdoa_indexes"] == want_targets for r in (st32, mem32, stdef)),
+            f"long_audio 60 s: targets {parity['targets']}")
+    require(card10["target_tdoa_indexes"] == cpu10["target_tdoa_indexes"],
+            f"long_audio 10 s: card targets {card10['target_tdoa_indexes']} != CPU "
+            f"{cpu10['target_tdoa_indexes']}")
+    require(streamed_err <= 3 / 32768, f"long_audio: streamed against the separator "
+                                       f"{streamed_err} > 3/32768")
+    require(min(mem_snr) > 40.0, f"long_audio: separate against the separator {mem_snr} dB")
+    require(min(def_snr) > 20.0, f"long_audio: default mode against float32 {def_snr} dB")
+    require(min(cpu_snr) >= 40.0, f"long_audio: card against CPU {cpu_snr} dB")
+    del ref32, mem32, x60
+
+    # ---- one hour, streamed from disk, at the default config
+    path_h = mixture_wav("hour", seed + 5, HOUR_S)
+    t_h = stft_ops.num_frames(HOUR_S * SR, WIN, HOP)
+    sep = LongAudioSeparator(OfflineConfig())  # chunk_frames 8192, as the command
+    # one chunk's host buffers: the pinned input and output rings, and the
+    # float64 and float32 copies of one atom block of the seeded H0 draw
+    n_in = 2 * ((sep.chunk_frames - 1) * HOP + WIN) * 2
+    n_out = SOURCES * 2 * sep.chunk_frames * HOP * 2
+    chunk_bytes = UPLOAD_SLOTS * n_in + (LOOKAHEAD + 1) * n_out + 8 * 2 * t_h * (8 + 4)
+    mem_bound = 2 * chunk_bytes / 2**20
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trim_host_heap()
+    mem_before = host_memory_mib()
+    # anonymous memory: RssAnon, or VmData where the kernel has no RssAnon
+    anon_key = "RssAnon" if "RssAnon" in mem_before else "VmData"
+    peak = dict(mem_before)
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.02):
+            for key, mib in host_memory_mib().items():
+                peak[key] = max(peak[key], mib)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    reset_counts()
+    t1 = time.perf_counter()
+    try:
+        hour = sep.separate_streamed(path_h, os.path.join(tmp, "hour"))
+    finally:
+        done.set()
+        sampler.join()
+    wall = time.perf_counter() - t1
+    hour_launches = counts()
+    mem_after = host_memory_mib()
+    peak_dev = torch.cuda.max_memory_allocated()
+    # VmData also counts the input WAV's private copy-on-write memory map
+    # (scipy's mmap mode "c"), whose pages stay file-backed: nothing writes
+    # them. RssAnon does not count them.
+    mapped = HOUR_S * SR * 2 * 2 / 2**20 if anon_key == "VmData" else 0.0
+    growth = peak[anon_key] - mem_before[anon_key] - mapped
+    want_len = (t_h - 1) * HOP
+    scans = []
+    for p in hour["paths"]:
+        reader = wav.WavReader(p)
+        nonzero = sum(int(np.count_nonzero(reader.read_raw(i, 2**22)))
+                      for i in range(0, reader.num_samples, 2**22))
+        scans.append(dict(samples=reader.num_samples, nonzero=nonzero))
+    fields = dict(
+        seconds_of_audio=HOUR_S, frames=t_h, nmf_rows=2 * t_h, wall_s=wall,
+        audio_s_per_s=HOUR_S / wall, stage_seconds=hour["stage_seconds"],
+        transfer_mb=hour["transfer_mb"], targets=hour["target_tdoa_indexes"],
+        samples_written=hour["samples_written"], outputs=scans, launches=hour_launches,
+        max_memory_allocated_gib=peak_dev / 2**30,
+        host_memory_mib=dict(
+            before=mem_before, after=mem_after, peak=peak, bounded=anon_key,
+            input_map_mib=mapped, growth_peak=growth, bound=mem_bound,
+            bound_basis=(f"2 x one chunk's host buffers: {UPLOAD_SLOTS} pinned input "
+                         f"chunks, {LOOKAHEAD + 1} pinned output chunks and one atom block "
+                         "of the H0 draw (float64 and float32); the int16 outputs alone "
+                         f"are {SOURCES * 2 * want_len * 2 / 2**20:.0f} MiB"),
+            note="sampled every 20 ms from /proc/self/status; growth_peak is the bounded "
+                 "key's peak less its value before, less input_map_mib for VmData (the "
+                 "input WAV's copy-on-write map, file-backed); VmRSS counts the map's "
+                 "pages the run touched"),
+        host_heap_trims=hour["host_heap_trims"])
+    emit("long_audio", device=kind, nvidia_smi=smi,
+         config=f"OfflineConfig() (bfloat16_q planes, guarded fp32 NMF), chunk_frames "
+                f"{sep.chunk_frames}; parity at {LONG_PARITY_S} s with chunk_frames "
+                f"{LONG_CHUNK}", parity=parity, hour=fields)
+    require(all(v == 0 for v in hour_launches.values()),
+            f"long_audio hour: a kernel launched: {hour_launches}")
+    require(hour["target_tdoa_indexes"] == want_targets,
+            f"long_audio hour: targets {hour['target_tdoa_indexes']} != {want_targets}")
+    require(hour["samples_written"] == want_len
+            and all(sc["samples"] == want_len and sc["nonzero"] > 0 for sc in scans),
+            f"long_audio hour: outputs {scans}, want {want_len} samples")
+    require(np.isfinite(hour["w"]).all() and np.isfinite(hour["mean_angular_spectrum"]).all(),
+            "long_audio hour: W or the angular spectrum is not finite")
+    require(growth <= mem_bound,
+            f"long_audio hour: host {anon_key} grew {growth} MiB > {mem_bound} MiB")
+    del hour
+
+    # ---- kernel 1 (float32) at the hour's NMF shape, against the guarded
+    # plain kl_nmf that the path runs
+    pcm = wav.WavReader(path_h).read_raw(0, HOUR_S * SR)
+    x = torch.as_tensor(pcm, device=dev).to(torch.float32) / 32768.0
+    del pcm
+    f = WIN // 2 + 1
+    spec = stft_ops.stft(x, sep._window, HOP, conjugate=True)
+    v = spec.abs().reshape(1, 2 * t_h, f)
+    del spec, x
+    w0_np, h0 = sep._h0_device_chunked(2 * t_h)
+    w0, h0 = torch.as_tensor(w0_np, device=dev)[None], h0[None]
+    got = kl_nmf_cuda(v, w0, h0, NMF_CHECK_ITERS, matmul_dtype="float32")
+    want = kl_nmf_plain(v, w0, h0, NMF_CHECK_ITERS, matmul_dtype="float32")
+    err = max(max_err(torch, g, w_)[0] for g, w_ in zip(got, want))
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
+    del want
+    record(
+        "kl_nmf_cuda", "float32", 1, "gccnmf_torch/csrc/nmf.cu",
+        "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
+        lambda: kl_nmf_cuda(v, w0, h0, NMF_ITERS, matmul_dtype="float32"),
+        lambda: kl_nmf_plain(v, w0, h0, NMF_ITERS, matmul_dtype="float32"),
+        flops=8 * 2 * t_h * f * K * NMF_ITERS, shape=f",T{2 * t_h},K{K}",
+        counted=f"4 GEMMs of 2·T·F·K per iteration, {NMF_ITERS} iterations",
+        nbytes=2 * t_h * f * 4 + 2 * 4 * (f * K + 2 * t_h * K),
+        check_fn=lambda: kl_nmf_cuda(v, w0, h0, NMF_CHECK_ITERS, matmul_dtype="float32"),
+        err=err, reps=1,
+        note=f"{NMF_CHECK_ITERS} iterations: rtol 1e-4, atol 1e-6 x max|plain|",
+        iterations_timed=NMF_ITERS, design="simt",
+        timed="one call of each after a warm-up (CUDA events)",
+        off_path="the long-audio path runs JAX's guarded plain kl_nmf (0 launches)")
+    del got, v, w0, h0
+    torch.cuda.empty_cache()
+    tmp_dir.cleanup()
+    return fields
 
 
 def main() -> int:
@@ -478,7 +727,7 @@ def main() -> int:
 
     def record(name, mode, b, source, replaces, got, want, tol, kernel_fn, plain_fn,
                flops, nbytes, check_fn=None, err=None, note="", counted="", shape="",
-               **extra):
+               reps=TIMED_CALLS, **extra):
         """Check ``got`` (a tuple of the kernel's outputs) against the plain
         version's ``want``, rerun the kernel (``check_fn``, default
         ``kernel_fn``) for bit-identity, time both, and keep the row;
@@ -493,10 +742,10 @@ def main() -> int:
             err, scale = max(max_err(torch, g, w) for g, w in zip(got, want))
             require(err <= tol * scale, f"{label} max abs err {err} > {tol} x {scale}")
         b_ms, b_by = bound(flops, nbytes, mode)
-        ms = time_ms(torch, kernel_fn)
+        ms = time_ms(torch, kernel_fn, reps)
         row = dict(name=label, route="cuda", source=source, replaces=replaces,
                    launches=0, max_abs_err=err, ms=ms, tflop_s=flops / ms / 1e9,
-                   plain_ms=time_ms(torch, plain_fn), bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=time_ms(torch, plain_fn, reps), bound_ms=b_ms, bound_by=b_by,
                    library_ms=None, library_note="no single PyTorch call computes this "
                    "function", tolerance=note, bit_identical=True, batch=b,
                    kernel=name, mode=mode,
@@ -1364,19 +1613,17 @@ def main() -> int:
             seconds = time.perf_counter() - t1
             c = counts()
             info = json.loads(buf.getvalue().strip().splitlines()[-1])
-            want = int(run == "train")
             require(rc == 0 and info["corpus_frames"] == PRETRAIN_FRAMES
                     and info["dictionaries"] == {str(k): [f, k] for k in PRETRAIN_SIZES},
                     f"pretrain ({run}): {info}")
-            require(c["kl_nmf_cuda"] == want * len(PRETRAIN_SIZES)
-                    and sum(c.values()) == c["kl_nmf_cuda"]
-                    and [r["launches"] for r in per_size] == [want] * len(PRETRAIN_SIZES),
+            # JAX's unguarded plain updates: no kernel, trained or cached
+            require(sum(c.values()) == 0
+                    and [r["launches"] for r in per_size] == [0] * len(PRETRAIN_SIZES),
                     f"pretrain ({run}): launches {c}, per size {per_size}")
             pretrain_runs.append(dict(run=run, seconds=seconds, launches=c,
                                       sizes=list(per_size)))
     finally:
         pretrain.pretrain_dictionary = train
-    pretrain_launches = pretrain_runs[0]["launches"]["kl_nmf_cuda"]
     # the corpus again in-process: the cache files carry its fingerprint
     corpus = pretrain.training_corpus_from_wavs(wav_paths)
     tag = pretrain._corpus_fingerprint(corpus)
@@ -1395,12 +1642,12 @@ def main() -> int:
         for g, w_ in zip(got, want):
             torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
         # one timed call each (CUDA events), both warm: the command ran
-        # the kernel at this size, and the check above the plain version
+        # the plain updates at this size, and the check above the kernel
+        w_p, h_p, unguarded_ms = timed_once(lambda: kl_nmf(v_c, w0c, h0c, NMF_ITERS))
+        require(np.array_equal(w_p.cpu().numpy(), w_saved),
+                f"pretrain: W_{k} is not one plain kl_nmf call from the seeded init")
         w_k, h_k, kernel_ms = timed_once(
             lambda: kl_nmf_cuda(v_c, w0c, h0c, NMF_ITERS, matmul_dtype="float32"))
-        require(np.array_equal(w_k.cpu().numpy(), w_saved),
-                f"pretrain: W_{k} is not one kernel call from the seeded init")
-        w_p, h_p, unguarded_ms = timed_once(lambda: kl_nmf(v_c, w0c, h0c, NMF_ITERS))
         kl_k, kl_p = (float(kl_divergence(v_c, w_.double(), h_.double()))
                       for w_, h_ in ((w_k, h_k), (w_p, h_p)))
         require(abs(kl_k - kl_p) <= 0.005 * kl_p, f"pretrain K={k}: KL {kl_k} vs plain {kl_p}")
@@ -1410,7 +1657,7 @@ def main() -> int:
             max_abs_err_w=max_err(torch, got[0], want[0])[0],
             kernel_ms=kernel_ms, unguarded_plain_ms=unguarded_ms,
             timed=f"one call of {NMF_ITERS} iterations; the plain version is JAX's unguarded "
-                  "kl_nmf, which the CPU path runs")
+                  "kl_nmf, which pretraining runs on either device")
         if k == PRETRAIN_SIZES[-1]:  # the kernel row at the corpus shape
             dt_ = torch.float32
             hb_, wb_, q_ = (torch.rand(shape, device=dev, dtype=dt_)
@@ -1436,10 +1683,8 @@ def main() -> int:
                 gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on float32 "
                                    f"operands at T = {t_c}, times {NMF_ITERS}; not the same "
                                    "function, so library_ms stays null"),
-                launches_on=("pretrain_main --sizes 64 128 256: one launch per size "
-                             "(0 on the cache hit)"))
-            rows[-1]["launches"] = pretrain_launches
-        if k == PRETRAIN_SIZES[0]:  # chunked and resumed, against one call
+                off_path="pretrain_main runs JAX's unguarded plain updates (0 launches)")
+        if k == PRETRAIN_SIZES[0]:  # chunked and resumed, against one plain call
             reset_counts()
             ck = checkpoint.kl_nmf_checkpointed(v_c, w0c, h0c, NMF_ITERS,
                                                 os.path.join(tmp, "ck_a"), checkpoint_every=25)
@@ -1449,9 +1694,10 @@ def main() -> int:
             resumed = checkpoint.kl_nmf_checkpointed(v_c, w0c, h0c, NMF_ITERS,
                                                      os.path.join(tmp, "ck_b"),
                                                      checkpoint_every=25)
-            require(ck_launches == NMF_ITERS // 25, f"kl_nmf_checkpointed: {ck_launches} launches")
-            require(all(torch.equal(a, b) for a, b in zip((*ck, *resumed), (w_k, h_k) * 2)),
-                    "kl_nmf_checkpointed: chunked or resumed run is not one call bit for bit")
+            require(ck_launches == 0, f"kl_nmf_checkpointed: {ck_launches} launches")
+            require(all(torch.equal(a, b) for a, b in zip((*ck, *resumed), (w_p, h_p) * 2)),
+                    "kl_nmf_checkpointed: chunked or resumed run is not one plain call bit "
+                    "for bit")
     # get_dictionaries' larger sizes (a 33.6 MB part buffer at K = 1,024),
     # which the command's --sizes leave out: the kernel against the plain
     # version at the corpus shape
@@ -1595,28 +1841,37 @@ def main() -> int:
     stream_cache = os.path.join(tmp, "stream_cache")
     os.environ["GCCNMF_TPU_CACHE_DIR"] = stream_cache
     try:
-        stream_launches = []
+        stream_launches, stream_cached = [], []
         for _ in range(2):
             buf = io.StringIO()
             reset_counts()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["stream", "-i", cli_paths["card"][0], "-o",
                                os.path.join(tmp, "stream.wav")])
-            stream_launches.append(counts()["kl_nmf_cuda"])
+            stream_launches.append(sum(counts().values()))
+            stream_cached.append({name: os.stat(os.path.join(stream_cache, name)).st_mtime_ns
+                                  for name in os.listdir(stream_cache)})
             out, _ = wav.read_wav(json.loads(buf.getvalue().strip().splitlines()[-1])["output"])
             require(rc == 0 and np.isfinite(out).all() and np.abs(out).max() > 0,
                     "stream without --dictionary-file: output")
     finally:
         del os.environ["GCCNMF_TPU_CACHE_DIR"]
-    cached = os.listdir(stream_cache)
-    require(stream_launches == [1, 0] and len(cached) == 1
+    cached = sorted(stream_cached[0])
+    # trained once (JAX's plain updates, no launch), then found unchanged
+    require(stream_launches == [0, 0] and len(cached) == 1
+            and stream_cached[1] == stream_cached[0]
             and cached[0].startswith(f"W_{gcfg.dictionary_size}_win{WIN}_it{NMF_ITERS}_s0_"),
-            f"stream without --dictionary-file: launches {stream_launches}, cache {cached}")
+            f"stream without --dictionary-file: launches {stream_launches}, cache "
+            f"{stream_cached}")
     emit("enhance_cli", device=kind, nvidia_smi=smi,
          argv=f"enhance <{MAIN_BATCH} WAVs> --mode online|offline --dictionary-file W_64.npy",
-         modes=cli_rows, stream_without_dictionary=dict(kl_nmf_cuda_launches=stream_launches,
-                                                        cache_file=cached[0]))
+         modes=cli_rows, stream_without_dictionary=dict(launches=stream_launches,
+                                                        cache_file=cached[0],
+                                                        second_run="cache hit, file unchanged"))
     corpus_tmp.cleanup()
+
+    # ---- 13. long_audio: LongAudioSeparator, one hour streamed from disk ----
+    long_audio_phase(torch, args.seed, kind, smi, record, reset_counts, counts)
 
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,
@@ -1625,7 +1880,13 @@ def main() -> int:
     runs = {"float32": f32, "bfloat16": bf16, "bfloat16_q": main, "bfloat16_q_simul": turbo}
     for row in rows:
         name, mode = row["kernel"], row["mode"]
-        if "launches_on" in row:  # set by its own phase (pretrain, enhance_cli)
+        if "launches_on" in row:  # set by its own phase (enhance_cli)
+            require(row["launches"] > 0, f"{row['name']} never launched on the main path")
+            continue
+        if "off_path" in row:  # a shape of a mode whose main path is another
+            row["launches"] = f32["counts"]["separate"][name]
+            row["launches_on"] = ("separate, nmf_matmul_dtype='float32', the main path of "
+                                  f"this mode; at this shape {row.pop('off_path')}")
             require(row["launches"] > 0, f"{row['name']} never launched on the main path")
             continue
         if name in ("soft_mask_cuda", "tf_synthesis_cuda"):

@@ -111,10 +111,10 @@ def kl_nmf_checkpointed(
     arrays) in resumable chunks on ``device`` (the card by default).
 
     Each chunk of ``checkpoint_every`` iterations is one
-    :func:`~gccnmf_torch.pretrain.corpus_nmf` call (one kernel launch on the
-    card); the state is saved after every chunk. If ``ckpt_dir`` already
-    holds a matching checkpoint, training resumes from it. Returns the
-    ``(W, H)`` tensors."""
+    :func:`~gccnmf_torch.pretrain.corpus_nmf` call (the plain unguarded
+    updates, as JAX runs them); the state is saved after every chunk. If
+    ``ckpt_dir`` already holds a matching checkpoint, training resumes from
+    it. Returns the ``(W, H)`` tensors."""
     dev = resolve_device(device)
     v, w0, h0 = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (v, w0, h0))
     # the fingerprint names the problem, not the run: the iteration target

@@ -3,18 +3,22 @@
 ``gccnmf-pretrain`` in ``gccnmf_tpu/cli.py``):
 
     python -m gccnmf_torch.cli mix_a.wav [mix_b.wav ...] [--turbo] [--auto-sources]
+    python -m gccnmf_torch.cli long_mix.wav --streamed [--chunk-frames 8192] [--device-init]
     python -m gccnmf_torch.cli enhance a.wav [b.wav ...] [--mode online|offline] [-o out.wav]
     python -m gccnmf_torch.cli stream -i mix.wav [-o out.wav] [--low-latency] [--realtime]
     python -m gccnmf_torch.cli serve -i a.wav b.wav ... [--wire-dtype int16]
     python -m gccnmf_torch.cli pretrain corpus/*.wav [--sizes 64 128 256] [--save-dir DIR]
 
 The first separates stereo WAVs offline (the reference's ``runGCCNMF.py``),
-writing ``<prefix>_sim_<n>.wav`` per source; ``enhance`` writes
-``<input>_enhanced.wav`` per WAV, with the online (causal) enhancer or the
-offline one; ``stream`` enhances one WAV block by block (the reference's
-``runRealtimeGCCNMF.py --no-gui``); ``serve`` enhances one stream per WAV in
-lockstep ticks; ``pretrain`` learns dictionaries from a WAV corpus into the
-corpus-keyed cache and, with ``--save-dir``, into ``W_<size>.npy`` files.
+writing ``<prefix>_sim_<n>.wav`` per source; with ``--streamed`` it streams
+a file of any length from disk through the long-audio pipeline on one
+device, and ``--time-shards 1`` runs that pipeline in memory. ``enhance``
+writes ``<input>_enhanced.wav`` per WAV, with the online (causal) enhancer
+or the offline one; ``stream`` enhances one WAV block by block (the
+reference's ``runRealtimeGCCNMF.py --no-gui``); ``serve`` enhances one
+stream per WAV in lockstep ticks; ``pretrain`` learns dictionaries from a
+WAV corpus into the corpus-keyed cache and, with ``--save-dir``, into
+``W_<size>.npy`` files.
 Each runs on the card unless ``--device cpu`` is given and prints one JSON
 line, with the JAX commands' keys. ``enhance``, ``stream`` and ``serve``
 take their dictionary from ``--dictionary-file`` (or the INI's
@@ -33,11 +37,12 @@ import numpy as np
 
 __all__ = ["separate_main", "enhance_main", "stream_main", "serve_main", "pretrain_main", "main"]
 
-_LONG_AUDIO = (
-    "is the long-audio pipeline, which is not ported yet (ROADMAP.md, Queue 1 item 6)"
+_TIME_SHARDS = (
+    "--time-shards {}: the time-sharded pipeline over several devices is not ported yet "
+    "(ROADMAP.md, Queue 1 item 6b)"
 )
 _DATA_SHARDS = (
-    "--data-shards: data-parallel pretraining is not ported yet (ROADMAP.md, Queue 1 item 6)"
+    "--data-shards: data-parallel pretraining is not ported yet (ROADMAP.md, Queue 1 item 6b)"
 )
 
 
@@ -66,25 +71,35 @@ def separate_main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the card (default) or on the CPU")
     ap.add_argument("--time-shards", type=int, default=0,
-                    help="time-sharded long-audio pipeline (not ported)")
+                    help="the long-audio pipeline; 1 runs it on one device (more "
+                         "shards are not ported)")
     ap.add_argument("--streamed", action="store_true",
-                    help="disk-streamed long-audio I/O (not ported)")
-    ap.add_argument("--chunk-frames", type=int, default=None,
-                    help="macro-chunk width of --streamed (not ported)")
+                    help="disk-streamed I/O for hour-scale files: input read by "
+                         "range, outputs written as they come, O(chunk) host RAM; "
+                         "sequential macro-chunks on one device")
+    ap.add_argument("--chunk-frames", type=int, default=8192,
+                    help="macro-chunk width in STFT frames for --streamed (bounds "
+                         "host RAM and device transients)")
     ap.add_argument("--device-init", action="store_true",
-                    help="device-drawn NMF init of --streamed (not ported)")
+                    help="with --streamed or --time-shards: draw the NMF H0 on the "
+                         "device (a generator seeded with 0) instead of uploading the "
+                         "reference's host-seeded init; deterministic but another "
+                         "trajectory than the reference (not the parity path)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
     if args.verbose:
         logging.basicConfig(level=logging.INFO)
-    long_audio = [flag for flag, on in (
-        ("--time-shards", args.time_shards), ("--streamed", args.streamed),
-        ("--chunk-frames", args.chunk_frames is not None),
-        ("--device-init", args.device_init)) if on]
-    if long_audio:
-        raise SystemExit(f"{', '.join(long_audio)}: {_LONG_AUDIO}")
+    if args.streamed and not args.time_shards:
+        args.time_shards = 1  # the one-device macro-chunk path
+    if args.device_init and not args.time_shards:
+        # the flag exists only on the long-audio path; running the seeded
+        # init the user opted out of would be worse than an error
+        ap.error("--device-init requires --streamed or --time-shards")
+    if args.time_shards > 1:
+        raise SystemExit(_TIME_SHARDS.format(args.time_shards))
 
     from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+    from gccnmf_torch.parallel.long_audio import LongAudioSeparator
     from gccnmf_torch.utils import wav
 
     def make_separator(sr):
@@ -100,6 +115,11 @@ def separate_main(argv=None):
             num_sources=None if args.auto_sources else args.num_sources,
             sample_rate=sr,
         )
+        if args.time_shards:
+            return LongAudioSeparator(
+                cfg, device=args.device, chunk_frames=args.chunk_frames,
+                nmf_init="device" if args.device_init else "reference",
+            )
         return GCCNMFSeparator(cfg, device=args.device)
 
     multi = len(args.input) > 1
@@ -113,11 +133,23 @@ def separate_main(argv=None):
             prefix = f"{args.output_prefix}_{stem}"
         else:
             prefix = args.output_prefix
-        stereo, sr = wav.read_wav(path)
-        _require_stereo(stereo, path)
+        if args.streamed:  # the header alone: the samples stay on disk
+            reader = wav.WavReader(path)
+            sr = reader.sample_rate
+            if reader.num_channels != 2:  # the contract of _require_stereo
+                raise SystemExit(
+                    f"{path}: expected 2-channel audio, got {reader.num_channels} "
+                    "channel(s). GCC-PHAT localization needs a stereo microphone pair."
+                )
+        else:
+            stereo, sr = wav.read_wav(path)
+            _require_stereo(stereo, path)
         if separator is None or separator.config.sample_rate != sr:
             separator = make_separator(sr)  # reused across files of one rate
-        result = separator.separate_file(path, prefix, audio=(stereo, sr))
+        if args.streamed:
+            result = separator.separate_streamed(path, prefix)
+        else:
+            result = separator.separate_file(path, prefix, audio=(stereo, sr))
         results.append(dict(input=path, outputs=result["paths"],
                             target_tdoa_indexes=result["target_tdoa_indexes"]))
     if multi:

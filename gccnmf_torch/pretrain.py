@@ -13,13 +13,11 @@ shapes W is in it; the reference keys by size only and silently reused
 stale dictionaries), the same atomic publish. A dictionary either package
 trained is one the other loads.
 
-Training is :func:`corpus_nmf`: kernel 1 in its exact-fp32 mode on the card
-(``kl_nmf_cuda(..., matmul_dtype="float32")``, one launch per size), and
-the unguarded plain ``kl_nmf`` on the CPU, which is what JAX runs. The
-kernel always takes the double-``where`` guards: where the unguarded
-updates stay finite the two agree, and on a corpus frame of digital silence
-the kernel's H row goes to 0 with W finite where the unguarded updates
-(JAX's too) turn W into NaN.
+Training is :func:`corpus_nmf`: the unguarded plain ``kl_nmf`` on either
+device, which is what JAX runs (``nmf_ops.kl_nmf`` with its default
+``guard=False``; no Pallas call). So a corpus frame of digital silence
+turns W into NaN on the card as on the CPU and in JAX. Kernel 1 always
+takes the double-``where`` guards, so it is not this function.
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ from gccnmf_torch.device import resolve_device
 from gccnmf_torch.ops import nmf as nmf_ops
 from gccnmf_torch.ops import stft as stft_ops
 from gccnmf_torch.ops import windows as win_ops
-from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda
+from gccnmf_torch.precision import set_fp32_precision
 
 logger = logging.getLogger(__name__)
 
@@ -54,7 +52,7 @@ DEFAULT_SIZES = (64, 128, 256, 512, 1024)
 NUM_PRETRAIN_ITERATIONS = 100
 
 _NO_MESH = ("mesh=: data-parallel pretraining is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)")
+            "(ROADMAP.md, Queue 1 item 6b)")
 
 
 def _corpus_fingerprint(v: np.ndarray) -> str:
@@ -69,12 +67,10 @@ def _corpus_fingerprint(v: np.ndarray) -> str:
 def corpus_nmf(v: torch.Tensor, w0: torch.Tensor, h0: torch.Tensor, num_iterations: int,
                sparsity_alpha: float = 0.0, epsilon: float = 1e-16):
     """``num_iterations`` KL-NMF updates of a corpus ``v`` (T, F) from
-    ``(w0, h0)``, in float32: one launch of kernel 1's exact-fp32 mode for a
-    CUDA ``v``, the unguarded plain ``kl_nmf`` (JAX's ``nmf.kl_nmf``) for a
-    CPU one. Returns ``(W, H)``."""
-    if v.device.type == "cuda":
-        return kl_nmf_cuda(v, w0, h0, num_iterations, sparsity_alpha, epsilon,
-                           matmul_dtype="float32")
+    ``(w0, h0)``, in exact float32 on ``v``'s device: the unguarded plain
+    ``kl_nmf``, JAX's ``nmf.kl_nmf`` (0/0 → NaN on digital silence).
+    Returns ``(W, H)``."""
+    set_fp32_precision()
     return nmf_ops.kl_nmf(v, w0, h0, num_iterations, sparsity_alpha, epsilon)
 
 

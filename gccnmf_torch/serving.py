@@ -160,7 +160,7 @@ class StreamServer:
     ``wire_dtype="int16"`` ships blocks and outputs as 16-bit PCM (half the
     bytes each way); the API stays float32, the outputs quantized as the WAV
     writer would. ``device=None`` serves on the card; slot sharding over
-    several devices is not ported (ROADMAP.md, Queue 1 item 6)."""
+    several devices is not ported (ROADMAP.md, Queue 1 item 6b)."""
 
     def __init__(
         self,

@@ -37,6 +37,7 @@ from gccnmf_torch.ops.synthesis_cuda import (
     masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
 )
 from gccnmf_torch.ops.windows import hann_symmetric
+from gccnmf_torch.parallel.long_audio import LongAudioSeparator
 from gccnmf_torch.utils import wav
 
 pytestmark = pytest.mark.cuda
@@ -667,19 +668,18 @@ def _corpus(t=700, f=513, seed=4):
     return v.astype(np.float32)
 
 
-def test_pretrain_through_the_kernel_matches_plain(cuda, tmp_path):
-    """pretrain_dictionary on the card: one launch of kernel 1 (float32)
-    per trained size, none on a cache hit; W within rtol 1e-4 of the plain
-    kl_nmf on the card after 15 iterations."""
+def test_pretrain_on_card_matches_plain(cuda, tmp_path):
+    """pretrain_dictionary on the card runs JAX's unguarded plain updates
+    and launches no kernel, trained or from the cache; W within rtol 1e-4
+    of the plain kl_nmf on the card after 15 iterations."""
     corpus = _corpus()
     cache = str(tmp_path / "cache")
-    before = kl_nmf_cuda.launches
+    before = _launches()
     got = pretrain.pretrain_dictionary(corpus, 24, num_iterations=15, cache_dir=cache,
                                        device=cuda)
-    assert kl_nmf_cuda.launches == before + 1
     again = pretrain.pretrain_dictionary(corpus, 24, num_iterations=15, cache_dir=cache,
                                          device=cuda)
-    assert kl_nmf_cuda.launches == before + 1
+    assert _launches() == before
     np.testing.assert_array_equal(got, again)
     w0, h0 = nmf_init_numpy(513, 24, corpus.shape[0])
     want, _ = kl_nmf(*(torch.as_tensor(x, device=cuda) for x in (corpus, w0, h0)), 15)
@@ -687,35 +687,36 @@ def test_pretrain_through_the_kernel_matches_plain(cuda, tmp_path):
                                atol=1e-6 * float(want.abs().max()))
 
 
-def test_checkpointed_chunks_equal_one_kernel_call(cuda, tmp_path):
+def test_checkpointed_chunks_equal_one_plain_call(cuda, tmp_path):
     """Chunks of 7, and a run resumed from its 14-iteration checkpoint,
-    equal one 20-iteration kernel call bit for bit: each launch copies W and
-    H into fresh buffers, and mode 0 carries no other state."""
+    equal one 20-iteration plain kl_nmf call on the card bit for bit, with
+    no kernel launch: each chunk restarts the same updates from the saved
+    W and H, which carry all the state."""
     v = torch.as_tensor(_corpus(t=400, f=65), device=cuda)
     w0, h0 = (torch.as_tensor(x, device=cuda) for x in nmf_init_numpy(65, 16, 400))
-    w_one, h_one = kl_nmf_cuda(v, w0, h0, 20, matmul_dtype="float32")
-    before = kl_nmf_cuda.launches
+    w_one, h_one = kl_nmf(v, w0, h0, 20)
+    before = _launches()
     w_ck, h_ck = checkpoint.kl_nmf_checkpointed(v, w0, h0, 20, str(tmp_path / "a"),
                                                 checkpoint_every=7, device=cuda)
-    assert kl_nmf_cuda.launches == before + 3
     assert torch.equal(w_ck, w_one) and torch.equal(h_ck, h_one)
     checkpoint.kl_nmf_checkpointed(v, w0, h0, 14, str(tmp_path / "b"), checkpoint_every=7,
                                    device=cuda)
     w_re, h_re = checkpoint.kl_nmf_checkpointed(v, w0, h0, 20, str(tmp_path / "b"),
                                                 checkpoint_every=7, device=cuda)
     assert torch.equal(w_re, w_one) and torch.equal(h_re, h_one)
+    assert _launches() == before
 
 
-def test_guarded_corpus_nmf_on_a_silent_frame(cuda, tmp_path):
-    """A corpus frame of digital silence: on the card the guarded kernel
-    sends its H row to 0 and keeps W finite; the CPU path (JAX's unguarded
-    updates) turns W into NaN. Elsewhere the two agree (rtol 1e-4)."""
+def test_corpus_nmf_on_a_silent_frame_follows_jax(cuda, tmp_path):
+    """A corpus frame of digital silence: on the card, as on the CPU and in
+    JAX (unguarded updates, 0/0), W turns NaN. Without that frame the card
+    equals the CPU (rtol 1e-4)."""
     corpus = _corpus(t=300, f=65)
     corpus[7] = 0.0
     w0, h0 = nmf_init_numpy(65, 8, 300)
-    w, h = pretrain.corpus_nmf(*(torch.as_tensor(x, device=cuda) for x in (corpus, w0, h0)), 5)
-    assert bool(torch.isfinite(w).all()) and bool(torch.isfinite(h).all())
-    assert bool((h[7] == 0).all()) and bool((h[np.arange(300) != 7] > 0).all())
+    before = _launches()
+    w, _ = pretrain.corpus_nmf(*(torch.as_tensor(x, device=cuda) for x in (corpus, w0, h0)), 5)
+    assert bool(torch.isnan(w).all())
     w_cpu, _ = pretrain.corpus_nmf(*(torch.as_tensor(x) for x in (corpus, w0, h0)), 5)
     assert bool(torch.isnan(w_cpu).all())
     clean = np.delete(corpus, 7, axis=0)
@@ -723,7 +724,9 @@ def test_guarded_corpus_nmf_on_a_silent_frame(cuda, tmp_path):
                                    (clean, w0, np.delete(h0, 7, axis=0))), 5)
     w_p, _ = pretrain.corpus_nmf(*(torch.as_tensor(x) for x in
                                    (clean, w0, np.delete(h0, 7, axis=0))), 5)
+    assert bool(torch.isfinite(w_c).all())
     torch.testing.assert_close(w_c.cpu(), w_p, rtol=1e-4, atol=1e-6 * float(w_p.abs().max()))
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("smoothing", ["sliding", "exponential"])
@@ -793,3 +796,67 @@ def test_enhance_command_offline_at_hop_512(cuda, tmp_path, capsys):
     syn = tf_synthesis_cuda(sre, sim, got, enh._tf_basis, **kw)
     syn_plain = tf_synthesis_plain(sre, sim, got, enh._tf_basis, **kw)
     assert float((syn - syn_plain).abs().max()) <= 1e-2 * float(syn_plain.abs().max())
+
+
+def _long_mix(tmp_path, seconds=12, silence=None, seed=9):
+    """A 16-bit WAV of three white-noise sources 8, -11 and 3 samples apart
+    between the mics (chip_smoke's mixture), optionally with a silent span
+    ``(start, stop)`` in samples."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((3, 16000 * seconds)).astype(np.float32) * 0.1
+    mix = np.stack([src.sum(0), sum(np.roll(s, d) for s, d in zip(src, (8, -11, 3)))])
+    if silence is not None:
+        mix[:, silence[0]:silence[1]] = 0.0
+    path = str(tmp_path / "long_mix.wav")
+    wav.write_wav(mix, path, 16000)
+    return path
+
+
+def _snr_db(ref, est):
+    return float(10 * np.log10((ref ** 2).sum() / max(((ref - est) ** 2).sum(), 1e-30)))
+
+
+def test_streamed_on_card_matches_cpu(cuda, tmp_path):
+    """separate_streamed of 12 s at full config (bf16 planes, chunks of 1024
+    frames, the last ragged) on the card: the CPU run's targets, >= 40 dB
+    per output against it, and no kernel launched."""
+    path = _long_mix(tmp_path)
+    runs = {}
+    before = _launches()
+    for dev in ("cuda", "cpu"):
+        runs[dev] = LongAudioSeparator(OfflineConfig(), device=dev, chunk_frames=1024)\
+            .separate_streamed(path, output_prefix=str(tmp_path / dev))
+    assert _launches() == before
+    assert runs["cuda"]["target_tdoa_indexes"] == runs["cpu"]["target_tdoa_indexes"]
+    assert runs["cuda"]["samples_written"] == runs["cpu"]["samples_written"]
+    for p, q in zip(runs["cuda"]["paths"], runs["cpu"]["paths"], strict=True):
+        got, want = wav.read_wav(p)[0], wav.read_wav(q)[0]
+        assert np.isfinite(got).all() and got.shape == want.shape
+        assert min(_snr_db(r, e) for r, e in zip(want, got)) >= 40.0
+
+
+def test_streamed_device_init_is_deterministic_on_card(cuda, tmp_path):
+    """nmf_init='device' draws H0 on the card from a generator seeded with
+    0: two calls write the same files."""
+    path = _long_mix(tmp_path, seconds=6)
+    sep = LongAudioSeparator(OfflineConfig(), device=cuda, chunk_frames=256, nmf_init="device")
+    a = sep.separate_streamed(path, output_prefix=str(tmp_path / "a"))
+    b = sep.separate_streamed(path, output_prefix=str(tmp_path / "b"))
+    assert a["target_tdoa_indexes"] == b["target_tdoa_indexes"]
+    for p, q in zip(a["paths"], b["paths"], strict=True):
+        x = wav.read_wav(p)[0]
+        assert np.isfinite(x).all() and np.abs(x).max() > 0
+        np.testing.assert_array_equal(x, wav.read_wav(q)[0])
+
+
+def test_streamed_silent_span_finite_on_card(cuda, tmp_path):
+    """Whole silent windows mid-file: the guarded coherence and NMF keep
+    every output on the card finite and nonzero."""
+    path = _long_mix(tmp_path, seconds=6, silence=(40 * 128, 40 * 128 + 4 * 1024))
+    out = LongAudioSeparator(OfflineConfig(), device=cuda, chunk_frames=256)\
+        .separate_streamed(path, output_prefix=str(tmp_path / "sil"))
+    assert np.isfinite(out["mean_angular_spectrum"]).all()
+    assert np.isfinite(out["w"]).all()
+    for p in out["paths"]:
+        x = wav.read_wav(p)[0]
+        assert np.isfinite(x).all() and np.abs(x).max() > 0
