@@ -152,7 +152,31 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     targets, every output the expected length and nonzero. Last, kernel 1
     (float32) at the hour's NMF shape (B = 1, T = 899,986, K = 128) against
     the guarded plain ``kl_nmf`` that the path runs, rtol 1e-4 after 15
-    iterations, both timed once at 100 after a warm-up.
+    iterations, both timed once at 100 after a warm-up, and its
+    ``gemm_library_ms``: one iteration's four float32 products as
+    ``torch.matmul`` at that shape, times 100.
+14. ``distributed``: the process groups (``gccnmf_torch/parallel``) in a
+    world of one over NCCL in this process, one line per check: (e)
+    ``init_process_group`` on a ``file://`` store, timed, one
+    ``all_reduce`` and one ``all_gather`` of CUDA tensors, the (1, 1) mesh;
+    (a) ``kl_nmf_sharded`` on V of a 60 s mixture (``--seed + 6``, 14,986
+    rows, F = 513, K = 128, 100 iterations) against ``nmf.kl_nmf``
+    unguarded and with ``guard=True``, and with ``simultaneous=True``
+    against ``kl_nmf_simul``, W and H within 1e-5 x max, both timed; (b)
+    ``DistributedNMFTrainer`` on a seeded 20,000 x 513 corpus, K = 256,
+    100 iterations, checkpoints every 50, against ``pretrain.corpus_nmf``
+    (1e-5 x max, seconds of both), and a fresh trainer resumed from the
+    iteration-50 checkpoint against the uninterrupted W; (c)
+    ``LongAudioSeparator(mesh=...).separate`` of 10 minutes (``--seed +
+    8``) at ``OfflineConfig()`` against the mesh-less ``separate``: the
+    mixture's targets in both, W within 1e-5 x max, every target above
+    40 dB, audio-s/s and ``max_memory_allocated`` of each, run in turns
+    (mesh, mesh-less, mesh-less, mesh); no kernel launched in (a)-(c). Then (d) the commands as subprocesses: ``separate
+    --time-shards 1 --streamed`` (rc 0, its JSON, the targets), ``separate
+    --time-shards 2`` on this one card (non-zero, make_mesh's "exceeds"
+    error, nothing written), and ``pretrain --data-shards 1 --sizes 64``
+    over 4 seeded WAVs against ``pretrain --sizes 64`` (W within 1e-5 x
+    max).
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -220,6 +244,10 @@ PRETRAIN_WAVS, PRETRAIN_SIZES, PRETRAIN_FRAMES = 64, (64, 128, 256), 20000
 # long audio: the parity file's seconds and macro-chunk width (its last
 # chunk ragged), and the seconds of the hour-long file
 LONG_PARITY_S, LONG_CHUNK, HOUR_S = 60, 1024, 3600
+# process groups: the seconds of the 60 s mixture whose V the sharded NMF
+# runs on, the trainer's dictionary size, the sharded separator's seconds of
+# audio, and the bar of each against its one-device run (x max)
+DIST_NMF_S, DIST_TRAIN_K, DIST_SEP_S, DIST_TOL = 60, 256, 600, 1e-5
 # the enhance command on the card against the same command on the CPU, the
 # least SNR (dB) of any output channel: 49.39 dB measured on an H100
 CLI_SNR_DB = 45.0
@@ -568,6 +596,13 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
     del want
+    # the yardstick: one iteration's four products as torch.matmul at this
+    # shape (TF32 off), times the iterations
+    hb, wb, q = (torch.rand(shape, device=dev)
+                 for shape in ((2 * t_h, K), (WIN // 2 + 1, K), (2 * t_h, WIN // 2 + 1)))
+    gemm_library_ms = time_ms(torch, lambda: (hb @ wb.T, q @ wb, q.T @ hb, hb @ wb.T),
+                              3) * NMF_ITERS
+    del hb, wb, q
     record(
         "kl_nmf_cuda", "float32", 1, "gccnmf_torch/csrc/nmf.cu",
         "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
@@ -581,9 +616,210 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
         note=f"{NMF_CHECK_ITERS} iterations: rtol 1e-4, atol 1e-6 x max|plain|",
         iterations_timed=NMF_ITERS, design="simt",
         timed="one call of each after a warm-up (CUDA events)",
+        gemm_library_ms=gemm_library_ms,
+        gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on float32 operands at "
+                           f"T = {2 * t_h} (median of 3 after a warm-up), times {NMF_ITERS}; "
+                           "not the same function, so library_ms stays null"),
         off_path="the long-audio path runs JAX's guarded plain kl_nmf (0 launches)")
     del got, v, w0, h0
     torch.cuda.empty_cache()
+    tmp_dir.cleanup()
+    return fields
+
+
+def distributed_phase(torch, seed: int, kind: str, smi: str, reset_counts, counts):
+    """Phase 14: the process groups (``gccnmf_torch/parallel``) in a world of
+    one over NCCL in this process, then the sharded commands as
+    subprocesses (module docstring). Returns the phase's fields."""
+    import torch.distributed as dist
+
+    from gccnmf_torch import pretrain
+    from gccnmf_torch.models.offline import OfflineConfig
+    from gccnmf_torch.ops import gcc, nmf
+    from gccnmf_torch.ops import stft as stft_ops
+    from gccnmf_torch.ops.windows import hann_symmetric
+    from gccnmf_torch.parallel import mesh as mesh_lib
+    from gccnmf_torch.parallel.long_audio import LongAudioSeparator
+    from gccnmf_torch.parallel.nmf_sharded import kl_nmf_sharded
+    from gccnmf_torch.parallel.trainer import DistributedNMFTrainer
+    from gccnmf_torch.utils import wav
+
+    dev = torch.device("cuda")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    fields = {}
+
+    def close(got, want, what):
+        """max |got - want| and max |want| of each pair; fails where the
+        first exceeds DIST_TOL x the second."""
+        errs = [max_err(torch, torch.as_tensor(g).cpu(), torch.as_tensor(w_).cpu())
+                for g, w_ in zip(got, want, strict=True)]
+        require(all(e <= DIST_TOL * m for e, m in errs),
+                f"distributed {what}: max |diff|, max of {errs} above {DIST_TOL} x max")
+        return dict(max_abs_err=[e for e, _ in errs], max_abs=[m for _, m in errs],
+                    bar=f"{DIST_TOL} x max")
+
+    def timed(fn):
+        """``(fn(), seconds)`` between two synchronisations."""
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def in_world(fields):
+        """(e), (a), (b), (c) in a world of one over NCCL."""
+        # ---- (e) NCCL: a world of one, an all_reduce and an all_gather
+        _, init_s = timed(lambda: mesh_lib.init_distributed(
+            f"file://{os.path.join(tmp, 'store')}", 1, 0, device=dev))
+        require(dist.get_backend() == "nccl", f"distributed: backend {dist.get_backend()}")
+        x = torch.arange(4096, dtype=torch.float32, device=dev)
+        y = x.clone()
+        _, first_s = timed(lambda: dist.all_reduce(y))
+        parts = [torch.empty_like(x)]
+        _, gather_s = timed(lambda: dist.all_gather(parts, x))
+        require(torch.equal(y, x) and torch.equal(parts[0], x), "distributed: NCCL collectives")
+        mesh, mesh_s = timed(lambda: mesh_lib.make_mesh(device=dev))
+        fields["nccl"] = dict(init_process_group_s=init_s, first_all_reduce_s=first_s,
+                              all_gather_s=gather_s, init_device_mesh_s=mesh_s,
+                              world=dist.get_world_size(), backend=dist.get_backend(),
+                              mesh=list(mesh.shape))
+        emit("distributed", check="nccl", device=kind, nvidia_smi=smi, **fields["nccl"])
+
+        # ---- (a) the sharded NMF at a 60 s mixture's V against the one-device NMF
+        mix = torch.as_tensor(make_mixture(seed + 6, 1, DIST_NMF_S)[0], device=dev)
+        spec = stft_ops.stft(mix, torch.as_tensor(hann_symmetric(WIN), device=dev), HOP)
+        v = torch.cat([spec[0].abs(), spec[1].abs()])
+        del spec, mix
+        w0, h0 = (torch.as_tensor(a, device=dev) for a in nmf.nmf_init_numpy(v.shape[1], K,
+                                                                              v.shape[0]))
+        nmf_rows = {}
+        for name, kw, one in (("unguarded", {}, lambda: nmf.kl_nmf(v, w0, h0, NMF_ITERS)),
+                              ("guard", dict(guard=True),
+                               lambda: nmf.kl_nmf(v, w0, h0, NMF_ITERS, guard=True)),
+                              ("simultaneous", dict(simultaneous=True),
+                               lambda: nmf.kl_nmf_simul(v, w0, h0, NMF_ITERS))):
+            sharded = functools.partial(kl_nmf_sharded, v, w0, h0, NMF_ITERS, mesh, **kw)
+            nmf_rows[name] = dict(**close(sharded(), one(), f"kl_nmf_sharded {name}"),
+                                  sharded_ms=time_ms(torch, sharded, 3),
+                                  one_device_ms=time_ms(torch, one, 3))
+        fields["kl_nmf_sharded"] = dict(shape=f"V ({v.shape[0]}, {v.shape[1]}), K = {K}, "
+                                              f"{NMF_ITERS} iterations", mesh="(1, 1)",
+                                        timed="median of 3 after a warm-up (CUDA events)",
+                                        modes=nmf_rows)
+        emit("distributed", check="kl_nmf_sharded", device=kind, nvidia_smi=smi,
+             **fields["kl_nmf_sharded"])
+        del v, w0, h0
+
+        # ---- (b) the trainer at the pretraining corpus's shape, and its resume
+        corpus = (np.random.default_rng(seed + 7).random((PRETRAIN_FRAMES, WIN // 2 + 1))
+                  + 0.05).astype(np.float32)
+        kw = dict(dictionary_size=DIST_TRAIN_K, num_iterations=NMF_ITERS,
+                  checkpoint_every=NMF_ITERS // 2)
+        ck_a, ck_b = os.path.join(tmp, "ck_a"), os.path.join(tmp, "ck_b")
+        w_tr, train_s = timed(lambda: DistributedNMFTrainer(mesh, checkpoint_dir=ck_a, **kw)
+                              .fit(corpus))
+        init = nmf.nmf_init_numpy(corpus.shape[1], DIST_TRAIN_K, corpus.shape[0])
+        args_c = [torch.as_tensor(a, device=dev) for a in (corpus, *init)]
+        (w_one, _), one_s = timed(lambda: pretrain.corpus_nmf(*args_c, NMF_ITERS))
+        half_ck = f"nmf_{NMF_ITERS // 2:06d}.npz"
+        os.makedirs(ck_b)
+        shutil.copy(os.path.join(ck_a, half_ck), ck_b)
+        with open(os.path.join(ck_b, "latest"), "w") as fh:
+            fh.write(half_ck)
+        w_res, resume_s = timed(lambda: DistributedNMFTrainer(mesh, checkpoint_dir=ck_b, **kw)
+                                .fit(corpus))
+        fields["trainer"] = dict(
+            corpus=list(corpus.shape), k=DIST_TRAIN_K, iterations=NMF_ITERS,
+            checkpoint_every=NMF_ITERS // 2, seconds=train_s, corpus_nmf_seconds=one_s,
+            resumed_seconds=resume_s, vs_corpus_nmf=close([w_tr], [w_one], "trainer"),
+            resumed_vs_uninterrupted=close([w_res], [w_tr], "resumed trainer"),
+            resumed_bit_equal=bool(np.array_equal(w_res, w_tr)),
+            checkpoints=sorted(os.listdir(ck_a)))
+        emit("distributed", check="trainer", device=kind, nvidia_smi=smi, **fields["trainer"])
+        del args_c, w_one
+
+        # ---- (c) the sharded separator against the mesh-less one, 10 minutes
+        x = make_mixture(seed + 8, 1, DIST_SEP_S)[0]
+        seps = {"mesh": LongAudioSeparator(OfflineConfig(), mesh=mesh),
+                "mesh_less": LongAudioSeparator(OfflineConfig())}
+        runs = {name: dict(seconds=[], max_memory_allocated_gib=[]) for name in seps}
+        outs = {}
+        # in turns, so neither side alone pays the first call's warm-up
+        for name in ("mesh", "mesh_less", "mesh_less", "mesh"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            outs[name], sec = timed(lambda name=name: seps[name].separate(x))
+            runs[name]["seconds"].append(sec)
+            runs[name]["max_memory_allocated_gib"].append(
+                torch.cuda.max_memory_allocated() / 2**30)
+        for run in runs.values():
+            run["audio_s_per_s"] = [DIST_SEP_S / sec for sec in run["seconds"]]
+        a, b = outs["mesh"], outs["mesh_less"]
+        snrs = [snr_db(r, e) for r, e in zip(b["estimates"], a["estimates"])]
+        require(a["target_tdoa_indexes"] == b["target_tdoa_indexes"] == delay_targets(gcc),
+                f"distributed separator: targets {a['target_tdoa_indexes']} vs "
+                f"{b['target_tdoa_indexes']}")
+        require(a["estimates"].shape == b["estimates"].shape and min(snrs) > 40.0,
+                f"distributed separator: {snrs} dB against the mesh-less run")
+        fields["separator"] = dict(
+            seconds_of_audio=DIST_SEP_S, frames=a["frames_processed"], config="OfflineConfig()",
+            targets=a["target_tdoa_indexes"], w=close([a["w"]], [b["w"]], "separator W"),
+            snr_db=snrs, snr_bar="> 40 dB", order="mesh, mesh_less, mesh_less, mesh", **runs)
+        emit("distributed", check="separator", device=kind, nvidia_smi=smi, **fields["separator"])
+        launches = counts()
+        require(sum(launches.values()) == 0, f"distributed: a kernel launched: {launches}")
+
+    reset_counts()
+    try:
+        in_world(fields)
+    finally:  # a live NCCL group would keep the process from exiting
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the commands, each in a process of its own
+    def command(*argv):
+        t1 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "gccnmf_torch.cli", *argv], cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        return res, time.perf_counter() - t1
+
+    wav_paths = []
+    for i in range(4):
+        wav_paths.append(os.path.join(tmp, f"cmd{i}_mix.wav"))
+        wav.write_wav(make_mixture(seed + 9 + i, 1, SECONDS)[0], wav_paths[-1], SR)
+    res, sec = command(wav_paths[0], "--time-shards", "1", "--streamed", "-o",
+                       os.path.join(tmp, "ts1"))
+    require(res.returncode == 0, f"separate --time-shards 1 --streamed: {res.stderr[-2000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    require(line["target_tdoa_indexes"] == delay_targets(gcc) and all(
+        np.isfinite(wav.read_wav(p)[0]).all() for p in line["outputs"]),
+        f"separate --time-shards 1 --streamed: {line}")
+    cmds = {"separate --time-shards 1 --streamed": dict(rc=0, seconds=sec, json=line)}
+    res, sec = command(wav_paths[0], "--time-shards", "2", "-o", os.path.join(tmp, "ts2"))
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:  # this one-card machine: no rank may move to the CPU
+        require(res.returncode != 0 and "exceeds" in res.stderr
+                and not os.path.exists(os.path.join(tmp, "ts2_sim_1.wav")),
+                f"separate --time-shards 2 on {n_cards} card: rc {res.returncode}, "
+                f"{res.stderr[-2000:]}")
+    cmds["separate --time-shards 2"] = dict(
+        rc=res.returncode, seconds=sec, cards=n_cards,
+        stderr_last=(res.stderr.strip().splitlines() or [""])[-1])
+    saved = {}
+    for name, extra in (("pretrain --data-shards 1", ["--data-shards", "1"]),
+                        ("pretrain", [])):
+        save = os.path.join(tmp, f"save_{len(saved)}")
+        res, sec = command("pretrain", *wav_paths, "--sizes", "64", "--cache-dir",
+                           os.path.join(tmp, f"cache_{len(saved)}"), "--save-dir", save, *extra)
+        require(res.returncode == 0, f"{name}: {res.stderr[-2000:]}")
+        saved[name] = np.load(os.path.join(save, "W_64.npy"))
+        cmds[name] = dict(rc=0, seconds=sec, json=json.loads(res.stdout.strip().splitlines()[-1]))
+    cmds["pretrain --data-shards 1"]["w_vs_pretrain"] = close(
+        [saved["pretrain --data-shards 1"]], [saved["pretrain"]], "pretrain --data-shards 1")
+    fields["commands"] = cmds
+    emit("distributed", check="commands", device=kind, nvidia_smi=smi, commands=cmds)
     tmp_dir.cleanup()
     return fields
 
@@ -1872,6 +2108,9 @@ def main() -> int:
 
     # ---- 13. long_audio: LongAudioSeparator, one hour streamed from disk ----
     long_audio_phase(torch, args.seed, kind, smi, record, reset_counts, counts)
+
+    # ---- 14. distributed: the process groups in a world of one over NCCL ----
+    distributed_phase(torch, args.seed, kind, smi, reset_counts, counts)
 
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,

@@ -4,23 +4,29 @@
 
     python -m gccnmf_torch.cli mix_a.wav [mix_b.wav ...] [--turbo] [--auto-sources]
     python -m gccnmf_torch.cli long_mix.wav --streamed [--chunk-frames 8192] [--device-init]
+    python -m gccnmf_torch.cli long_mix.wav --time-shards 4 [--streamed]
     python -m gccnmf_torch.cli enhance a.wav [b.wav ...] [--mode online|offline] [-o out.wav]
     python -m gccnmf_torch.cli stream -i mix.wav [-o out.wav] [--low-latency] [--realtime]
     python -m gccnmf_torch.cli serve -i a.wav b.wav ... [--wire-dtype int16]
     python -m gccnmf_torch.cli pretrain corpus/*.wav [--sizes 64 128 256] [--save-dir DIR]
+                                        [--data-shards 4]
 
 The first separates stereo WAVs offline (the reference's ``runGCCNMF.py``),
 writing ``<prefix>_sim_<n>.wav`` per source; with ``--streamed`` it streams
 a file of any length from disk through the long-audio pipeline on one
-device, and ``--time-shards 1`` runs that pipeline in memory. ``enhance``
-writes ``<input>_enhanced.wav`` per WAV, with the online (causal) enhancer
-or the offline one; ``stream`` enhances one WAV block by block (the
-reference's ``runRealtimeGCCNMF.py --no-gui``); ``serve`` enhances one
-stream per WAV in lockstep ticks; ``pretrain`` learns dictionaries from a
-WAV corpus into the corpus-keyed cache and, with ``--save-dir``, into
-``W_<size>.npy`` files.
-Each runs on the card unless ``--device cpu`` is given and prints one JSON
-line, with the JAX commands' keys. ``enhance``, ``stream`` and ``serve``
+device, and ``--time-shards 1`` runs that pipeline in memory;
+``--time-shards N`` splits the time axis over a world of N ranks, one a
+device (in memory, or with ``--streamed`` each rank reading its own range
+of the file). ``enhance`` writes ``<input>_enhanced.wav`` per WAV, with the
+online (causal) enhancer or the offline one; ``stream`` enhances one WAV
+block by block (the reference's ``runRealtimeGCCNMF.py --no-gui``);
+``serve`` enhances one stream per WAV in lockstep ticks; ``pretrain`` learns
+dictionaries from a WAV corpus into the corpus-keyed cache and, with
+``--save-dir``, into ``W_<size>.npy`` files, over a world of N ranks with
+``--data-shards N``. The worlds start through ``parallel.launch.run_world``
+(under torchrun, the running world). Each command runs on the card unless
+``--device cpu`` is given and prints one JSON line (rank 0 alone, over a
+world), with the JAX commands' keys. ``enhance``, ``stream`` and ``serve``
 take their dictionary from ``--dictionary-file`` (or the INI's
 ``dictionaryFile``), else from the pretraining cache.
 """
@@ -37,13 +43,6 @@ import numpy as np
 
 __all__ = ["separate_main", "enhance_main", "stream_main", "serve_main", "pretrain_main", "main"]
 
-_TIME_SHARDS = (
-    "--time-shards {}: the time-sharded pipeline over several devices is not ported yet "
-    "(ROADMAP.md, Queue 1 item 6b)"
-)
-_DATA_SHARDS = (
-    "--data-shards: data-parallel pretraining is not ported yet (ROADMAP.md, Queue 1 item 6b)"
-)
 
 
 def separate_main(argv=None):
@@ -71,12 +70,13 @@ def separate_main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the card (default) or on the CPU")
     ap.add_argument("--time-shards", type=int, default=0,
-                    help="the long-audio pipeline; 1 runs it on one device (more "
-                         "shards are not ported)")
+                    help="the long-audio pipeline over N time shards, one a device: 1 "
+                         "runs it on one device, N > 1 over a world of N ranks")
     ap.add_argument("--streamed", action="store_true",
                     help="disk-streamed I/O for hour-scale files: input read by "
                          "range, outputs written as they come, O(chunk) host RAM; "
-                         "sequential macro-chunks on one device")
+                         "sequential macro-chunks on one device, or each shard's "
+                         "range read by its rank")
     ap.add_argument("--chunk-frames", type=int, default=8192,
                     help="macro-chunk width in STFT frames for --streamed (bounds "
                          "host RAM and device transients)")
@@ -96,8 +96,26 @@ def separate_main(argv=None):
         # init the user opted out of would be worse than an error
         ap.error("--device-init requires --streamed or --time-shards")
     if args.time_shards > 1:
-        raise SystemExit(_TIME_SHARDS.format(args.time_shards))
+        from gccnmf_torch.parallel.launch import run_world
 
+        out = run_world(_separate_rank, args.time_shards, args.device, args)
+    else:
+        out = _separate_files(args)
+    if out is not None:  # rank 0 prints
+        print(json.dumps(out))
+    return 0
+
+
+def _separate_rank(args):
+    """One rank of ``separate --time-shards N``: every file over a mesh of
+    N data ranks."""
+    from gccnmf_torch.parallel import mesh as mesh_lib
+
+    return _separate_files(args, mesh_lib.make_mesh(data=args.time_shards, device=args.device))
+
+
+def _separate_files(args, mesh=None) -> dict:
+    """The separate command's files → the JSON it prints."""
     from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
     from gccnmf_torch.parallel.long_audio import LongAudioSeparator
     from gccnmf_torch.utils import wav
@@ -118,7 +136,7 @@ def separate_main(argv=None):
         if args.time_shards:
             return LongAudioSeparator(
                 cfg, device=args.device, chunk_frames=args.chunk_frames,
-                nmf_init="device" if args.device_init else "reference",
+                nmf_init="device" if args.device_init else "reference", mesh=mesh,
             )
         return GCCNMFSeparator(cfg, device=args.device)
 
@@ -153,11 +171,9 @@ def separate_main(argv=None):
         results.append(dict(input=path, outputs=result["paths"],
                             target_tdoa_indexes=result["target_tdoa_indexes"]))
     if multi:
-        print(json.dumps(dict(files=results)))
-    else:  # single file: the flat JSON shape
-        results[0].pop("input")
-        print(json.dumps(results[0]))
-    return 0
+        return dict(files=results)
+    results[0].pop("input")  # single file: the flat JSON shape
+    return results[0]
 
 
 def _require_stereo(audio, path, num_channels=2):
@@ -554,15 +570,14 @@ def pretrain_main(argv=None):
                     help="also export stable W_<size>.npy artifacts here "
                          "(consumed via --dictionary-file / dictionaryFile)")
     ap.add_argument("--data-shards", type=int, default=0,
-                    help="data-parallel training over N devices (not ported)")
+                    help="train over a world of N ranks, one a device (time-sharded "
+                         "V and H, W's statistics all-reduced)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="train on the card (default) or on the CPU")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
     if args.verbose:
         logging.basicConfig(level=logging.INFO)
-    if args.data_shards:
-        raise SystemExit(_DATA_SHARDS)
 
     from gccnmf_torch import pretrain
 
@@ -570,21 +585,17 @@ def pretrain_main(argv=None):
         args.wavs, args.window_size, args.hop_size, max_frames=args.max_frames,
         device=args.device,
     )
-    trained = {}
-    saved = []
     if args.save_dir:
         os.makedirs(args.save_dir, exist_ok=True)
-    for size in args.sizes:
-        w = pretrain.pretrain_dictionary(
-            corpus, size, num_iterations=args.num_iterations,
-            cache_dir=args.cache_dir, window_size=args.window_size,
-            seed_value=args.seed, device=args.device,
-        )
-        trained[size] = list(w.shape)
-        if args.save_dir:
-            path = os.path.join(args.save_dir, f"W_{size}.npy")
-            np.save(path, w)
-            saved.append(path)
+    if args.data_shards:
+        from gccnmf_torch.parallel.launch import run_world
+
+        out = run_world(_pretrain_rank, args.data_shards, args.device, args, corpus)
+        if out is None:  # rank 0 prints
+            return 0
+    else:
+        out = _pretrain_sizes(args, corpus)
+    trained, saved = out
     print(json.dumps(dict(
         corpus_frames=int(corpus.shape[0]),
         num_freq=int(corpus.shape[1]),
@@ -593,6 +604,38 @@ def pretrain_main(argv=None):
         saved=saved,
     )))
     return 0
+
+
+def _pretrain_rank(args, corpus):
+    """One rank of ``pretrain --data-shards N``: every size over a mesh of N
+    data ranks."""
+    from gccnmf_torch.parallel import mesh as mesh_lib
+
+    return _pretrain_sizes(args, corpus, mesh_lib.make_mesh(data=args.data_shards,
+                                                            device=args.device))
+
+
+def _pretrain_sizes(args, corpus, mesh=None):
+    """Train (or load) each size → ``(shapes by size, the W_<size>.npy
+    written)``; over a mesh, rank 0 alone writes them."""
+    import torch.distributed as dist
+
+    from gccnmf_torch import pretrain
+
+    trained, saved = {}, []
+    for size in args.sizes:
+        w = pretrain.pretrain_dictionary(
+            corpus, size, num_iterations=args.num_iterations,
+            cache_dir=args.cache_dir, window_size=args.window_size,
+            mesh=mesh, seed_value=args.seed, device=args.device,
+        )
+        trained[size] = list(w.shape)
+        if args.save_dir:
+            path = os.path.join(args.save_dir, f"W_{size}.npy")
+            if mesh is None or dist.get_rank() == 0:
+                np.save(path, w)
+            saved.append(path)
+    return trained, saved
 
 
 COMMANDS = {"separate": separate_main, "enhance": enhance_main, "stream": stream_main,

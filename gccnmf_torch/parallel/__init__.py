@@ -1,2 +1,3 @@
-"""Long-audio separation (counterpart of ``gccnmf_tpu/parallel/``): the
-one-device paths of ``long_audio.LongAudioSeparator``."""
+"""Long audio and process groups (counterpart of ``gccnmf_tpu/parallel/``):
+``mesh`` (process groups and the (data, model) mesh), ``launch`` (worlds of
+ranks), ``nmf_sharded``, ``trainer`` and ``long_audio``."""

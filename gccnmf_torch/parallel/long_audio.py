@@ -1,5 +1,5 @@
-"""Long-audio separation on one device (counterpart of the one-shard paths of
-``gccnmf_tpu/parallel/long_audio.py``).
+"""Long-audio separation, on one device or time-sharded over a process group
+(counterpart of ``gccnmf_tpu/parallel/long_audio.py``).
 
 ``GCCNMFSeparator`` holds a whole utterance, its planes and every target's
 reconstruction at once: right for 10 s clips, not for an hour-long meeting
@@ -32,6 +32,20 @@ as torch ops on either device and launches none of its hand kernels.
 :meth:`LongAudioSeparator.separate` is the in-memory path on one shard:
 the same math over a (2, n) array held whole, with the attribution winner
 of ``masks.attribution_winner_planes`` and one target at a time.
+
+With a ``mesh`` (``parallel.mesh.make_mesh``, data axis only) every rank
+of the world builds the separator and calls it with the same arguments;
+the time axis is split into one shard of frames per data rank, as JAX's
+``shard_map`` pipeline does. Each rank computes its shard's STFT, coherence
+and V; the angular sums are all-reduced over ``data``; the NMF is
+``parallel.nmf_sharded.kl_nmf_sharded`` with the silence guards (or the
+turbo updates); H0 is the reference draw's rows of this shard, left frames
+then right, the order of its V rows. Each target's overlap-added frames
+pass their ``window − hop`` trailing samples to the next data rank
+(``batch_isend_irecv``, JAX's ``ppermute``). ``separate`` all-gathers the
+settled blocks; ``separate_streamed`` has each rank read only its own
+sample range from the WAV, and rank 0 writes the files, receiving one shard
+at a time in data order, so host RAM stays O(shard) on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from dataclasses import replace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gccnmf_torch.convert import from_numpy_state
 from gccnmf_torch.device import resolve_device
@@ -48,6 +63,8 @@ from gccnmf_torch.models.offline import OfflineConfig, plane_dtype, stft_gain
 from gccnmf_torch.ops import gcc, localize, masks, nmf
 from gccnmf_torch.ops import stft as stft_ops
 from gccnmf_torch.ops.windows import hann_symmetric
+from gccnmf_torch.parallel import mesh as mesh_lib
+from gccnmf_torch.parallel.nmf_sharded import kl_nmf_sharded
 from gccnmf_torch.precision import set_fp32_precision
 from gccnmf_torch.serving import float_to_pcm, pcm_to_float
 from gccnmf_torch.utils import wav
@@ -91,7 +108,8 @@ class _PinnedRing:
 
 
 class LongAudioSeparator:
-    """GCC-NMF separation of recordings of any length on one device.
+    """GCC-NMF separation of recordings of any length, on one device or over
+    a mesh.
 
     ``device=None`` means the card (raises without one); pass
     ``device="cpu"`` for the CPU. ``chunk_frames`` is the macro-chunk width
@@ -99,16 +117,35 @@ class LongAudioSeparator:
     draws the reference's MT19937 ``seed(0)`` init on the host in atom
     blocks; ``"device"`` draws H0 on the device from a generator seeded
     with 0 (W0 stays host-seeded): no H0 upload, deterministic, but another
-    trajectory, so never the parity path."""
+    trajectory, so never the parity path.
+
+    ``mesh``: a data-only ``DeviceMesh`` (``parallel.mesh``) shards the time
+    axis over its data ranks (module docstring); each rank's device is the
+    mesh's, and with ``nmf_init="device"`` each rank draws its own H0 rows
+    from a generator seeded with its data rank."""
 
     def __init__(self, config: OfflineConfig = OfflineConfig(), device=None,
-                 chunk_frames: int = 8192, nmf_init: str = "reference"):
+                 chunk_frames: int = 8192, nmf_init: str = "reference", mesh=None):
         if nmf_init not in ("reference", "device"):
             raise ValueError(f"unknown nmf_init {nmf_init!r}")
         if config.nmf_matmul_dtype not in nmf.MATMUL_DTYPES:
             raise ValueError(f"unknown nmf_matmul_dtype {config.nmf_matmul_dtype!r}")
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.num_shards, self._shard = 1, 0
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if mesh_lib.axis_size(mesh, "model") != 1:
+                raise ValueError("LongAudioSeparator uses a data-only mesh")
+            if device is not None and resolve_device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device_type}")
+            self.device = mesh_lib.mesh_device(mesh)
+            self.num_shards = mesh_lib.axis_size(mesh, "data")
+            self._shard = mesh.get_local_rank("data")
+            self._data_group = mesh.get_group("data")
+            # the seam exchange and the writer address global ranks
+            self._peers = mesh.mesh[:, 0].tolist()
         set_fp32_precision()
         self.chunk_frames = int(chunk_frames)
         self.nmf_init = nmf_init
@@ -124,56 +161,74 @@ class LongAudioSeparator:
 
     def _for_rate(self, sample_rate: int) -> "LongAudioSeparator":
         return LongAudioSeparator(replace(self.config, sample_rate=sample_rate), self.device,
-                                  chunk_frames=self.chunk_frames, nmf_init=self.nmf_init)
+                                  chunk_frames=self.chunk_frames, nmf_init=self.nmf_init,
+                                  mesh=self.mesh)
 
     # ---- shared stages ------------------------------------------------------
 
-    def _frame_geometry(self, n_samples: int) -> tuple[int, int]:
-        """(frames processed, samples they cover) of one shard holding
-        every frame."""
+    def _frame_geometry(self, n_samples: int) -> tuple[int, int, int]:
+        """(frames a shard, frames processed, samples a shard covers): the
+        trailing frames that do not fill every shard are dropped, and the
+        shards' sample ranges overlap by ``window − hop``."""
         cfg = self.config
+        s = self.num_shards
         window, hop = cfg.window_size, cfg.hop_size
-        t = stft_ops.num_frames(n_samples, window, hop)
-        # the one-shard case of JAX's seam test; with hop == window the seam
-        # test alone would pass zero frames
-        if t < 1 or t * hop < window - hop:
-            raise ValueError(f"audio too short: {t} frames")
-        return t, (t - 1) * hop + window
+        t_s = stft_ops.num_frames(n_samples, window, hop) // s
+        # t_s < 1 must fail too: with hop == window the seam test alone would
+        # pass zero frames
+        if t_s < 1 or t_s * hop < window - hop:
+            raise ValueError(f"audio too short to shard {s} ways: {t_s} frames/shard")
+        return t_s, t_s * s, (t_s - 1) * hop + window
 
-    def _h0_device_chunked(self, t2: int, atom_block: int = 8):
+    def _h0_rows(self, t_s: int, t: int):
+        """The rows of the reference's (2T, K) H0 (left frames, then right)
+        that this shard's V rows meet, in their order: its left frames,
+        then its right ones. None for one shard, which holds them all."""
+        if self.num_shards == 1:
+            return None
+        left = np.arange(self._shard * t_s, (self._shard + 1) * t_s)
+        return np.concatenate([left, t + left])
+
+    def _h0_device_chunked(self, t2: int, atom_block: int = 8, rows=None):
         """``(W0 (F, K) NumPy, H0 (t2, K) on the device)`` with host RAM of
-        O(t2·atom_block).
+        O(t2·atom_block); with ``rows``, only those rows of H0.
 
         ``nmf_init_numpy`` draws H as one (K, t2) float64 array, gigabytes
         for an hour. Its MT19937 stream is K-major, so drawing atom blocks
         in turn reproduces it bit for bit: each block is cast, offset by ε
-        and copied into a (K, t2) buffer on the device, transposed once
+        and copied into a (K, rows) buffer on the device, transposed once
         there. With ``nmf_init="device"`` H0 is drawn on the device
-        instead."""
+        instead, from a generator seeded with the data rank."""
         cfg = self.config
         k = cfg.dictionary_size
+        n_rows = t2 if rows is None else len(rows)
         rs = np.random.RandomState(0)  # seed(0)'s stream, the caller's RNG untouched
         w0 = rs.random_sample((cfg.num_freq, k)).astype(np.float32) + cfg.epsilon
         if self.nmf_init == "device":
             gen = torch.Generator(device=self.device)
-            gen.manual_seed(0)
-            h0 = torch.rand((t2, k), generator=gen, device=self.device) + cfg.epsilon
+            gen.manual_seed(self._shard)
+            h0 = torch.rand((n_rows, k), generator=gen, device=self.device) + cfg.epsilon
             return w0, h0
-        buf = torch.empty((k, t2), dtype=torch.float32, device=self.device)
+        buf = torch.empty((k, n_rows), dtype=torch.float32, device=self.device)
         for k0 in range(0, k, atom_block):
             kb = min(atom_block, k - k0)
             blk = rs.random_sample((kb, t2)).astype(np.float32)
             blk += cfg.epsilon  # in place: the float32 add of nmf_init_numpy
-            buf[k0 : k0 + kb] = torch.from_numpy(blk)
+            buf[k0 : k0 + kb] = torch.from_numpy(blk if rows is None else blk[:, rows])
         return w0, buf.T.contiguous()
 
     def _run_nmf(self, v2: torch.Tensor, w0: np.ndarray, h0: torch.Tensor):
-        """KL-NMF of the whole (2T, F) V: exact fp32 with the silence
-        guards, or the turbo updates (always guarded)."""
+        """KL-NMF of V (2T, F), or of this shard's rows over the mesh: exact
+        fp32 with the silence guards, or the turbo updates (always
+        guarded)."""
         cfg = self.config
         w0 = torch.as_tensor(w0, device=self.device)
         args = (cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon)
-        if cfg.nmf_matmul_dtype == "bfloat16_q_simul":
+        turbo = cfg.nmf_matmul_dtype == "bfloat16_q_simul"
+        if self.mesh is not None:
+            return kl_nmf_sharded(v2, w0, h0, cfg.num_iterations, self.mesh, cfg.sparsity_alpha,
+                                  cfg.epsilon, simultaneous=turbo, guard=True)
+        if turbo:
             return nmf.kl_nmf_simul(v2, w0, h0, *args)
         return nmf.kl_nmf(v2, w0, h0, *args, guard=True)
 
@@ -186,24 +241,21 @@ class LongAudioSeparator:
                                          self._inv_method)
         return stft_ops.overlap_add(frames * self._window, cfg.hop_size)
 
-    # ---- in memory ----------------------------------------------------------
-
-    @torch.inference_mode()
-    def separate(self, stereo: np.ndarray, num_sources: int | None = None):
-        """Separate ``(2, n)`` audio of any length held in memory → dict of
-        ``estimates`` (N, 2, n_out) float32, ``target_tdoa_indexes``, ``w``,
-        ``mean_angular_spectrum`` and ``frames_processed``. ``num_sources``
-        None defers to the config, whose None counts the sources."""
+    def _separate_core(self, x: torch.Tensor, t_s: int, num_sources):
+        """This shard's samples (2, (t_s − 1)·hop + window) on the device →
+        ``(y, targets, W, mean angular spectrum)``: ``y`` (N, 2, t_s·hop +
+        window − hop) is each target's overlap-added frames, its seams not
+        yet exchanged."""
         cfg = self.config
-        num_sources = cfg.num_sources if num_sources is None else num_sources
-        t, chunk_len = self._frame_geometry(stereo.shape[-1])
-        x = torch.as_tensor(np.asarray(stereo[:, :chunk_len], np.float32), device=self.device)
+        t = t_s * self.num_shards
         spec = stft_ops.stft(x, self._window, cfg.hop_size, conjugate=True,
-                             method=self._stft_method)  # (2, T, F)
+                             method=self._stft_method)  # (2, t_s, F)
         coh = gcc.coherence(spec, guard_zeros=True)
         ang_sum = gcc.angular_spectrogram(coh, self._cos, self._sin).sum(dim=0)
-        v2 = torch.cat([spec[0].abs(), spec[1].abs()])  # (2T, F), left‖right
-        w0, h0 = self._h0_device_chunked(2 * t)
+        if self.num_shards > 1:
+            dist.all_reduce(ang_sum, group=self._data_group)
+        v2 = torch.cat([spec[0].abs(), spec[1].abs()])  # (2 t_s, F), left‖right
+        w0, h0 = self._h0_device_chunked(2 * t, rows=self._h0_rows(t_s, t))
         w, h = self._run_nmf(v2, w0, h0)
         del v2, h0
 
@@ -211,15 +263,60 @@ class LongAudioSeparator:
         targets = localize.estimate_target_tdoa_indexes(mean_ang, num_sources)
         targets_t = torch.tensor([targets], dtype=torch.long, device=self.device)
         winner = masks.attribution_winner_planes(coh.real[None], coh.imag[None], self._cos,
-                                                 self._sin, targets_t, w[None])[0]  # (T, K)
-        h_stereo = torch.stack([h[:t], h[t:]])
+                                                 self._sin, targets_t, w[None])[0]  # (t_s, K)
+        h_stereo = torch.stack([h[:t_s], h[t_s:]])
         # one target at a time: the (N, 2, T, F) estimate never exists
         y = torch.stack([self._synthesize((winner == n).to(torch.float32), spec, w, h_stereo)
                          for n in range(len(targets))])
-        half = cfg.window_size // 2
-        est = y[..., half:-half] * stft_gain(cfg)
+        return y, targets, w, mean_ang
+
+    def _exchange_seams(self, y: torch.Tensor, t_s: int):
+        """``y`` of :meth:`_separate_core` → ``(owned, tail)``: the shard's
+        settled t_s·hop samples, its predecessor's ``window − hop`` trailing
+        samples added in, and its own trailing samples (the next shard's;
+        the last shard's end the output)."""
+        cfg = self.config
+        own_len, overlap = t_s * cfg.hop_size, cfg.window_size - cfg.hop_size
+        own, tail = y[..., :own_len], y[..., own_len:].contiguous()
+        i = self._shard
+        ops, recv = [], None
+        if i + 1 < self.num_shards:
+            ops.append(dist.P2POp(dist.isend, tail, self._peers[i + 1], self._data_group))
+        if i > 0:
+            recv = torch.empty_like(tail)
+            ops.append(dist.P2POp(dist.irecv, recv, self._peers[i - 1], self._data_group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if recv is not None:
+            own[..., :overlap] += recv
+        return own, tail
+
+    # ---- in memory ----------------------------------------------------------
+
+    @torch.inference_mode()
+    def separate(self, stereo: np.ndarray, num_sources: int | None = None):
+        """Separate ``(2, n)`` audio of any length held in memory → dict of
+        ``estimates`` (N, 2, n_out) float32, ``target_tdoa_indexes``, ``w``,
+        ``mean_angular_spectrum`` and ``frames_processed``. ``num_sources``
+        None defers to the config, whose None counts the sources. Over a
+        mesh every rank passes the whole ``stereo`` and gets the whole
+        result; the trailing frames that do not fill every shard (fewer
+        than one per shard) are dropped."""
+        cfg = self.config
+        num_sources = cfg.num_sources if num_sources is None else num_sources
+        hop, half = cfg.hop_size, cfg.window_size // 2
+        t_s, t, chunk_len = self._frame_geometry(stereo.shape[-1])
+        start = self._shard * t_s * hop
+        x = torch.as_tensor(np.asarray(stereo[:, start : start + chunk_len], np.float32),
+                            device=self.device)
+        y, targets, w, mean_ang = self._separate_core(x, t_s, num_sources)
+        if self.mesh is not None:  # the whole output, joined on the device
+            own, tail = self._exchange_seams(y, t_s)
+            y = torch.cat([mesh_lib.gather(own, self.mesh, -1),
+                           mesh_lib.gather(tail[None], self.mesh)[-1]], dim=-1)
         return dict(
-            estimates=est.cpu().numpy(),
+            estimates=(y[..., half:-half] * stft_gain(cfg)).cpu().numpy(),
             target_tdoa_indexes=targets,
             w=w.cpu().numpy(),
             mean_angular_spectrum=mean_ang,
@@ -230,16 +327,18 @@ class LongAudioSeparator:
                       audio: tuple[np.ndarray, int] | None = None):
         """:meth:`separate` of a WAV → ``<prefix>_sim_<n>.wav`` files
         (``paths`` in the result). Pass ``audio`` as ``(stereo,
-        sample_rate)`` to skip re-reading an already-loaded file."""
+        sample_rate)`` to skip re-reading an already-loaded file. Over a
+        mesh, data rank 0 writes the files before any rank returns."""
         stereo, sr = audio if audio is not None else wav.read_wav(mixture_path)
         sep = self if sr == self.config.sample_rate else self._for_rate(sr)
         result = sep.separate(stereo)
         prefix = output_prefix or wav.default_output_prefix(mixture_path)
-        paths = []
-        for i, est in enumerate(result["estimates"]):
-            path = f"{prefix}_sim_{i + 1}.wav"
-            wav.write_wav(est, path, sr)
-            paths.append(path)
+        paths = [f"{prefix}_sim_{i + 1}.wav" for i in range(len(result["estimates"]))]
+        if self._shard == 0:
+            for est, path in zip(result["estimates"], paths):
+                wav.write_wav(est, path, sr)
+        if self.mesh is not None:
+            dist.barrier(group=self._data_group)
         result["paths"] = paths
         return result
 
@@ -254,7 +353,12 @@ class LongAudioSeparator:
         Returns ``paths``, ``target_tdoa_indexes``, ``w``,
         ``mean_angular_spectrum``, ``frames_processed``,
         ``samples_written``, ``host_heap_trims``, ``stage_seconds`` and
-        ``transfer_mb``."""
+        ``transfer_mb``.
+
+        Over a mesh of more than one data rank (module docstring) it returns
+        ``paths``, ``target_tdoa_indexes``, ``w``, ``mean_angular_spectrum``,
+        ``frames_processed`` and ``samples_written`` on every rank; one data
+        rank takes the chunked path above, as in JAX."""
         num_sources = self.config.num_sources if num_sources is None else num_sources
         reader = wav.WavReader(mixture_path)
         if reader.sample_rate != self.config.sample_rate:
@@ -262,8 +366,75 @@ class LongAudioSeparator:
                 mixture_path, output_prefix, num_sources)
         if reader.num_channels != 2:
             raise ValueError(f"expected stereo input, got {reader.num_channels} channels")
+        if self.num_shards > 1:
+            return self._separate_streamed_sharded(reader, mixture_path, output_prefix,
+                                                   num_sources)
         return self._separate_streamed_chunked(reader, mixture_path, output_prefix,
                                                num_sources)
+
+    def _separate_streamed_sharded(self, reader, mixture_path, output_prefix, num_sources):
+        """Each rank reads its own sample range; data rank 0 writes the WAVs
+        from its block and each other rank's, received one at a time in
+        data order (the last rank's trailing seam ends them)."""
+        cfg = self.config
+        s, i = self.num_shards, self._shard
+        t_s, t, chunk_len = self._frame_geometry(reader.num_samples)
+        x = torch.as_tensor(reader.read(i * t_s * cfg.hop_size, chunk_len), device=self.device)
+        y, targets, w, mean_ang = self._separate_core(x, t_s, num_sources)
+        own, tail = self._exchange_seams(y, t_s)
+        del y
+        prefix = output_prefix or wav.default_output_prefix(mixture_path)
+        paths = [f"{prefix}_sim_{n + 1}.wav" for n in range(len(targets))]
+        root, group = self._peers[0], self._data_group
+        samples_written = None
+        if i == 0:
+            samples_written = self._write_shards(own, tail, paths, reader.sample_rate)
+        else:
+            dist.send(own.contiguous(), root, group=group)
+            if i == s - 1:
+                dist.send(tail, root, group=group)
+        # the count, and the files' completion, to every rank
+        box = [samples_written]
+        dist.broadcast_object_list(box, src=root, group=group)
+        return dict(
+            paths=paths,
+            target_tdoa_indexes=targets,
+            w=w.cpu().numpy(),
+            mean_angular_spectrum=mean_ang,
+            frames_processed=t,
+            samples_written=box[0],
+        )
+
+    def _write_shards(self, own: torch.Tensor, tail: torch.Tensor, paths, sample_rate) -> int:
+        """Data rank 0's writer: its own block, each other shard's received in
+        turn into one buffer, then the last shard's seam; the leading and
+        trailing half windows trimmed, as JAX. Returns the samples each file
+        holds."""
+        gain = stft_gain(self.config)
+        half = self.config.window_size // 2
+        writers = [wav.StreamingWavWriter(p, sample_rate) for p in paths]
+        # held-back FIFO per target: which samples the trailing trim removes
+        # is known only at the end
+        pending = [np.zeros((2, 0), np.float32) for _ in paths]
+
+        def emit(block: np.ndarray) -> None:  # block: (N, 2, L)
+            for n, writer in enumerate(writers):
+                buf = np.concatenate([pending[n], block[n] * gain], axis=-1)
+                if buf.shape[-1] > half:
+                    writer.write(buf[:, : buf.shape[-1] - half])
+                    buf = buf[:, buf.shape[-1] - half :]
+                pending[n] = buf
+
+        emit(own[..., half:].cpu().numpy())
+        block = torch.empty_like(own, memory_format=torch.contiguous_format)
+        for peer in self._peers[1:]:
+            dist.recv(block, peer, group=self._data_group)
+            emit(block.cpu().numpy())
+        dist.recv(tail, self._peers[-1], group=self._data_group)
+        emit(tail.cpu().numpy())
+        for writer in writers:
+            writer.close()
+        return writers[0].samples_written if writers else 0
 
     def _separate_streamed_chunked(self, reader, mixture_path, output_prefix, num_sources):
         """The macro-chunk loop of one device (module docstring)."""

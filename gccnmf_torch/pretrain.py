@@ -36,6 +36,7 @@ from gccnmf_torch.device import resolve_device
 from gccnmf_torch.ops import nmf as nmf_ops
 from gccnmf_torch.ops import stft as stft_ops
 from gccnmf_torch.ops import windows as win_ops
+from gccnmf_torch.parallel import nmf_sharded
 from gccnmf_torch.precision import set_fp32_precision
 
 logger = logging.getLogger(__name__)
@@ -50,9 +51,6 @@ __all__ = [
 
 DEFAULT_SIZES = (64, 128, 256, 512, 1024)
 NUM_PRETRAIN_ITERATIONS = 100
-
-_NO_MESH = ("mesh=: data-parallel pretraining is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6b)")
 
 
 def _corpus_fingerprint(v: np.ndarray) -> str:
@@ -116,9 +114,9 @@ def pretrain_dictionary(
 
     ``num_iterations`` defaults to GCCNMF_TPU_PRETRAIN_ITERS (env) or 100;
     ``cache_dir`` to GCCNMF_TPU_CACHE_DIR (env) or ``defs.PRETRAINED_W_DIR``.
-    ``mesh`` (data-parallel training) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    With ``mesh`` (``parallel.mesh``), every rank of it calls with the same
+    corpus and W trains over the mesh's devices
+    (``nmf_sharded.pretrain_dictionary_sharded``), ``device`` unused."""
     if num_iterations is None:
         num_iterations = int(
             os.environ.get("GCCNMF_TPU_PRETRAIN_ITERS", NUM_PRETRAIN_ITERATIONS)
@@ -139,12 +137,16 @@ def pretrain_dictionary(
     logger.info(
         "pretrain: training W (K=%d) on %s corpus", dictionary_size, train_v.shape
     )
-    dev = resolve_device(device)
-    t, f = train_v.shape
-    w0, h0 = nmf_ops.nmf_init_numpy(f, dictionary_size, t, seed_value=seed_value)
-    w, _ = corpus_nmf(*(torch.as_tensor(x, device=dev) for x in (train_v, w0, h0)),
-                      num_iterations)
-    w = w.cpu().numpy()
+    if mesh is not None:
+        w = nmf_sharded.pretrain_dictionary_sharded(train_v, dictionary_size, num_iterations,
+                                                    mesh, seed_value=seed_value)
+    else:
+        dev = resolve_device(device)
+        t, f = train_v.shape
+        w0, h0 = nmf_ops.nmf_init_numpy(f, dictionary_size, t, seed_value=seed_value)
+        w, _ = corpus_nmf(*(torch.as_tensor(x, device=dev) for x in (train_v, w0, h0)),
+                          num_iterations)
+        w = w.cpu().numpy()
 
     os.makedirs(cache_dir, exist_ok=True)
     # atomic publish (tmp + rename): two processes cold-starting on the
@@ -186,7 +188,8 @@ def get_dictionaries(
 ) -> Mapping[str, Mapping[int, np.ndarray]]:
     """Pretrained and Random dictionary banks keyed [type][size] (reference
     getDictionariesW, gccNMFPretraining.py:43-58). Without ``train_v`` the
-    corpus is the WAVs of ``defs.DATA_DIR``, else seeded noise frames."""
+    corpus is the WAVs of ``defs.DATA_DIR``, else seeded noise frames. With
+    ``mesh`` every size trains over it (:func:`pretrain_dictionary`)."""
     rng = rng or np.random.default_rng(0)
     num_freq = window_size // 2 + 1
     if train_v is None:

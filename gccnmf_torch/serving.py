@@ -159,8 +159,9 @@ class StreamServer:
     ``tick_stats()['delivery_ms']`` then reports dispatch→delivery latency.
     ``wire_dtype="int16"`` ships blocks and outputs as 16-bit PCM (half the
     bytes each way); the API stays float32, the outputs quantized as the WAV
-    writer would. ``device=None`` serves on the card; slot sharding over
-    several devices is not ported (ROADMAP.md, Queue 1 item 6b)."""
+    writer would. ``device=None`` serves on the card; ``mesh`` (slot
+    sharding over several devices) is not ported yet and raises (ROADMAP.md,
+    Queue 1 item 6c)."""
 
     def __init__(
         self,
@@ -171,7 +172,11 @@ class StreamServer:
         async_fetch: bool = False,
         wire_dtype: str = "float32",
         device=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            raise NotImplementedError("StreamServer(mesh=): slot sharding over several devices "
+                                      "is not ported yet (ROADMAP.md, Queue 1 item 6c)")
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32 or int16: {wire_dtype}")
         if pipeline_depth < 0:

@@ -70,9 +70,15 @@ def test_device_init_alone_is_an_argparse_error(wav_file, capsys):
 
 
 def test_more_time_shards_exit_naming_item_6b(wav_file, tmp_path):
-    for flags in (["--time-shards", "2"], ["--time-shards", "4", "--streamed"]):
-        with pytest.raises(SystemExit, match=r"ROADMAP.md, Queue 1 item 6b\)"):
-            cli.separate_main([wav_file, "-o", str(tmp_path / "x"), "--device", "cpu", *flags])
+    """More time shards than one no longer exit naming Queue 1 item 6b: they
+    run over a world of ranks on the card unless --device cpu says
+    otherwise, and never move to the CPU. With more shards than cards they
+    raise before anything is written (tests/test_torch_cli_sharded.py runs
+    them on the CPU)."""
+    shards = str(max(2, torch.cuda.device_count() + 1))
+    for flags in (["--time-shards", shards], ["--time-shards", shards, "--streamed"]):
+        with pytest.raises((RuntimeError, ValueError), match="CUDA is not available|exceeds"):
+            cli.separate_main([wav_file, "-o", str(tmp_path / "x"), *flags])
     assert not (tmp_path / "x_sim_1.wav").exists()
 
 

@@ -31,7 +31,7 @@ from gccnmf_torch.ops.enhance_cuda import (
 from gccnmf_torch.ops.frontend_cuda import (
     frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
 )
-from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, nmf_init_numpy
+from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, kl_nmf_simul, nmf_init_numpy
 from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
 from gccnmf_torch.ops.synthesis_cuda import (
     masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
@@ -860,3 +860,71 @@ def test_streamed_silent_span_finite_on_card(cuda, tmp_path):
     for p in out["paths"]:
         x = wav.read_wav(p)[0]
         assert np.isfinite(x).all() and np.abs(x).max() > 0
+
+
+@pytest.fixture()
+def nccl_world(cuda):
+    """A world of one over NCCL in this process (make_mesh starts it on a
+    private store), ended after the test."""
+    import torch.distributed as dist
+
+    from gccnmf_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(device=cuda)
+    assert dist.get_backend() == "nccl"
+    try:
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mode", ["unguarded", "guard", "simultaneous"])
+def test_sharded_nmf_world_of_one_matches_one_device(nccl_world, mode):
+    """kl_nmf_sharded on a (1, 1) NCCL mesh against kl_nmf (kl_nmf_simul for
+    the turbo updates) on the card: W and H within 1e-5 x max."""
+    from gccnmf_torch.parallel.nmf_sharded import kl_nmf_sharded
+
+    v, w0, h0 = (x[0] for x in _nmf_problem(torch.device("cuda"), b=1, t=517, f=65, k=24))
+    kw = {"guard": dict(guard=True), "simultaneous": dict(simultaneous=True)}.get(mode, {})
+    got = kl_nmf_sharded(v, w0, h0, 20, nccl_world, **kw)
+    if mode == "simultaneous":
+        want = kl_nmf_simul(v, w0, h0, 20)
+    else:
+        want = kl_nmf(v, w0, h0, 20, guard=mode == "guard")
+    for g, w_ in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g, w_, rtol=0, atol=1e-5 * float(w_.abs().max()))
+
+
+def test_trainer_world_of_one_resumes_on_card(nccl_world, tmp_path):
+    """DistributedNMFTrainer over NCCL: 8 iterations in chunks of 4 equal
+    corpus_nmf (1e-5 x max); a trainer resumed at 4 equals it."""
+    import shutil
+
+    from gccnmf_torch.parallel.trainer import DistributedNMFTrainer
+
+    rng = np.random.default_rng(0)
+    v = (rng.random((300, 65)) + 0.05).astype(np.float32)
+    kw = dict(dictionary_size=24, checkpoint_every=4)
+    w = DistributedNMFTrainer(nccl_world, num_iterations=8, checkpoint_dir=str(tmp_path / "a"),
+                              **kw).fit(v)
+    w0, h0 = nmf_init_numpy(65, 24, 300)
+    want, _ = pretrain.corpus_nmf(*(torch.as_tensor(x, device="cuda") for x in (v, w0, h0)), 8)
+    np.testing.assert_allclose(w, want.cpu().numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    (tmp_path / "b").mkdir()
+    shutil.copy(tmp_path / "a" / "nmf_000004.npz", tmp_path / "b")
+    (tmp_path / "b" / "latest").write_text("nmf_000004.npz")
+    resumed = DistributedNMFTrainer(nccl_world, num_iterations=8,
+                                    checkpoint_dir=str(tmp_path / "b"), **kw).fit(v)
+    np.testing.assert_allclose(resumed, w, rtol=0, atol=1e-5 * float(np.abs(w).max()))
+
+
+def test_more_time_shards_than_cards_raise(cuda, tmp_path):
+    """separate --time-shards N with more shards than cards: make_mesh's
+    "exceeds" error before any rank starts; nothing moves to the CPU."""
+    path = _long_mix(tmp_path, seconds=2)
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"mesh {n + 1}x1 exceeds {n} devices"):
+        cli.separate_main([path, "--time-shards", str(n + 1), "-o", str(tmp_path / "x")])
+    assert not (tmp_path / "x_sim_1.wav").exists()

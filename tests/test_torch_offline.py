@@ -11,7 +11,6 @@ import pytest
 import torch
 
 from gccnmf_tpu.models import offline as joffline
-from gccnmf_torch.cli import separate_main
 from gccnmf_torch.models.offline import (
     GCCNMFSeparator, OfflineConfig, gemm_dtype, plane_dtype, stft_gain,
 )
@@ -262,15 +261,14 @@ class TestConfig:
         with pytest.raises(ValueError, match="want one of"):
             OfflineConfig(nmf_backend="pallas").resolved_nmf_backend(cpu)
 
-    def test_unported_modes_raise(self, tmp_path, stereo_signal):
-        """What is still unported raises: the conv STFT, and the CLI's
-        time-sharded pipeline over more than one device, before anything
-        runs."""
-        mix, sr = stereo_signal
+    def test_unported_modes_raise(self):
+        """What is still unported raises before anything runs: the conv
+        STFT, and the server's slot sharding (the CLI's time-sharded
+        pipeline runs since the process groups were ported:
+        tests/test_torch_cli_sharded.py)."""
+        from gccnmf_torch.serving import StreamServer
+
         with pytest.raises(NotImplementedError, match="conv"):
             GCCNMFSeparator(OfflineConfig(stft_method="conv"), device="cpu")
-        path = str(tmp_path / "case_mix.wav")
-        wav.write_wav(mix, path, sr)
-        with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 item 6b"):
-            separate_main([path, "--device", "cpu", "--time-shards", "2"])
-        assert not os.path.exists(str(tmp_path / "case_sim_1.wav"))
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6c"):
+            StreamServer(np.ones((513, 8), np.float32), device="cpu", mesh=object())

@@ -128,11 +128,31 @@ class TestPretrain:
         cents = (np.arange(513)[:, None] * w).sum(0) / w.sum(0)
         assert np.all(np.diff(cents) >= -1e-3)
 
-    def test_mesh_is_not_ported(self, tmp_path):
-        corpus = np.ones((8, 513), np.float32)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            pretrain.pretrain_dictionary(corpus, 4, num_iterations=1, mesh=object(),
-                                         cache_dir=str(tmp_path), device="cpu")
+    def test_mesh_is_not_ported(self, wav_file, tmp_path):
+        """``mesh=`` is ported: over this process's world of one (gloo) the
+        port trains W as JAX does over its one-device mesh, and as it does
+        itself without a mesh (rtol 1e-4), under the same cache key."""
+        import jax
+        import torch.distributed as dist
+
+        from gccnmf_tpu.parallel import mesh as jmesh
+        from gccnmf_torch.parallel import mesh as mesh_lib
+
+        corpus = _corpus(wav_file[0], 128)
+        want = jpretrain.pretrain_dictionary(
+            corpus, 8, num_iterations=5, cache_dir=str(tmp_path / "jax"),
+            mesh=jmesh.make_mesh(data=1, model=1, devices=jax.devices()[:1]))
+        alone = pretrain.pretrain_dictionary(corpus, 8, num_iterations=5,
+                                             cache_dir=str(tmp_path / "alone"), device="cpu")
+        try:
+            got = pretrain.pretrain_dictionary(corpus, 8, num_iterations=5,
+                                               cache_dir=str(tmp_path / "port"),
+                                               mesh=mesh_lib.make_mesh(device="cpu"))
+        finally:
+            dist.destroy_process_group()
+        for ref in (want, alone):
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6 * np.abs(ref).max())
+        assert os.listdir(tmp_path / "port") == os.listdir(tmp_path / "jax")
 
     def test_silent_corpus_frame_follows_jax_unguarded(self, wav_file, tmp_path):
         """On the CPU the port trains with JAX's unguarded updates: a frame of
@@ -250,10 +270,18 @@ class TestPretrainCLI:
         out = json.loads(capsys.readouterr().out.strip())
         assert os.path.exists(out["output"])
 
-    def test_data_shards_exits(self, wav_file, tmp_path):
+    def test_data_shards_exits(self, wav_file, tmp_path, capsys):
+        """``--data-shards 2`` no longer exits naming Queue 1 item 6b: it
+        trains over a world of two CPU ranks, exits 0 with the command's
+        JSON, and gives the one-device W (rtol 2e-3, atol 2e-5: the JAX
+        suite's bar for --data-shards)."""
         path, _ = wav_file
-        cache = tmp_path / "cache"
-        with pytest.raises(SystemExit, match="Queue 1 item 6"):
-            cli.main(["pretrain", path, "--data-shards", "4", "--cache-dir", str(cache),
-                      "--device", "cpu"])
-        assert not cache.exists()
+        base = [path, "--sizes", "8", "--num-iterations", "3", "--max-frames", "128",
+                "--device", "cpu"]
+        for name, flags in (("one", []), ("two", ["--data-shards", "2"])):
+            assert cli.main(["pretrain", *base, "--cache-dir", str(tmp_path / name),
+                             "--save-dir", str(tmp_path / f"{name}_w"), *flags]) == 0
+            info = json.loads(capsys.readouterr().out.strip())
+            assert info["dictionaries"] == {"8": [513, 8]}
+        np.testing.assert_allclose(np.load(tmp_path / "two_w" / "W_8.npy"),
+                                   np.load(tmp_path / "one_w" / "W_8.npy"), rtol=2e-3, atol=2e-5)
