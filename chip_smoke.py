@@ -177,6 +177,33 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     error, nothing written), and ``pretrain --data-shards 1 --sizes 64``
     over 4 seeded WAVs against ``pretrain --sizes 64`` (W within 1e-5 x
     max).
+15. ``realtime``: the realtime app (``gccnmf_torch/realtime``) at the stream
+    phase's configuration (``GCCNMFConfig()``, hop and block 512, 64 TDOAs
+    at 0.1 m, K = 64), with its dictionary as ``W_64.npy`` and its first
+    10 s mixture as a WAV, one line per check. ``native``: the host
+    runtime's library rebuilt with g++ (seconds) and loaded, and every
+    function of ``gccnmf_torch/native`` through it bit-equal to its NumPy
+    path on seeded arrays (the SPSC ring across many wraps; the block-time
+    mean within 1e-12 relative). ``app``: ``RealtimeGCCNMF().run(-o)`` on
+    the card within 1e-6 x max of ``RTGCCNMFProcessor.enhance_signal`` of
+    the same signal on the card, the card against the same app on the CPU
+    at the stream phase's bars (> 25 dB, > 0.93 of samples within 3e-4 x
+    max), the ``pipeline_depth=2`` file byte-identical to depth 0, the
+    histories after the run equal to the eager step's telemetry block by
+    block on the card (1e-6 x max, the targets exactly), per-block p50/p99
+    at depth 0 and 2, and the warm app's audio-s/s unpaced against
+    ``enhance_signal`` at B = 1 (median of 3 each). ``command``:
+    ``cli.main(["realtime", ...])`` with ``--realtime-pace --blocks 94``
+    (p99 under the 32 ms deadline) and unpaced over the whole file.
+    ``storm``: 300 blocks on the audio thread while a second thread calls
+    ``set_target_window`` and reads ``histories`` (at least once a block)
+    and fires ``set_dictionary`` to K = 128 and back, ``set_num_tdoas``,
+    ``set_mic_separation``, ``set_num_h_updates(2)``, ``set_target_mode``
+    and ``set_block_geometry(hop_size=256)``: no exception, finite outputs,
+    every value the GUI reads a host value; the build-and-capture ms of
+    each rebuild and ``memory_allocated`` after each, then twenty rebuilds
+    of one configuration (``memory_allocated`` after the last within 1 MiB
+    of after the first). No kernel launches in the phase.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -822,6 +849,296 @@ def distributed_phase(torch, seed: int, kind: str, smi: str, reset_counts, count
     emit("distributed", check="commands", device=kind, nvidia_smi=smi, commands=cmds)
     tmp_dir.cleanup()
     return fields
+
+
+def realtime_phase(torch, kind: str, smi: str, reset_counts, counts, w_rt, audio):
+    """Phase 15: the realtime app (``gccnmf_torch/realtime``) and the native
+    host runtime at the stream phase's configuration, one JSON line per
+    check (module docstring). ``w_rt`` is the stream phase's dictionary,
+    ``audio`` its seeded 10 s int16-born mixture (2, n)."""
+    import threading
+
+    from gccnmf_torch import cli, native
+    from gccnmf_torch.config import GCCNMFConfig
+    from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
+    from gccnmf_torch.native import build as native_build
+    from gccnmf_torch.native import runtime as native_rt
+    from gccnmf_torch.realtime import FilePlayerSource, RealtimeGCCNMF
+    from gccnmf_torch.utils import wav
+
+    dev = torch.device("cuda")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    src, dic = os.path.join(tmp, "realtime_mix.wav"), os.path.join(tmp, "W_64.npy")
+    wav.write_wav(audio, src, SR)
+    np.save(dic, w_rt)
+    cfg = GCCNMFConfig(dictionary_file=dic)
+    scfg = StreamConfig.from_app_config(cfg)
+    n_blocks = audio.shape[-1] // scfg.block_size
+    deadline_ms = scfg.block_size / scfg.sample_rate * 1e3
+    line = dict(device=kind, nvidia_smi=smi,
+                config="GCCNMFConfig() (window 1024, hop 512, block 512, 64 TDOAs at 0.1 m, "
+                       "K = 64), the stream phase's W and its 10 s mixture as a WAV")
+    reset_counts()
+
+    # ---- native: the host runtime's library, each function against its
+    # NumPy path on the same seeded arrays
+    t1 = time.perf_counter()
+    lib_path = native_build.build(force=True)
+    build_s = time.perf_counter() - t1
+    require(lib_path is not None and native.available(), "native: the library did not build")
+    rng = np.random.default_rng(0)
+    pcm = rng.integers(-32768, 32768, size=2 * 4099, dtype=np.int16)
+    planar = rng.uniform(-1.2, 1.2, (2, 4096)).astype(np.float32)
+    chunks = [rng.standard_normal(int(n)).astype(np.float32) for n in rng.integers(1, 3000, 40)]
+    frames = rng.standard_normal((12, 2, 4, 1024)).astype(np.float32)
+    times_ = rng.uniform(0.001, 0.05, 300)
+
+    def run_all():
+        ring, got = native.SpscRing(2048), []
+        for c in chunks:  # wraps the ring many times
+            got.append(np.array([ring.write(c)], np.float32))
+            got.append(ring.read(int(c.size * 0.9)))
+        ola, emitted = native.OverlapAdd(2, 512, 8), []
+        for f in frames:
+            ola.add_block(f, 128)
+            emitted.append(ola.emit_block())
+        bt = native.BlockTimes(256)
+        for v in times_:
+            bt.record(v)
+        return dict(
+            lib=ring._lib is not None and ola._lib is not None and bt._lib is not None,
+            results=[native.pcm16_to_float(pcm), native.float_to_pcm16(planar),
+                     native.deinterleave_pcm16(pcm[:-1], 2), native.interleave_pcm16(planar),
+                     np.concatenate(got), np.stack(emitted), np.sort(bt.snapshot())],
+            stats=bt.stats())
+
+    compiled = run_all()
+    load = native_rt._load
+    native_rt._load = lambda: None
+    try:
+        numpy_path = run_all()
+    finally:
+        native_rt._load = load
+    require(compiled["lib"] and not numpy_path["lib"], "native: the two paths did not run")
+    names = ["pcm16_to_float", "float_to_pcm16", "deinterleave_pcm16", "interleave_pcm16",
+             "SpscRing", "OverlapAdd", "BlockTimes.snapshot"]
+    for name, a, b in zip(names, compiled["results"], numpy_path["results"], strict=True):
+        require(a.dtype == b.dtype and np.array_equal(a, b), f"native: {name} differs")
+    (mn, mx, mean, held), want = compiled["stats"], numpy_path["stats"]
+    require((mn, mx, held) == (want[0], want[1], want[3])
+            and abs(mean - want[2]) <= 1e-12 * want[2], "native: BlockTimes.stats differ")
+    emit("realtime", check="native", **line, library=os.path.relpath(lib_path, ROOT),
+         build_s=build_s, bit_equal=names, stats_mean_bar="1e-12 relative (NumPy's pairwise sum)")
+
+    # ---- app: RealtimeGCCNMF on the card against enhance_signal, depth 2
+    # against depth 0, the CPU app, and the histories against the eager step
+    class Collect:
+        def __init__(self):
+            self.blocks = []
+
+        def write(self, block):
+            self.blocks.append(block)
+
+        def audio(self):
+            return np.concatenate(self.blocks, axis=-1)
+
+    runs = {}
+    for name, depth, device in (("card, depth 0", 0, None), ("card, depth 2", 2, None),
+                                ("cpu", 0, "cpu")):
+        app = RealtimeGCCNMF(src, config=cfg, pipeline_depth=depth, device=device)
+        out, got = os.path.join(tmp, f"rt_{depth}_{device}.wav"), Collect()
+        stats = app.run(output_path=out, output_stream=got)
+        require(stats["blocks"] == n_blocks and len(got.blocks) == n_blocks,
+                f"realtime app {name}: {stats['blocks']} blocks")
+        runs[name] = dict(app=app, stats=stats, out=got.audio(), file=out)
+    card, piped, cpu_run = runs["card, depth 0"], runs["card, depth 2"], runs["cpu"]
+    with open(card["file"], "rb") as fh0, open(piped["file"], "rb") as fh2:
+        require(fh0.read() == fh2.read(), "realtime app: the depth-2 file differs from depth 0")
+    app = card["app"]
+    params = StreamParams(*(p.to(dev) for p in app.params))
+    require(all(p.device.type == "cpu" for p in app.params), "realtime app: params on the card")
+    signal, _ = wav.read_wav(src)
+    proc = RTGCCNMFProcessor(w_rt, scfg)
+    ref = proc.enhance_signal(signal, params)[0]
+    err, scale = float(np.abs(card["out"] - ref).max()), float(np.abs(ref).max())
+    require(err <= 1e-6 * scale, f"realtime app against enhance_signal: {err} > 1e-6 x {scale}")
+    cpu = cpu_run["out"]
+    snr = snr_db(cpu, card["out"])
+    tight = float((np.abs(card["out"] - cpu) < 3e-4 * np.abs(cpu).max()).mean())
+    require(snr > 25.0 and tight > 0.93, f"realtime app: card against CPU {snr} dB, {tight}")
+    # the histories hold the last 128 blocks: each equals the eager step's
+    # telemetry of that block on the card
+    hist = app.histories
+    state, tels = proc.init_state(1), []
+    for block in FilePlayerSource(src, scfg.block_size).blocks():
+        state, _, tel = proc.eager_step(state, torch.as_tensor(block[None], device=dev), params)
+        tels.append({k: v.cpu().numpy() for k, v in tel.items()})
+    held = hist["gcc_phat"].num_values
+    tel_err = {}
+    for key, tkey in (("gcc_phat", "gcc_phat"), ("input_spectrogram", "input_mag"),
+                      ("output_spectrogram", "output_mag"),
+                      ("coefficient_mask", "coefficient_mask")):
+        want_h = np.concatenate([t[tkey][0] for t in tels])[-held:]
+        got_h = hist[key].get()
+        e, s = float(np.abs(got_h - want_h).max()), float(np.abs(want_h).max())
+        require(got_h.shape == want_h.shape and e <= 1e-6 * s,
+                f"realtime app: history {key} against the eager telemetry {e} > 1e-6 x {s}")
+        tel_err[key] = dict(max_abs_err=e, bar=f"1e-6 x {s}")
+    want_t = np.concatenate([t["target_tdoa_index"] for t in tels])[-held:]
+    require(np.array_equal(hist["tdoa"].get(), want_t),
+            "realtime app: the target history differs from the eager step's")
+    # the app's host cost: the warm app over the whole file again, unpaced,
+    # against enhance_signal at B = 1 (median of 3 after a warm-up each)
+    app_s, es_s = [], []
+    proc.enhance_signal(signal, params)
+    for _ in range(STREAM_CALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        app.run()
+        app_s.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        proc.enhance_signal(signal, params)
+        es_s.append(time.perf_counter() - t1)
+    app_s, es_s = statistics.median(app_s), statistics.median(es_s)
+    keys = ("p50_ms", "p99_ms", "deadline_misses")
+    emit("realtime", check="app", **line, blocks=n_blocks,
+         app_vs_enhance_signal=dict(max_abs_err=err, bar=f"1e-6 x {scale}"),
+         card_vs_cpu=dict(snr_db=snr, tight_share=tight, bars="> 25 dB, > 0.93"),
+         depth2_file_vs_depth0="byte-identical",
+         histories_vs_eager=dict(blocks=held, target_tdoa_index="equal", **tel_err),
+         per_block_depth0={k: card["stats"][k] for k in keys},
+         per_block_depth2={k: piped["stats"][k] for k in keys},
+         per_block_cpu={k: cpu_run["stats"][k] for k in keys},
+         first_build_and_capture_ms=app.rebuild_ms[0],
+         unpaced=dict(app_s=app_s, app_audio_s_per_s=SECONDS / app_s,
+                      enhance_signal_b1_s=es_s, enhance_signal_audio_s_per_s=SECONDS / es_s,
+                      app_host_ms_per_block=(app_s - es_s) / n_blocks * 1e3))
+    del runs, card, piped, cpu_run, app
+
+    # ---- command: cli.main(["realtime", ...]) paced at the deadline, then
+    # unpaced over the whole file
+    cmd = {}
+    for name, extra in (("paced, 94 blocks", ["--realtime-pace", "--blocks", "94"]),
+                        ("unpaced, whole file", [])):
+        out = os.path.join(tmp, f"cmd_{len(cmd)}.wav")
+        buf = io.StringIO()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["realtime", "-i", src, "-o", out, "--dictionary-file", dic, *extra])
+        seconds = time.perf_counter() - t1
+        info = json.loads(buf.getvalue().strip().splitlines()[-1])
+        data, _ = wav.read_wav(info["output"])
+        want_blocks = 94 if extra else n_blocks
+        require(rc == 0 and info["blocks"] == want_blocks and np.isfinite(data).all()
+                and data.shape == (2, want_blocks * scfg.block_size),
+                f"realtime command {name}: {info}")
+        cmd[name] = dict(seconds=seconds, **{k: info[k] for k in (*keys, "deadline_ms")})
+    paced = cmd["paced, 94 blocks"]
+    require(paced["p99_ms"] < deadline_ms,
+            f"realtime --realtime-pace: p99 {paced['p99_ms']} ms >= {deadline_ms} ms")
+    emit("realtime", check="command", **line,
+         argv="realtime -i <wav> -o <out> --dictionary-file W_64.npy [--realtime-pace "
+              "--blocks 94]", runs=cmd)
+
+    # ---- storm: 300 blocks on the audio thread while a second thread sets
+    # and reads without pause and fires every structural setter at its
+    # block; the audio thread waits for the setter due before a block and
+    # for at least one read after each block, and captures each new engine
+    # while the reads go on
+    w128 = np.concatenate([w_rt, np.random.default_rng(1).random(w_rt.shape, np.float32)
+                           * float(w_rt.mean())], axis=1)
+    app = RealtimeGCCNMF(src, config=GCCNMFConfig(dictionary_sizes=(64, 128)),
+                         dictionaries={"Pretrained": {64: w_rt, 128: w128}})
+    schedule = {30: ("set_dictionary", dict(size=128)), 60: ("set_dictionary", dict(size=64)),
+                90: ("set_num_tdoas", dict(num_tdoas=48)),
+                120: ("set_mic_separation", dict(metres=0.2)),
+                150: ("set_num_h_updates", dict(n=2)), 180: ("set_target_mode", dict(mode="boxcar")),
+                210: ("set_block_geometry", dict(hop_size=256))}
+    fired = {at: threading.Event() for at in schedule}
+    errors, done, reads = [], [0], [0]
+    stop = threading.Event()
+
+    def host_values():
+        h = app.histories
+        w = app.peek_dictionary()
+        return (isinstance(app.config, GCCNMFConfig)
+                and all(isinstance(p, torch.Tensor) and p.device.type == "cpu"
+                        for p in app.params)
+                and all(isinstance(b.get_unraveled(), np.ndarray) for b in h.values())
+                and (w is None or isinstance(w, np.ndarray))
+                and isinstance(app.dictionary_size, int) and isinstance(app.dictionary_type, str))
+
+    def control():
+        try:
+            while not stop.is_set():
+                app.set_target_window(target_tdoa_index=float(done[0] % 48), epsilon=4.0)
+                if not host_values():
+                    raise RuntimeError(f"a GUI read returned a device value at block {done[0]}")
+                reads[0] += 1
+                for at in [at for at in schedule if at <= done[0] and not fired[at].is_set()]:
+                    name, kw = schedule[at]
+                    getattr(app, name)(**kw)
+                    fired[at].set()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    def wait(cond, what):
+        t_end = time.perf_counter() + 30.0
+        while not cond():
+            require(not errors and time.perf_counter() < t_end,
+                    f"realtime storm: waiting for {what}: {errors}")
+            time.sleep(0.0001)
+
+    memory = []
+    thread = threading.Thread(target=control)
+    thread.start()
+    finite = True
+    try:
+        blocks = FilePlayerSource(src, scfg.block_size, loop=True).blocks()
+        for i in range(300):
+            if i in fired:
+                wait(fired[i].is_set, f"the setter due at block {i}")
+            builds, seen = len(app.rebuild_ms), reads[0]
+            out = app.process_block(next(blocks))
+            finite &= out is not None and bool(np.isfinite(out).all())
+            if len(app.rebuild_ms) != builds:
+                memory.append(dict(build=len(app.rebuild_ms), block=i,
+                                   allocated_mib=torch.cuda.memory_allocated(dev) / 2**20,
+                                   reserved_mib=torch.cuda.memory_reserved(dev) / 2**20))
+            done[0] = i + 1
+            wait(lambda: reads[0] > seen, f"a read after block {i}")
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    require(not errors and not thread.is_alive(), f"realtime storm: {errors}")
+    require(finite, "realtime storm: an output was missing or not finite")
+    require(len(app.rebuild_ms) == 8, f"realtime storm: {len(app.rebuild_ms)} builds, not 8")
+    require(host_values(), "realtime storm: a GUI read returned a device value")
+    storm_ms = list(app.rebuild_ms)
+    # twenty rebuilds of one configuration: device memory after the first
+    # and after the last
+    same = []
+    for _ in range(20):
+        app.set_target_mode("boxcar")
+        require(bool(np.isfinite(app.process_block(next(blocks))).all()),
+                "realtime rebuilds: output not finite")
+        same.append(torch.cuda.memory_allocated(dev) / 2**20)
+    require(same[-1] <= same[0] + 1.0,
+            f"realtime rebuilds: memory_allocated grew {same[0]} -> {same[-1]} MiB")
+    c = counts()
+    require(all(v == 0 for v in c.values()), f"the realtime phase launched a kernel: {c}")
+    emit("realtime", check="storm", **line, blocks=300, reads=reads[0],
+         rebuilds=[f"{name}({kw})" for name, kw in schedule.values()],
+         build_and_capture_ms=storm_ms, memory=memory,
+         twenty_rebuilds=dict(change="set_target_mode('boxcar')",
+                              allocated_mib_after_first=same[0], allocated_mib_after_last=same[-1],
+                              build_and_capture_ms=list(app.rebuild_ms)[-20:],
+                              reserved_mib=torch.cuda.memory_reserved(dev) / 2**20),
+         gui_reads="config, params.*, histories, peek_dictionary(), dictionary_size/type "
+                   "are host values", launches=c)
+    del app
+    tmp_dir.cleanup()
 
 
 def main() -> int:
@@ -2111,6 +2428,9 @@ def main() -> int:
 
     # ---- 14. distributed: the process groups in a world of one over NCCL ----
     distributed_phase(torch, args.seed, kind, smi, reset_counts, counts)
+
+    # ---- 15. realtime: the realtime app, its command and the native tier ----
+    realtime_phase(torch, kind, smi, reset_counts, counts, w_rt, mix_rt[0])
 
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,

@@ -1,12 +1,13 @@
 """Command-line entry points of the port (counterparts of ``gccnmf-separate``,
-``gccnmf-enhance``, ``gccnmf-stream``, ``gccnmf-serve`` and
-``gccnmf-pretrain`` in ``gccnmf_tpu/cli.py``):
+``gccnmf-enhance``, ``gccnmf-stream``, ``gccnmf-realtime``, ``gccnmf-serve``
+and ``gccnmf-pretrain`` in ``gccnmf_tpu/cli.py``):
 
     python -m gccnmf_torch.cli mix_a.wav [mix_b.wav ...] [--turbo] [--auto-sources]
     python -m gccnmf_torch.cli long_mix.wav --streamed [--chunk-frames 8192] [--device-init]
     python -m gccnmf_torch.cli long_mix.wav --time-shards 4 [--streamed]
     python -m gccnmf_torch.cli enhance a.wav [b.wav ...] [--mode online|offline] [-o out.wav]
     python -m gccnmf_torch.cli stream -i mix.wav [-o out.wav] [--low-latency] [--realtime]
+    python -m gccnmf_torch.cli realtime -i mix.wav [-o out.wav] [--pipeline-depth 2] [--gui]
     python -m gccnmf_torch.cli serve -i a.wav b.wav ... [--wire-dtype int16]
     python -m gccnmf_torch.cli pretrain corpus/*.wav [--sizes 64 128 256] [--save-dir DIR]
                                         [--data-shards 4]
@@ -20,14 +21,17 @@ device (in memory, or with ``--streamed`` each rank reading its own range
 of the file). ``enhance`` writes ``<input>_enhanced.wav`` per WAV, with the
 online (causal) enhancer or the offline one; ``stream`` enhances one WAV
 block by block (the reference's ``runRealtimeGCCNMF.py --no-gui``);
-``serve`` enhances one stream per WAV in lockstep ticks; ``pretrain`` learns
+``realtime`` runs the realtime app over a WAV (or the live audio device)
+with live parameters and telemetry, headless or with ``--gui`` in its
+window (the reference's ``runRealtimeGCCNMF.py``); ``serve`` enhances one
+stream per WAV in lockstep ticks; ``pretrain`` learns
 dictionaries from a WAV corpus into the corpus-keyed cache and, with
 ``--save-dir``, into ``W_<size>.npy`` files, over a world of N ranks with
 ``--data-shards N``. The worlds start through ``parallel.launch.run_world``
 (under torchrun, the running world). Each command runs on the card unless
 ``--device cpu`` is given and prints one JSON line (rank 0 alone, over a
-world), with the JAX commands' keys. ``enhance``, ``stream`` and ``serve``
-take their dictionary from ``--dictionary-file`` (or the INI's
+world), with the JAX commands' keys. ``enhance``, ``stream``, ``realtime``
+and ``serve`` take their dictionary from ``--dictionary-file`` (or the INI's
 ``dictionaryFile``), else from the pretraining cache.
 """
 
@@ -41,7 +45,8 @@ import sys
 
 import numpy as np
 
-__all__ = ["separate_main", "enhance_main", "stream_main", "serve_main", "pretrain_main", "main"]
+__all__ = ["separate_main", "enhance_main", "stream_main", "realtime_main", "serve_main",
+           "pretrain_main", "main"]
 
 
 
@@ -419,6 +424,108 @@ def stream_main(argv=None):
     return 0
 
 
+def realtime_main(argv=None):
+    """The realtime app (reference runRealtimeGCCNMF.py; its argparse
+    surface at realtime/config.py:122-127): headless by default, the
+    window with ``--gui``."""
+    ap = argparse.ArgumentParser(description="Realtime GCC-NMF app (headless)")
+    ap.add_argument("-i", "--input", default=None, help="input WAV path")
+    ap.add_argument("-c", "--config", default=None, help="INI config file")
+    ap.add_argument("-o", "--output", default=None, help="output WAV path")
+    ap.add_argument("--no-gui", action="store_true",
+                    help="accepted for reference-CLI compatibility; headless "
+                         "is the default")
+    ap.add_argument("--gui", action="store_true",
+                    help="open the interactive tkinter/matplotlib window "
+                         "(requires a display)")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="stop after N blocks (default: whole file)")
+    ap.add_argument("--loop", action="store_true", help="loop the input file")
+    ap.add_argument("--no-loop", action="store_true",
+                    help="with --gui: stop at end of file instead of looping "
+                         "(the GUI loops by default, like the reference's "
+                         "realtime window, audioProcessor.py:109-110)")
+    ap.add_argument("--realtime-pace", action="store_true",
+                    help="pace blocks at the 32 ms deadline")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="blocks of dispatch pipelining: N>0 removes the "
+                         "host<->device round trip from the per-block "
+                         "deadline path at the cost of N blocks of extra "
+                         "latency (output file is identical)")
+    ap.add_argument("--dictionary-file", default=None,
+                    help=".npy (F, K) dictionary artifact (bypasses "
+                         "pretraining; e.g. from pretrain --save-dir)")
+    ap.add_argument("--live", action="store_true",
+                    help="capture input from the live audio device instead "
+                         "of a WAV file (requires a host audio stack, e.g. "
+                         "sounddevice; reference audioProcessor.py input "
+                         "callback)")
+    ap.add_argument("--live-output", action="store_true",
+                    help="play enhanced audio through the live output "
+                         "device when a host audio stack exists (reference "
+                         "audioProcessor.py:106-132); falls back to "
+                         "--output/-o (or discard) otherwise")
+    ap.add_argument("--streamed-output", action="store_true",
+                    help="write -o incrementally (O(block) host RAM for "
+                         "hour-scale runs; per-sample clipping instead of "
+                         "the whole-file clip rescale)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the card (default) or on the CPU")
+    ap.add_argument("-v", "--verbose", action="store_true")
+    args = ap.parse_args(argv)
+    if args.verbose:
+        logging.basicConfig(level=logging.INFO)
+    from gccnmf_torch.config import load_config
+
+    cfg = load_config(args.config, audio_path=args.input,
+                      dictionary_file=args.dictionary_file)
+    if args.gui:
+        from gccnmf_torch.gui import run_gui
+
+        # GUI loops playback by default like the reference realtime window
+        # (audioProcessor.py:109-110 wraps sampleIndex to 0); --no-loop opts
+        # out. The built config carries --dictionary-file through.
+        run_gui(args.input, config=cfg, loop=not args.no_loop, device=args.device)
+        return 0
+    source = None
+    if args.live:
+        from gccnmf_torch.realtime.audio import open_input_stream
+
+        source = open_input_stream(
+            cfg.sample_rate, cfg.num_channels, cfg.block_size
+        )
+        if source is None:
+            ap.error(
+                "--live requires a host audio stack (sounddevice); none is "
+                "available — use -i <wav> for file input"
+            )
+        if args.blocks is None:
+            ap.error("--live requires --blocks (otherwise the run never ends)")
+    elif args.loop and args.blocks is None:
+        ap.error("--loop requires --blocks (otherwise the run never ends)")
+
+    from gccnmf_torch.realtime.app import RealtimeGCCNMF
+
+    app = RealtimeGCCNMF(
+        args.input, config=cfg, pipeline_depth=args.pipeline_depth, device=args.device
+    )
+    try:
+        stats = app.run(
+            output_path=args.output,
+            num_blocks=args.blocks,
+            loop=args.loop,
+            realtime=args.realtime_pace,
+            source=source,
+            live_output=args.live_output,
+            streamed_output=args.streamed_output,
+        )
+    finally:
+        if source is not None:
+            source.close()
+    print(json.dumps(stats))
+    return 0
+
+
 def serve_main(argv=None):
     """Multi-stream serving: one stream per input WAV, lockstep ticks.
     Streams whose files end close early; ticks continue until all drain."""
@@ -639,12 +746,12 @@ def _pretrain_sizes(args, corpus, mesh=None):
 
 
 COMMANDS = {"separate": separate_main, "enhance": enhance_main, "stream": stream_main,
-            "serve": serve_main, "pretrain": pretrain_main}
+            "realtime": realtime_main, "serve": serve_main, "pretrain": pretrain_main}
 
 
 def main(argv=None):
-    """``enhance``, ``stream``, ``serve`` or ``pretrain`` as the first
-    argument picks that command; anything else (a WAV path, or
+    """``enhance``, ``stream``, ``realtime``, ``serve`` or ``pretrain`` as
+    the first argument picks that command; anything else (a WAV path, or
     ``separate``) separates."""
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in COMMANDS:

@@ -36,6 +36,7 @@ reference's fixed 2-block emission (utils.py:116) is
 from __future__ import annotations
 
 import math
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -61,6 +62,19 @@ ROWS = 64
 # graph warm-up steps on the capture stream: cuFFT plans and cuBLAS
 # workspaces must exist before capture
 WARMUP_STEPS = 3
+
+# one side stream per device for every warm-up and capture, one capture at a
+# time: cuBLAS keeps a workspace per stream (32 MiB on an H100), so a fresh
+# stream for each capture held one more workspace for every rebuild
+_CAPTURE_STREAMS: dict = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
 
 
 def parse_target_mode(value) -> int:
@@ -495,7 +509,16 @@ class CapturedStep:
     the outputs ``out`` and ``telemetry``, which every replay overwrites.
     ``wire_in`` / ``wire_out`` convert the input and the output inside the
     graph (the server's int16 wire). A failed capture or replay raises: there
-    is no eager fallback on the card."""
+    is no eager fallback on the card.
+
+    The capture runs in ``thread_local`` mode: a CUDA call that another
+    thread makes meanwhile (a realtime app's GUI thread, a server's fetch
+    thread) neither joins nor invalidates it. Every capture on a device
+    warms up and captures on one side stream, one capture at a time, so
+    rebuilding a processor reuses that stream's cuBLAS workspace instead of
+    allocating another. Once captured, the step keeps no reference to its
+    processor, so dropping the processor frees its graphs at once instead
+    of at the next cyclic garbage collection."""
 
     def __init__(self, proc: RTGCCNMFProcessor, batch: int, block_dtype=torch.float32,
                  wire_in=None, wire_out=None):
@@ -511,15 +534,17 @@ class CapturedStep:
             StreamParams.default(device=dev), shapes)))
         self._params_src = None
         set_fp32_precision()
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            for _ in range(WARMUP_STEPS):
-                self._run()
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.out, self.telemetry = self._run()
+        with _CAPTURE_LOCK:
+            stream = _capture_stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                for _ in range(WARMUP_STEPS):
+                    self._run()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=stream, capture_error_mode="thread_local"):
+                self.out, self.telemetry = self._run()
+        self._proc = None
         self.reset()  # the warm-up advanced the state
 
     def _run(self):
@@ -539,20 +564,23 @@ class CapturedStep:
         reset_slot(self.state, self._fresh, slot)
 
     def set_params(self, params: StreamParams) -> None:
-        """Copy ``params`` (scalars, or batched as the fields say) into the
-        graph's parameter tensors."""
+        """Copy ``params`` (scalars, or batched as the fields say; on the
+        card or the host) into the graph's parameter tensors, without
+        waiting for the card."""
         for dst, src in zip(self.params, params):
             src = torch.as_tensor(src)
-            dst.copy_(src.reshape(dst.shape) if src.dim() else src)
+            dst.copy_(src.reshape(dst.shape) if src.dim() else src, non_blocking=True)
 
     def load(self, state: StreamState, block, params: StreamParams) -> None:
         """Write a step's inputs into the graph: ``block`` always, ``state``
         unless it is the graph's own, ``params`` when it is another object
-        than the last one loaded."""
+        than the last one loaded. Host inputs are copied without waiting
+        for the card (a pinned ``block`` must not be rewritten before the
+        step's work is done)."""
         if state is not self.state:
             for dst, src in zip(self.state, state):
                 dst.copy_(src)
-        self.block.copy_(torch.as_tensor(block))
+        self.block.copy_(torch.as_tensor(block), non_blocking=True)
         if params is not self._params_src:
             self.set_params(params)
             self._params_src = params

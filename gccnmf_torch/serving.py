@@ -39,7 +39,7 @@ import torch
 from gccnmf_torch.models.realtime import (
     CapturedStep, RTGCCNMFProcessor, StreamConfig, StreamParams, StreamState, reset_slot,
 )
-from gccnmf_torch.utils.blocktimes import BlockTimes
+from gccnmf_torch.native import BlockTimes
 from gccnmf_torch.utils.hostmem import HostMemWatchdog, PeriodicTrim
 
 __all__ = ["StreamSettings", "StreamServer"]
@@ -217,7 +217,8 @@ class StreamServer:
         self._fetcher = _FetchWorker() if (async_fetch and pipeline_depth > 0) else None
         # per-tick deadline accounting on the serving clock: every tick must
         # complete within one block interval or every tenant glitches at
-        # once; percentiles over a bounded window, cumulative counters
+        # once; percentiles over a bounded window of the native tier's
+        # block-time ring, cumulative counters
         self.deadline_s = config.block_size / config.sample_rate
         self._tick_times = BlockTimes(capacity=1024)
         self._delivery_times = BlockTimes(capacity=1024)  # async_fetch only

@@ -654,6 +654,122 @@ def test_default_stream_objects_live_on_the_card(cuda):
     assert all(t.device.type == "cuda" for t in tensors)
 
 
+# ---- the realtime app on the captured step ------------------------------
+
+
+def _app_files(tmp_path, blocks=40, k=16, seed=6):
+    """A seeded stereo WAV of ``blocks`` default blocks and a (513, k)
+    dictionary file."""
+    cfg = StreamConfig()
+    w, mix = _stream_problem(cfg, 1, blocks, k=k, seed=seed)
+    path, dic = str(tmp_path / "mix.wav"), str(tmp_path / f"W_{k}.npy")
+    wav.write_wav(mix[0], path, cfg.sample_rate)
+    np.save(dic, w)
+    return path, dic
+
+
+def _rt_app(path, dic, depth=0, device=None):
+    from gccnmf_torch.realtime import RealtimeGCCNMF
+
+    return RealtimeGCCNMF(path, config=GCCNMFConfig(dictionary_file=dic),
+                          pipeline_depth=depth, device=device)
+
+
+def test_app_pipelined_file_identical_on_card(cuda, tmp_path):
+    """Each queued output has its own pinned buffer: depth 2 writes the
+    depth-0 file byte for byte, and the card's file meets the streaming
+    oracle's bars against the CPU app's."""
+    path, dic = _app_files(tmp_path)
+    files = {}
+    for name, depth, dev in (("d0", 0, None), ("d2", 2, None), ("cpu", 0, "cpu")):
+        out = str(tmp_path / f"{name}.wav")
+        stats = _rt_app(path, dic, depth, dev).run(output_path=out)
+        assert stats["blocks"] == 40
+        files[name] = out
+    raw = [open(files[k], "rb").read() for k in ("d0", "d2")]
+    assert raw[0] == raw[1]
+    got, want = wav.read_wav(files["d0"])[0], wav.read_wav(files["cpu"])[0]
+    err = got - want
+    assert 10 * np.log10((want ** 2).sum() / (err ** 2).sum()) > 25.0
+    assert (np.abs(err) < 3e-4 * np.abs(want).max()).mean() > 0.93
+
+
+def test_app_histories_equal_the_eager_telemetry_on_card(cuda, tmp_path):
+    """Each block's telemetry is copied out of the graph's own tensors
+    before the next replay overwrites them: after a run the histories equal
+    the eager step's telemetry block by block (1e-6 x max, targets
+    exactly)."""
+    from gccnmf_torch.realtime import FilePlayerSource
+
+    path, dic = _app_files(tmp_path)
+    app = _rt_app(path, dic)
+    app.run()
+    proc = RTGCCNMFProcessor(np.load(dic), StreamConfig.from_app_config(app.config),
+                             device=cuda)
+    params = StreamParams(*(p.to(cuda) for p in app.params))
+    state, tels = proc.init_state(1), []
+    for block in FilePlayerSource(path, 512).blocks():
+        state, _, tel = proc.eager_step(state, torch.as_tensor(block[None], device=cuda), params)
+        tels.append({k: v.cpu().numpy() for k, v in tel.items()})
+    h = app.histories
+    for key, tkey in (("gcc_phat", "gcc_phat"), ("input_spectrogram", "input_mag"),
+                      ("output_spectrogram", "output_mag"),
+                      ("coefficient_mask", "coefficient_mask")):
+        want = np.concatenate([t[tkey][0] for t in tels])
+        got = h[key].get()
+        assert got.shape == want.shape, key
+        np.testing.assert_allclose(got, want, atol=1e-6 * max(np.abs(want).max(), 1e-9),
+                                   err_msg=key)
+    np.testing.assert_array_equal(h["tdoa"].get(),
+                                  np.concatenate([t["target_tdoa_index"] for t in tels]))
+    assert all(p.device.type == "cpu" for p in app.params)
+
+
+def test_app_setters_and_reads_during_rebuild_captures(cuda, tmp_path):
+    """A second thread calls every setter and reads ``histories``,
+    ``params`` and ``peek_dictionary`` while the audio thread captures the
+    new engines' graphs: no exception, finite outputs, host values only,
+    and device memory flat across rebuilds."""
+    import threading
+
+    path, dic = _app_files(tmp_path, k=16)
+    app = _rt_app(path, dic)
+    block = np.zeros((2, 512), np.float32) + 0.01
+    app.process_block(block)
+    errors, stop = [], threading.Event()
+
+    def control():
+        try:
+            while not stop.is_set():
+                app.set_target_window(target_tdoa_index=20.0)
+                h = app.histories
+                assert isinstance(h["gcc_phat"].get(), np.ndarray)
+                w = app.peek_dictionary()
+                assert w is None or isinstance(w, np.ndarray)
+                assert all(p.device.type == "cpu" for p in app.params)
+        except Exception as e:  # pragma: no cover - the regression
+            errors.append(e)
+
+    t = threading.Thread(target=control)
+    t.start()
+    try:
+        memory = []
+        for i in range(12):
+            app.set_mic_separation(0.1 + 0.01 * i)
+            if i in (3, 6):  # H updates on, then off again
+                app.set_num_h_updates(2 if i == 3 else 0)
+            for _ in range(3):
+                out = app.process_block(block)
+                assert out.shape == (2, 512) and np.isfinite(out).all()
+            memory.append(torch.cuda.memory_allocated(cuda))
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not errors, errors
+    assert len(app.rebuild_ms) == 13
+    assert memory[-1] <= memory[1], memory
+
+
 WRAPPERS = (stft_gcc_frontend_cuda, kl_nmf_cuda, masked_synthesis_cuda, soft_mask_cuda,
             tf_synthesis_cuda)
 

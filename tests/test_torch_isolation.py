@@ -47,6 +47,22 @@ def test_import_pulls_in_no_jax():
     assert res.returncode == 0, res.stderr + res.stdout
 
 
+def test_app_modules_import_no_gui_or_audio_stack():
+    """The realtime app, the native tier, the GUI and profiling import on a
+    machine without tkinter, matplotlib or sounddevice: each is imported
+    only where a window, a figure or a device stream is built."""
+    code = (
+        "import sys\n"
+        "import gccnmf_torch.gui, gccnmf_torch.gui_model, gccnmf_torch.realtime\n"
+        "import gccnmf_torch.native, gccnmf_torch.profiling, gccnmf_torch.cli\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('tkinter', '_tkinter', 'matplotlib', 'sounddevice')]\n"
+        "assert not bad, bad\n"
+    )
+    res = _run(code)
+    assert res.returncode == 0, res.stderr + res.stdout
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_import_in_source(path):
     tree = ast.parse(path.read_text(), filename=str(path))
