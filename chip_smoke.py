@@ -204,6 +204,34 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     each rebuild and ``memory_allocated`` after each, then twenty rebuilds
     of one configuration (``memory_allocated`` after the last within 1 MiB
     of after the first). No kernel launches in the phase.
+16. ``serve_mesh``: the serve phase's configuration (64 slots, 64 streams,
+    300 ticks, ``pipeline_depth=2``, async fetch) through
+    ``StreamServer(mesh=local_mesh(1))`` and ``mesh=local_mesh(2,
+    devices=["cuda:0", "cuda:0"])`` (two shards on this card, each its
+    own graph, replayed in turn on the card's stream) beside the unsharded server, in turns
+    (unsharded, mesh 1, mesh 2, mesh 2, mesh 1, unsharded) on the float32
+    wire, then both meshes on the int16 wire: every stream within 1e-5 of
+    the first unsharded run, the int16 wire within one PCM step of its
+    clipped float32 output, the same telemetry targets, no kernel launched,
+    and ``local_mesh(2)`` with the default devices raising "exceeds" on a
+    one-card machine; ``tick_stats()`` of each run.
+17. ``conv_stft``: ``stft`` and ``istft`` with ``method="conv"`` (cuDNN,
+    TF32 off) against ``method="fft"`` on the first mixture, within 2e-4 x
+    max and 5e-5 x max (the JAX suite's bars), CUDA-event times of each;
+    then ``GCCNMFSeparator`` in float32 on the plain backends (on the card
+    the front-end and synthesis kernels take the STFT's place) with
+    ``stft_method="conv"`` against ``"fft"``: equal targets, > 25 dB per
+    target, the seconds of each in turns; no kernel launched.
+18. ``metrics``: ``bss_eval_sources``, ``si_sdr``, ``stoi`` and ``pesq`` of
+    the ``separate`` phase's three estimates of the first mixture against
+    its seeded sources' images at the two mics from sample ``WIN // 2`` on,
+    where the ISTFT's center trim starts them (the estimates matched to
+    the sources by ``bss_eval_sources``' permutation): the scores and the
+    seconds each takes on the host; every score finite, PESQ (the
+    P.862.2 MOS-LQO of a raw score in [-0.5, 4.5]) in [0.999, 4.65].
+19. ``stamp``: ``run_stamp(config_fingerprint(OfflineConfig()))`` here
+    (``torch.cuda.is_initialized()`` unchanged by the call) and in a fresh
+    process (no CUDA context created), the same keys and fingerprint.
 
 Then the kernels line, the ``nvidia-smi`` line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -299,12 +327,18 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def make_sources(seed: int, batch: int, seconds: int = SECONDS) -> np.ndarray:
+    """(batch, SOURCES, n) float32: the white-noise sources at 0.1 RMS of
+    :func:`make_mixture` with the same arguments."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, SOURCES, SR * seconds), dtype=np.float32) * 0.1
+
+
 def make_mixture(seed: int, batch: int, seconds: int = SECONDS) -> np.ndarray:
     """(batch, 2, n) float32: three white-noise sources at 0.1 RMS, delayed
     by DELAYS samples between the mics (as bench.py's synthetic fallback
     does with two)."""
-    rng = np.random.default_rng(seed)
-    src = rng.standard_normal((batch, SOURCES, SR * seconds), dtype=np.float32) * 0.1
+    src = make_sources(seed, batch, seconds)
     right = sum(np.roll(src[:, i], d, axis=-1) for i, d in enumerate(DELAYS))
     return np.stack([src.sum(axis=1), right], axis=1).astype(np.float32)
 
@@ -1139,6 +1173,206 @@ def realtime_phase(torch, kind: str, smi: str, reset_counts, counts, w_rt, audio
                    "are host values", launches=c)
     del app
     tmp_dir.cleanup()
+
+
+def serve_mesh_phase(torch, kind: str, smi: str, reset_counts, counts, w_rt, scfg, blocks_rt):
+    """Phase 16: ``StreamServer(mesh=LocalMesh)`` at the serve phase's
+    configuration against the unsharded server (module docstring)."""
+    from gccnmf_torch.parallel.mesh import local_mesh
+    from gccnmf_torch.serving import StreamServer, StreamSettings
+
+    meshes = {"unsharded": None, "mesh1": local_mesh(1),
+              "mesh2": local_mesh(2, devices=["cuda:0", "cuda:0"])}
+
+    def run(name, wire):
+        """SERVE_TICKS ticks of every slot's stream on server ``name``:
+        per stream its blocks and its last telemetry target, and the run's
+        tick stats."""
+        server = StreamServer(w_rt, scfg, max_streams=SERVE_SLOTS, pipeline_depth=2,
+                              async_fetch=True, wire_dtype=wire, mesh=meshes[name])
+        sids = [server.open_stream(StreamSettings(target_tdoa_index=scfg.num_tdoas / 2.0))
+                for _ in range(SERVE_SLOTS)]
+        got = {sid: [] for sid in sids}
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(SERVE_TICKS):
+            out = server.process({sid: blocks_rt[t, i] for i, sid in enumerate(sids)})
+            for sid, blk in out.items():
+                got[sid].append(blk)
+        for tail in server.flush():
+            for sid, blk in tail.items():
+                got[sid].append(blk)
+        wall = time.perf_counter() - t1
+        tel = server.telemetry
+        server.close()
+        c = counts()
+        require(all(v == 0 for v in c.values()), f"serve_mesh {name}: a kernel launched: {c}")
+        outs = np.stack([np.concatenate(got[sid], axis=-1) for sid in sids])
+        require(outs.shape == (SERVE_SLOTS, 2, SERVE_TICKS * scfg.block_size)
+                and np.isfinite(outs).all(), f"serve_mesh {name}: output shape or values")
+        stats = server.tick_stats()
+        audio_s = SERVE_SLOTS * SERVE_TICKS * scfg.block_size / scfg.sample_rate
+        row = dict(server=name, wire=wire, shards=len(server._shards), wall_s=wall,
+                   realtime_factor=audio_s / wall, tick_p50_ms=stats["tick_ms"]["p50"],
+                   tick_p99_ms=stats["tick_ms"]["p99"], deadline_misses=stats["deadline_misses"],
+                   delivery_ms=stats["delivery_ms"])
+        return outs, [tel[sid]["target_tdoa_index"] for sid in sids], row
+
+    order = ["unsharded", "mesh1", "mesh2", "mesh2", "mesh1", "unsharded"]
+    rows, ref, ref_targets, err = [], None, None, 0.0
+    for name in order:
+        outs, targets, row = run(name, "float32")
+        rows.append(row)
+        if ref is None:
+            ref, ref_targets = outs, targets
+            continue
+        require(targets == ref_targets, f"serve_mesh {name}: telemetry targets differ")
+        row["max_abs_err"] = float(np.abs(outs - ref).max())
+        err = max(err, row["max_abs_err"])
+    require(err <= 1e-5, f"serve_mesh: a stream against the unsharded server {err} > 1e-5")
+    # the int16 wire quantizes as the WAV writer does: clip, then truncate
+    clipped, wire_err = np.clip(ref, -1.0, 1.0 - 2.0**-15), 0.0
+    for name in ("mesh1", "mesh2"):
+        outs, targets, row = run(name, "int16")
+        rows.append(row)
+        require(targets == ref_targets, f"serve_mesh {name} int16: telemetry targets differ")
+        row["max_abs_err"] = float(np.abs(outs - clipped).max())
+        wire_err = max(wire_err, row["max_abs_err"])
+    require(wire_err <= 2.0**-15 + 1e-7, f"serve_mesh: int16 wire against float32 {wire_err}")
+    default_two = "not checked: more than one card"
+    if torch.cuda.device_count() == 1:
+        try:
+            local_mesh(2)
+        except ValueError as e:
+            require("exceeds" in str(e), f"local_mesh(2): {e}")
+            default_two = f"raises ValueError: {e}"
+        else:
+            require(False, "local_mesh(2) did not raise on a one-card machine")
+    emit("serve_mesh", device=kind, nvidia_smi=smi,
+         config=f"GCCNMFConfig(), {SERVE_SLOTS} slots, {SERVE_SLOTS} streams, {SERVE_TICKS} "
+                "ticks, pipeline_depth=2, async_fetch=True",
+         meshes={"mesh1": "local_mesh(1)", "mesh2": "local_mesh(2, ['cuda:0', 'cuda:0'])"},
+         order=order + ["mesh1 int16", "mesh2 int16"], runs=rows,
+         stream_vs_unsharded=dict(max_abs_err=err, bar="1e-5"),
+         int16_vs_float32=dict(max_abs_err=wire_err,
+                               bar="2^-15 + 1e-7 against the clipped float32 output"),
+         targets="equal", default_local_mesh_2=default_two)
+
+
+def conv_stft_phase(torch, kind: str, smi: str, reset_counts, counts, mix0):
+    """Phase 17: the conv STFT (cuDNN) against ``fft`` on the card, alone
+    and through the plain float32 separator (module docstring)."""
+    from gccnmf_torch.models.offline import GCCNMFSeparator, OfflineConfig
+    from gccnmf_torch.ops import stft as stft_ops
+    from gccnmf_torch.ops.windows import hann_symmetric
+
+    y = torch.as_tensor(mix0, device="cuda")
+    win = hann_symmetric(WIN)
+    methods = ("fft", "conv")
+    reset_counts()
+    spec = {m: stft_ops.stft(y, win, HOP, conjugate=True, method=m) for m in methods}
+    require(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    scale = float(spec["fft"].abs().max())
+    stft_err = float((spec["conv"] - spec["fft"]).abs().max())
+    require(stft_err <= 2e-4 * scale, f"conv stft against fft {stft_err} > 2e-4 x {scale}")
+    inv = {m: stft_ops.istft(spec["fft"], win, HOP, conjugate=True, center_trim=True, method=m)
+           for m in methods}
+    inv_scale = float(inv["fft"].abs().max())
+    istft_err = float((inv["conv"] - inv["fft"]).abs().max())
+    require(istft_err <= 5e-5 * inv_scale,
+            f"conv istft against fft {istft_err} > 5e-5 x {inv_scale}")
+    ms = {f"stft_{m}": time_ms(torch, lambda m=m: stft_ops.stft(
+        y, win, HOP, conjugate=True, method=m)) for m in methods}
+    ms.update({f"istft_{m}": time_ms(torch, lambda m=m: stft_ops.istft(
+        spec["fft"], win, HOP, conjugate=True, center_trim=True, method=m)) for m in methods})
+    # on the card the front-end and synthesis kernels take the STFT's
+    # place, as the Pallas kernels do in JAX: the plain backends keep it
+    seps = {m: GCCNMFSeparator(OfflineConfig(
+        nmf_matmul_dtype="float32", stft_method=m, nmf_backend="torch",
+        frontend_backend="torch", synthesis_backend="torch")) for m in methods}
+    res, secs = {}, {m: [] for m in methods}
+    for m in methods:
+        seps[m].separate(mix0)  # warm-up
+    for m in ("fft", "conv", "conv", "fft"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res[m] = seps[m].separate(mix0)
+        secs[m].append(time.perf_counter() - t1)
+    c = counts()
+    require(all(v == 0 for v in c.values()), f"conv_stft: a kernel launched: {c}")
+    got, want = res["conv"], res["fft"]
+    require(got["target_tdoa_indexes"] == want["target_tdoa_indexes"],
+            f"conv targets {got['target_tdoa_indexes']} != fft {want['target_tdoa_indexes']}")
+    snrs = [snr_db(r, e) for r, e in zip(want["estimates"], got["estimates"])]
+    require(min(snrs) > 25.0, f"conv separation against fft: SNR {snrs}")
+    emit("conv_stft", device=kind, nvidia_smi=smi,
+         signal=f"the first mixture, (2, {mix0.shape[-1]}), window {WIN}, hop {HOP}",
+         stft_vs_fft=dict(max_abs_err=stft_err, bar=f"2e-4 x {scale}"),
+         istft_vs_fft=dict(max_abs_err=istft_err, bar=f"5e-5 x {inv_scale}"),
+         ms=ms, cudnn_tf32=False,
+         separate=dict(config="OfflineConfig(nmf_matmul_dtype='float32', stft_method=m), "
+                              "plain backends", targets=got["target_tdoa_indexes"],
+                       snr_db_vs_fft=snrs, seconds=secs, order="fft, conv, conv, fft"),
+         launches=c)
+
+
+def metrics_phase(kind: str, smi: str, seed: int, separated: dict):
+    """Phase 18: the port's scores of the separate phase's three outputs of
+    the first mixture against its seeded sources (module docstring)."""
+    from gccnmf_torch import metrics
+
+    est = separated["estimates"]  # (3, 2, n_out)
+    n_out = est.shape[-1]
+    src = make_sources(seed, MAIN_BATCH)[0]
+    # the ISTFT's center trim drops the first WIN // 2 samples of the input
+    refs = np.stack([np.stack([s, np.roll(s, d)]) for s, d in zip(src, DELAYS)])
+    refs = refs[..., WIN // 2:WIN // 2 + n_out]
+    seconds, t1 = {}, time.perf_counter()
+    sdr, sir, sar, perm = metrics.bss_eval_sources(refs, est)
+    seconds["bss_eval_sources"] = time.perf_counter() - t1
+    scores = {"bss_sdr_db": sdr.tolist(), "bss_sir_db": sir.tolist(), "bss_sar_db": sar.tolist()}
+    for name, fn in (("si_sdr", lambda r, e: metrics.si_sdr(r, e)),
+                     ("stoi", lambda r, e: metrics.stoi(r, e, SR)),
+                     ("pesq", lambda r, e: metrics.pesq(r, e, SR))):
+        t1 = time.perf_counter()
+        scores[name] = [float(fn(refs[perm[j]], est[j])) for j in range(len(est))]
+        seconds[name] = time.perf_counter() - t1
+    require(all(np.isfinite(v).all() for v in scores.values()), f"a score is not finite: {scores}")
+    # the P.862.2 mapping of a raw score in [-0.5, 4.5] lies in [0.999, 4.644]
+    require(all(0.999 <= p <= 4.65 for p in scores["pesq"]), f"pesq out of range: {scores['pesq']}")
+    emit("metrics", device=kind, nvidia_smi=smi,
+         signals=f"separate's {len(est)} estimates (2, {n_out}) of the first mixture against "
+                 f"its seeded sources' images at the two mics from sample {WIN // 2}",
+         perm=[int(p) for p in perm], scores=scores, seconds=seconds)
+
+
+def stamp_phase(torch, kind: str, smi: str):
+    """Phase 19: ``run_stamp`` in this process and in a fresh one, neither
+    call creating a CUDA context (module docstring)."""
+    from gccnmf_torch.models.offline import OfflineConfig
+    from gccnmf_torch.utils.stamp import config_fingerprint, run_stamp
+
+    before = torch.cuda.is_initialized()
+    here = run_stamp(config_fingerprint(OfflineConfig()))
+    require(torch.cuda.is_initialized() == before, "run_stamp changed the CUDA state")
+    code = ("import json, torch\n"
+            "from gccnmf_torch.models.offline import OfflineConfig\n"
+            "from gccnmf_torch.utils.stamp import config_fingerprint, run_stamp\n"
+            "s = run_stamp(config_fingerprint(OfflineConfig()))\n"
+            "print(json.dumps(dict(stamp=s, cuda_initialized=torch.cuda.is_initialized())))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    require(res.returncode == 0, f"stamp subprocess: {res.stderr[-2000:]}")
+    fresh = json.loads(res.stdout.strip().splitlines()[-1])
+    require(not fresh["cuda_initialized"], "run_stamp created a CUDA context")
+    keys = {"git_sha", "utc", "torch_version", "torch_cuda", "config_fingerprint"}
+    require(set(here) == keys == set(fresh["stamp"]), f"stamp keys {sorted(here)}")
+    require(here["config_fingerprint"] == fresh["stamp"]["config_fingerprint"],
+            "config_fingerprint differs between processes")
+    emit("stamp", device=kind, nvidia_smi=smi, stamp=here,
+         cuda_initialized=dict(before=before, after=torch.cuda.is_initialized(),
+                               fresh_process=fresh["cuda_initialized"]))
 
 
 def main() -> int:
@@ -2431,6 +2665,18 @@ def main() -> int:
 
     # ---- 15. realtime: the realtime app, its command and the native tier ----
     realtime_phase(torch, kind, smi, reset_counts, counts, w_rt, mix_rt[0])
+
+    # ---- 16. serve_mesh: StreamServer(mesh=local_mesh(...)) ----------------
+    serve_mesh_phase(torch, kind, smi, reset_counts, counts, w_rt, scfg, blocks_rt)
+
+    # ---- 17. conv_stft: the conv STFT against fft --------------------------
+    conv_stft_phase(torch, kind, smi, reset_counts, counts, mix[0])
+
+    # ---- 18. metrics: the scores of separate's outputs ---------------------
+    metrics_phase(kind, smi, args.seed, single)
+
+    # ---- 19. stamp: the run stamp without a CUDA context --------------------
+    stamp_phase(torch, kind, smi)
 
     # launches of each kernel on the main path that runs it at its mode and
     # batch: separate_batch / enhance of the batch for the B = 16 rows,

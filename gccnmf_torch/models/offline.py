@@ -93,7 +93,7 @@ class OfflineConfig:
     sparsity_alpha: float = 0.0
     num_sources: int | None = 3
     sample_rate: int = 16000
-    stft_method: str = "auto"  # "auto" | "fft" | "matmul"
+    stft_method: str = "auto"  # "auto" | "fft" | "matmul" | "conv"
     nmf_backend: str = "auto"  # "auto" | "torch" | "cuda"
     nmf_matmul_dtype: str = "bfloat16_q"
     synthesis_backend: str = "auto"  # "auto" | "torch" | "cuda"
@@ -106,8 +106,6 @@ class OfflineConfig:
 
     def resolved_stft_method(self) -> str:
         """'auto' → torch.fft on either device (the plain path's STFT)."""
-        if self.stft_method == "conv":
-            raise NotImplementedError("stft_method='conv' is not ported")
         return "fft" if self.stft_method == "auto" else self.stft_method
 
     def resolved_nmf_backend(self, device: torch.device) -> str:

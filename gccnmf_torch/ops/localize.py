@@ -21,6 +21,7 @@ __all__ = [
     "peak_count",
     "auto_count_targets",
     "estimate_target_tdoa_indexes",
+    "sliding_argmax_tdoa",
 ]
 
 
@@ -150,3 +151,12 @@ def estimate_target_tdoa_indexes(
         labels, centers = _two_means_1d(a[peak_idx].astype(np.float64))
         chosen = peak_idx[labels == int(np.argmax(centers))]
     return sorted(int(i) for i in chosen)
+
+
+def sliding_argmax_tdoa(gcc_phat_history: torch.Tensor, window: int) -> torch.Tensor:
+    """Streaming localization: the argmax over the mean of the last
+    ``window`` frames of a GCC-PHAT history ``(..., T_hist, D)``
+    (reference: gccNMF/realtime/gccNMFProcessor.py:220-226). The first
+    maximum wins, as in ``jnp.argmax``."""
+    recent = gcc_phat_history[..., -window:, :]
+    return torch.argmax(recent.mean(dim=-2), dim=-1)

@@ -25,7 +25,7 @@ import torch
 from gccnmf_torch.precision import round_bf16
 
 __all__ = [
-    "nmf_init_numpy", "kl_nmf", "kl_nmf_simul", "h_infer", "kl_divergence", "safe_div",
+    "nmf_init_numpy", "kl_nmf", "kl_nmf_minibatch_w", "kl_nmf_simul", "h_infer", "kl_divergence", "safe_div",
     "order_atoms_by_centroid", "MATMUL_DTYPES",
 ]
 
@@ -93,6 +93,32 @@ def kl_nmf(
     simul = matmul_dtype == "bfloat16_q_simul"
     return _updates(v, w0, h0, num_iterations, sparsity_alpha, epsilon,
                     safe_div if guard or simul else torch.div, matmul_dtype, simul)
+
+
+def kl_nmf_minibatch_w(
+    v: torch.Tensor,
+    w0: torch.Tensor,
+    h0: torch.Tensor,
+    num_iterations: int,
+    sparsity_alpha: float = 0.0,
+    epsilon: float = 1e-16,
+):
+    """Batched KL-NMF with one shared dictionary: ``v`` (..., T, F) and
+    ``h0`` (..., T, K) carry leading batch dims, ``w0`` is (F, K), and the W
+    statistics are summed over the batch and over time (the in-graph
+    counterpart of the sharded NMF's all-reduce). Unguarded fp32 divides, as
+    JAX's; returns ``(W (F, K), H)``."""
+    v = v.to(torch.float32)
+    w, h = w0.to(torch.float32), h0.to(torch.float32)
+    lead = tuple(range(h.dim() - 1))  # every axis of H but the atoms'
+    for _ in range(num_iterations):
+        h = h * ((v / (h @ w.T)) @ w) / (w.sum(dim=0) + sparsity_alpha + epsilon)
+        q = v / (h @ w.T)
+        num = torch.einsum("...tf,...tk->fk", q, h)
+        w = w * num / h.sum(dim=lead)
+        norms = torch.sqrt((w * w).sum(dim=0))
+        w, h = w / norms, h * norms
+    return w, h
 
 
 def kl_nmf_simul(

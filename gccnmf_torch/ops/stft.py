@@ -13,9 +13,14 @@ Reference semantics replicated behind flags:
 - ``center_trim=True`` on the ISTFT trims ``fft_size//2`` samples from
   both ends (librosaSTFT.py:283-284).
 
-Two compute paths: ``method="fft"`` (``torch.fft``) and ``method="matmul"``
-(the real DFT as two fp32 GEMMs against cos/sin matrices). The fused
-analysis front-end kernel lives in ``ops/frontend_cuda.py``.
+Three compute paths: ``method="fft"`` (``torch.fft``), ``method="matmul"``
+(the real DFT as two fp32 GEMMs against cos/sin matrices) and
+``method="conv"``: framing, windowing and the real DFT as one strided
+``conv1d`` whose filters are the windowed DFT rows, so no frame tensor is
+built; its inverse is the matching ``conv_transpose1d``, whose
+scatter-accumulate is the overlap-add. cuDNN runs it in exact fp32 (TF32
+off, ``precision.py``). The fused analysis front-end kernel lives in
+``ops/frontend_cuda.py``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from gccnmf_torch.precision import set_fp32_precision
 
 __all__ = [
     "num_frames",
@@ -88,6 +95,36 @@ def _as_window(window, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(window, np.float32), device=device)
 
 
+def _stft_conv(y: torch.Tensor, window: torch.Tensor, hop_size: int, fft_size: int):
+    """Frame, window and rDFT as one strided ``conv1d``: output channel
+    ``f < F`` is ``Σ_tap y[t·hop + tap]·window[tap]·cos(2π f tap/N)``,
+    channels ``F..2F`` the sin part. Returns (real, imag) of the
+    unconjugated rfft, shapes ``(..., T, F)``."""
+    cos_m, sin_m = (torch.as_tensor(m, device=y.device) for m in dft_matrices(fft_size))
+    filt = torch.cat([cos_m, sin_m], dim=1) * window[:, None]  # (fft, 2F)
+    *batch, n = y.shape
+    set_fp32_precision()
+    out = torch.nn.functional.conv1d(y.reshape(-1, 1, n).to(torch.float32),
+                                     filt.T[:, None, :], stride=hop_size)  # (N, 2F, T)
+    out = out.transpose(-1, -2).reshape(*batch, out.shape[-1], filt.shape[1])
+    num_freq = fft_size // 2 + 1
+    return out[..., :num_freq], -out[..., num_freq:]
+
+
+def _istft_conv(spec: torch.Tensor, window: torch.Tensor, hop_size: int, fft_size: int):
+    """Inverse rDFT, synthesis window and overlap-add as one strided
+    ``conv_transpose1d`` over the ``[Re X | Im X]`` channels: frame ``t``'s
+    windowed inverse lands at ``t·hop`` and the overlaps sum."""
+    a, b = (torch.as_tensor(m, device=spec.device) for m in idft_matrices(fft_size))
+    filt = torch.cat([a, b], dim=0) * window[None, :]  # (2F, fft)
+    *batch, t, f = spec.shape
+    lhs = torch.cat([spec.real, spec.imag], dim=-1).reshape(-1, t, 2 * f)
+    set_fp32_precision()
+    y = torch.nn.functional.conv_transpose1d(lhs.transpose(-1, -2), filt[:, None, :],
+                                             stride=hop_size)  # (N, 1, n)
+    return y.reshape(*batch, y.shape[-1])
+
+
 def pad_center_window(window: torch.Tensor, fft_size: int) -> torch.Tensor:
     """Center-pad a window shorter than the frame with zeros — librosa's
     ``pad_center`` semantics (left pad ``(size - n) // 2``)."""
@@ -115,6 +152,9 @@ def stft(
     if fft_size is None:
         fft_size = window.shape[-1]
     window = pad_center_window(window, fft_size)
+    if method == "conv":
+        spec = torch.complex(*_stft_conv(y, window, hop_size, fft_size))
+        return spec.conj().resolve_conj() if conjugate else spec
     frames = frame_signal(y.to(torch.float32), fft_size, hop_size) * window
     if method == "fft":
         spec = torch.fft.rfft(frames, n=fft_size, dim=-1).to(torch.complex64)
@@ -174,7 +214,10 @@ def istft(
     window = pad_center_window(_as_window(window, spec.device), fft_size)
     if conjugate:
         spec = spec.conj().resolve_conj()
-    y = overlap_add(inverse_frames(spec, fft_size, method) * window, hop_size)
+    if method == "conv":
+        y = _istft_conv(spec, window, hop_size, fft_size)
+    else:
+        y = overlap_add(inverse_frames(spec, fft_size, method) * window, hop_size)
     if center_trim:
         half = fft_size // 2
         y = y[..., half:-half]

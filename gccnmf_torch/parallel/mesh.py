@@ -11,12 +11,18 @@ process groups the collectives of ``nmf_sharded`` and ``long_audio`` run
 over. The backend follows the device and nothing else: NCCL for CUDA
 ranks, gloo for CPU ranks. A CUDA rank that cannot start NCCL raises; no
 rank drops to gloo or to the CPU.
+
+:class:`LocalMesh` is the other shape JAX's mesh takes: one process over
+its host's local devices, the counterpart of ``make_mesh(data=N, model=1,
+devices=jax.devices()[:N])``. It joins no process group; the server's slot
+sharding (``serving.StreamServer(mesh=)``) runs on it.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from dataclasses import dataclass
 from datetime import timedelta
 
 import numpy as np
@@ -35,6 +41,8 @@ __all__ = [
     "init_group",
     "check_mesh",
     "make_mesh",
+    "LocalMesh",
+    "local_mesh",
     "multihost_mesh",
     "data_parallel_mesh",
     "axis_size",
@@ -133,6 +141,41 @@ def make_mesh(data: int | None = None, model: int = 1, device=None,
         # a mesh over part of the world would leave ranks out of every collective
         raise ValueError(f"mesh {data}x{model} leaves {n - data * model} of {n} ranks out")
     return init_device_mesh(dev.type, (data, model), mesh_dim_names=("data", "model"))
+
+
+@dataclass(frozen=True)
+class LocalMesh:
+    """A ``data`` axis over devices that one process drives: shard ``i``
+    lives on ``devices[i]``. A device may appear more than once; each of
+    its shards then keeps its own state and graph on it, which is how one
+    card (or the CPU) runs more than one shard."""
+
+    devices: tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": len(self.devices)}
+
+
+def local_mesh(data: int, devices=None) -> LocalMesh:
+    """A :class:`LocalMesh` of ``data`` shards over ``devices`` (the first
+    ``data`` of them), by default ``cuda:0`` … ``cuda:data-1``. More shards
+    than devices raises make_mesh's "exceeds" error; the devices must be of
+    one type, and a CUDA device must exist."""
+    if data < 1:
+        raise ValueError(f"a mesh needs at least one shard, not {data}")
+    if devices is None:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    check_mesh(data, 1, len(devices))
+    devices = tuple(resolve_device(d) for d in list(devices)[:data])
+    if len({d.type for d in devices}) > 1:
+        raise ValueError(f"a mesh's devices must be of one type: {devices}")
+    if devices[0].type == "cuda":
+        devices = tuple(torch.device("cuda", d.index or 0) for d in devices)
+        n = torch.cuda.device_count()
+        if any(d.index >= n for d in devices):
+            raise ValueError(f"mesh devices {[str(d) for d in devices]} exceed {n} devices")
+    return LocalMesh(devices)
 
 
 def multihost_mesh(model: int = 1, device=None) -> DeviceMesh:

@@ -24,10 +24,26 @@ per-tick work is the same at any tenancy. The step never mixes slots, and
 its argmax inputs are batch-invariant (``models/realtime.py``): a served
 stream gives what it gives through a batch-1 processor. On the CPU the same
 tick runs the eager step.
+
+Slot sharding (``mesh=``, a ``parallel.mesh.LocalMesh`` of N devices; JAX's
+``NamedSharding(mesh, P("data"))`` over one process's devices) splits the
+slots into N contiguous shards: slot ``s`` lives on shard ``s // (max_streams
+/ N)``, which has its own processor and its own state (its own captured
+graph at ``max_streams / N`` on CUDA). A tick writes the one pinned
+buffer, then enqueues each shard's copy in, replay, copies out and event on
+its device's current stream without waiting; a fetch waits on every
+shard's event of that tick. Since the step never mixes slots, no shard
+needs another's data: there is no collective, and the devices run their
+shards at once. The shards of one device (a mesh may name a device twice)
+replay one after another on its stream: graphs captured on one device
+share cuFFT plans and the cuBLAS workspace of their capture, so two
+replaying at once would race on them. Opening, closing, resetting and
+re-setting a slot touch only its shard.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -36,10 +52,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from gccnmf_torch.device import resolve_device
 from gccnmf_torch.models.realtime import (
     CapturedStep, RTGCCNMFProcessor, StreamConfig, StreamParams, StreamState, reset_slot,
 )
 from gccnmf_torch.native import BlockTimes
+from gccnmf_torch.parallel.mesh import LocalMesh
 from gccnmf_torch.utils.hostmem import HostMemWatchdog, PeriodicTrim
 
 __all__ = ["StreamSettings", "StreamServer"]
@@ -136,16 +154,48 @@ class StreamSettings:
 
 
 class _PinnedSlot:
-    """One tick's pinned host buffers and the event a fetch waits on."""
+    """One tick's pinned host buffers and the events (one a shard) that a
+    fetch waits on."""
 
-    def __init__(self, shape, dtype):
+    def __init__(self, shape, dtype, num_shards: int):
         self.host_in = torch.empty(shape, dtype=dtype, pin_memory=True)
         self.host_out = torch.empty(shape, dtype=dtype, pin_memory=True)
-        self.event = torch.cuda.Event()
+        self.events = [torch.cuda.Event() for _ in range(num_shards)]
 
     def fetch(self) -> np.ndarray:
-        self.event.synchronize()
+        for event in self.events:
+            event.synchronize()
         return self.host_out.numpy().copy()
+
+
+class _Shard:
+    """The slots ``start:stop`` on one device: their processor and state
+    (on CUDA the state of their own captured graph) and their batched
+    parameters (``None`` until uploaded after a settings change)."""
+
+    def __init__(self, w, config: StreamConfig, device, start: int, stop: int,
+                 block_dtype, wire):
+        self.start, self.stop = start, stop
+        self.processor = RTGCCNMFProcessor(w, config, device=device)
+        self.device = self.processor.device
+        self.fresh = self.processor.init_state(1)
+        self.params: StreamParams | None = None
+        self.graph = None
+        if self.device.type != "cuda":
+            self.state = self.processor.init_state(stop - start)
+            return
+        with torch.cuda.device(self.device):
+            self.graph = CapturedStep(self.processor, stop - start, block_dtype, *wire)
+        self.state = self.graph.state
+
+    def on_device(self):
+        """The context in which this shard's device work is enqueued: its
+        device's current stream, as every captured step replays. Graphs
+        captured on one device share cuFFT plans and the cuBLAS workspace
+        of their capture, so two on one device must not replay at once."""
+        if self.graph is None:
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
 
 
 class StreamServer:
@@ -159,9 +209,11 @@ class StreamServer:
     ``tick_stats()['delivery_ms']`` then reports dispatch→delivery latency.
     ``wire_dtype="int16"`` ships blocks and outputs as 16-bit PCM (half the
     bytes each way); the API stays float32, the outputs quantized as the WAV
-    writer would. ``device=None`` serves on the card; ``mesh`` (slot
-    sharding over several devices) is not ported yet and raises (ROADMAP.md,
-    Queue 1 item 6c)."""
+    writer would. ``device=None`` serves on the card. ``mesh``: a
+    :class:`~gccnmf_torch.parallel.mesh.LocalMesh` (``local_mesh(N)``) over
+    which the slots are sharded (module docstring); ``max_streams`` must be
+    a multiple of its data-axis size, and ``device``, if given, must name
+    its devices."""
 
     def __init__(
         self,
@@ -174,42 +226,56 @@ class StreamServer:
         device=None,
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("StreamServer(mesh=): slot sharding over several devices "
-                                      "is not ported yet (ROADMAP.md, Queue 1 item 6c)")
         if wire_dtype not in ("float32", "int16"):
             raise ValueError(f"wire_dtype must be float32 or int16: {wire_dtype}")
         if pipeline_depth < 0:
             raise ValueError("pipeline_depth must be >= 0")
-        self.processor = RTGCCNMFProcessor(w, config, device=device)
-        self.device = self.processor.device
+        if mesh is None:
+            devices = (resolve_device(device),)
+        else:
+            if not isinstance(mesh, LocalMesh):
+                raise TypeError(f"mesh must be a LocalMesh (parallel.mesh.local_mesh), "
+                                f"not {type(mesh).__name__}")
+            dp = mesh.shape["data"]
+            if max_streams % dp:
+                raise ValueError(f"max_streams ({max_streams}) must be a multiple of the "
+                                 f"data-axis size ({dp})")
+            devices = mesh.devices
+            if device is not None:
+                want = torch.device(device)
+                if any(d.type != want.type or want.index not in (None, d.index)
+                       for d in devices):
+                    raise ValueError(f"device={want} disagrees with the mesh's devices "
+                                     f"{[str(d) for d in devices]}")
+        self.mesh = mesh
         self.config = config
         self.max_streams = max_streams
         self.wire_dtype = wire_dtype
         self.pipeline_depth = pipeline_depth
         int16 = wire_dtype == "int16"
         self._wire = (pcm_to_float, float_to_pcm) if int16 else (None, None)
-        self._fresh_slot_state = self.processor.init_state(1)
+        block_dtype = torch.int16 if int16 else torch.float32
+        per = max_streams // len(devices)
+        self._per_shard = per
+        self._shards = [_Shard(w, config, d, i * per, (i + 1) * per, block_dtype, self._wire)
+                        for i, d in enumerate(devices)]
+        # the first shard's, as JAX's server has one
+        self.processor = self._shards[0].processor
+        self.device = self.processor.device
         if self.device.type == "cuda":
-            self._graph = CapturedStep(self.processor, max_streams,
-                                       torch.int16 if int16 else torch.float32, *self._wire)
-            self._state = self._graph.state
             shape = (max_streams, config.num_channels, config.block_size)
             # a slot's buffers are reused pipeline_depth + 2 ticks later,
             # after its fetch has copied the output out
-            self._ring = [_PinnedSlot(shape, self._graph.block.dtype)
+            self._ring = [_PinnedSlot(shape, block_dtype, len(self._shards))
                           for _ in range(pipeline_depth + 2)]
             self._tel_host = torch.empty(max_streams, pin_memory=True)
-            self._tel_event = torch.cuda.Event()
-        else:
-            self._state = self.processor.init_state(max_streams)
+            self._tel_events: list = []
         self._settings: list[StreamSettings | None] = [None] * max_streams
         self._next_id = 0
         self._ids: dict[int, int] = {}  # stream_id -> slot
         self._blocks_processed = 0
-        # params are uploaded once per settings change, not per tick, and
-        # telemetry is read lazily
-        self._params_cache: StreamParams | None = None
+        # params are uploaded once per settings change (per shard), not per
+        # tick, and telemetry is read lazily
         self._pending_telemetry = None
         self._telemetry_cache = None
         # (fetch, {stream_id: slot} at dispatch time) awaiting fetch
@@ -233,6 +299,9 @@ class StreamServer:
     def active_streams(self) -> int:
         return len(self._ids)
 
+    def _shard_of(self, slot: int) -> _Shard:
+        return self._shards[slot // self._per_shard]
+
     def open_stream(self, settings: StreamSettings | None = None) -> int:
         """Claim a free slot → stream id. Raises when fully tenanted."""
         try:
@@ -242,7 +311,7 @@ class StreamServer:
         # a private copy: one StreamSettings shared across open_stream calls
         # must not let update_stream on one tenant change the others
         self._settings[slot] = replace(settings) if settings else StreamSettings()
-        self._params_cache = None
+        self._shard_of(slot).params = None
         self._reset_slot(slot)
         stream_id = self._next_id
         self._next_id += 1
@@ -252,28 +321,31 @@ class StreamServer:
     def close_stream(self, stream_id: int) -> None:
         slot = self._ids.pop(stream_id)
         self._settings[slot] = None
-        self._params_cache = None
+        self._shard_of(slot).params = None
 
     def update_stream(self, stream_id: int, **changes) -> None:
         """Adjust a live stream's settings (nothing is re-captured).
         All-or-nothing: every key is checked before any is applied."""
-        s = self._settings[self._ids[stream_id]]
+        slot = self._ids[stream_id]
+        s = self._settings[slot]
         unknown = [k for k in changes if not hasattr(s, k)]
         if unknown:
             raise AttributeError(f"unknown stream setting(s): {', '.join(sorted(unknown))}")
         for key, value in changes.items():
             setattr(s, key, value)
-        self._params_cache = None
+        self._shard_of(slot).params = None
 
     # ------------------------------------------------------------- stepping
 
     def _reset_slot(self, slot: int) -> None:
-        """A fresh state in one slot's rows: in place on the graph's state
-        on CUDA; on the CPU into new tensors, since the last tick's
-        telemetry shares the target leaf."""
-        if self.device.type != "cuda":
-            self._state = StreamState(*(leaf.clone() for leaf in self._state))
-        reset_slot(self._state, self._fresh_slot_state, slot)
+        """A fresh state in one slot's rows of its shard: in place on the
+        graph's state on CUDA; on the CPU into new tensors, since the last
+        tick's telemetry shares the target leaf."""
+        shard = self._shard_of(slot)
+        if shard.graph is None:
+            shard.state = StreamState(*(leaf.clone() for leaf in shard.state))
+        with shard.on_device():
+            reset_slot(shard.state, shard.fresh, slot - shard.start)
 
     def _from_wire(self, out_np: np.ndarray) -> np.ndarray:
         """A fetched tick output → the float32 API currency."""
@@ -281,8 +353,10 @@ class StreamServer:
             return out_np.astype(np.float32) / PCM_SCALE
         return out_np
 
-    def _batched_params(self) -> StreamParams:
-        b = self.max_streams
+    def _batched_params(self, start: int, stop: int) -> StreamParams:
+        """The parameters of slots ``start:stop`` at the step's batched
+        shapes, on the host."""
+        b = stop - start
         cols = {f: np.empty(b, np.float64) for f in (
             "target_tdoa_index", "target_epsilon", "target_beta", "noise_floor",
             "localization_window",
@@ -290,12 +364,12 @@ class StreamServer:
         sep = np.zeros(b, bool)
         loc = np.zeros(b, bool)
         default = StreamSettings()
-        for slot in range(b):
+        for row, slot in enumerate(range(start, stop)):
             s = self._settings[slot] or default
             for f in cols:
-                cols[f][slot] = getattr(s, f)
-            sep[slot] = s.separation_enabled and self._settings[slot] is not None
-            loc[slot] = s.localization_enabled
+                cols[f][row] = getattr(s, f)
+            sep[row] = s.separation_enabled and self._settings[slot] is not None
+            loc[row] = s.localization_enabled
 
         def t(x, dtype, shape):
             return torch.as_tensor(x, dtype=dtype).reshape(shape)
@@ -310,29 +384,45 @@ class StreamServer:
             localization_window=t(cols["localization_window"], torch.int32, (b,)),
         )
 
+    def _upload_params(self) -> None:
+        """Batched parameters for every shard whose settings changed,
+        copied into its graph on CUDA."""
+        for shard in self._shards:
+            if shard.params is None:
+                shard.params = self._batched_params(shard.start, shard.stop)
+                if shard.graph is not None:
+                    with shard.on_device():
+                        shard.graph.set_params(shard.params)
+
     def _dispatch(self, wire: np.ndarray):
         """Run one tick on ``wire`` (the slot batch in the wire dtype) and
         return ``fetch()``, which waits for its output and returns it as
         NumPy in the wire dtype. Telemetry is copied out the same way."""
         if self.device.type != "cuda":
             pre, post = self._wire
-            x = torch.from_numpy(wire)
-            state, out, tel = self.processor.eager_step(
-                self._state, x if pre is None else pre(x), self._params_cache)
-            self._state = state
-            out = out if post is None else post(out)
-            self._tel = tel["target_tdoa_index"]
-            out_np = out.contiguous().numpy().copy()
+            outs, self._tel = [], []
+            for shard in self._shards:
+                x = torch.from_numpy(wire[shard.start:shard.stop])
+                shard.state, out, tel = shard.processor.eager_step(
+                    shard.state, x if pre is None else pre(x), shard.params)
+                outs.append(out if post is None else post(out))
+                self._tel.append(tel["target_tdoa_index"])
+            out_np = torch.cat(outs).contiguous().numpy().copy()
             return lambda: out_np
-        g = self._graph
         slot = self._ring[self._blocks_processed % len(self._ring)]
         slot.host_in.numpy()[...] = wire
-        g.block.copy_(slot.host_in, non_blocking=True)
-        g.graph.replay()
-        slot.host_out.copy_(g.out, non_blocking=True)
-        self._tel_host.copy_(g.telemetry["target_tdoa_index"], non_blocking=True)
-        self._tel_event.record()
-        slot.event.record()
+        # every shard's work is enqueued on its device's stream; no device
+        # waits for another
+        for shard, event in zip(self._shards, slot.events):
+            rows = slice(shard.start, shard.stop)
+            g = shard.graph
+            with shard.on_device():
+                g.block.copy_(slot.host_in[rows], non_blocking=True)
+                g.graph.replay()
+                slot.host_out[rows].copy_(g.out, non_blocking=True)
+                self._tel_host[rows].copy_(g.telemetry["target_tdoa_index"], non_blocking=True)
+                event.record()
+        self._tel_events = slot.events
         return slot.fetch
 
     def process(self, blocks: dict[int, np.ndarray]) -> dict[int, np.ndarray]:
@@ -356,10 +446,7 @@ class StreamServer:
                     f"stream {stream_id}: block shape {block.shape} != expected {expect}"
                 )
             batch[self._ids[stream_id]] = block
-        if self._params_cache is None:
-            self._params_cache = self._batched_params()
-            if self.device.type == "cuda":
-                self._graph.set_params(self._params_cache)
+        self._upload_params()
         if self.wire_dtype == "int16":
             wire = np.clip(batch * PCM_SCALE, -32768.0, 32767.0).astype(np.int16)
         else:
@@ -479,10 +566,11 @@ class StreamServer:
             return {}
         if self._telemetry_cache is None:
             if self.device.type == "cuda":
-                self._tel_event.synchronize()
+                for event in self._tel_events:
+                    event.synchronize()
                 self._telemetry_cache = self._tel_host.numpy().copy()
             else:
-                self._telemetry_cache = self._tel.numpy().copy()
+                self._telemetry_cache = torch.cat(self._tel).numpy().copy()
         tdoa = self._telemetry_cache
         return {
             sid: dict(target_tdoa_index=float(tdoa[slot]))

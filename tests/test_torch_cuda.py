@@ -24,6 +24,7 @@ from gccnmf_torch.models.online import OnlineConfig, OnlineGCCNMFEnhancer
 from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
 from gccnmf_torch.serving import StreamServer, StreamSettings, float_to_pcm
 from gccnmf_torch.ops import gcc, masks
+from gccnmf_torch.ops import stft as stft_ops
 from gccnmf_torch.ops.enhance_cuda import (
     argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
     tf_synthesis_basis, tf_synthesis_cuda, tf_synthesis_plain,
@@ -38,6 +39,7 @@ from gccnmf_torch.ops.synthesis_cuda import (
 )
 from gccnmf_torch.ops.windows import hann_symmetric
 from gccnmf_torch.parallel.long_audio import LongAudioSeparator
+from gccnmf_torch.parallel.mesh import local_mesh
 from gccnmf_torch.utils import wav
 
 pytestmark = pytest.mark.cuda
@@ -638,6 +640,63 @@ def test_int16_wire_on_card(cuda):
     assert float_to_pcm(x).tolist() == [0, 32767, -32768, 22937, -32767, 32767]
 
 
+@pytest.mark.parametrize("wire", ["float32", "int16"])
+def test_sharded_server_equals_unsharded_on_card(cuda, wire):
+    """``StreamServer(mesh=local_mesh(1))`` and two shards on this card
+    (each its own graph): every stream within 1e-5 of the unsharded server
+    (pipelined, async fetch), the same telemetry; the default two-card
+    mesh raises on a one-card machine. 64 streams over 40 ticks: load
+    enough to show a race between two graphs of one card replaying at
+    once (they share cuFFT plans and their capture's cuBLAS workspace)."""
+    cfg = StreamConfig()
+    n_streams, ticks = 64, 40
+    w, mix = _stream_problem(cfg, n_streams, ticks, k=16, seed=7)
+    blocks = RTGCCNMFProcessor(w, cfg, device="cpu").blocks_from_signal(mix)
+    if wire == "int16":
+        blocks = (np.round(np.clip(blocks, -1, 0.999) * 32768.0) / 32768.0).astype(np.float32)
+    settings = [StreamSettings(target_tdoa_index=float(8 + 5 * i),
+                               localization_enabled=bool(i % 2)) for i in range(n_streams)]
+    runs = []
+    for mesh in (None, local_mesh(1), local_mesh(2, devices=["cuda:0", "cuda:0"])):
+        server = StreamServer(w, cfg, max_streams=n_streams, pipeline_depth=2, async_fetch=True,
+                              wire_dtype=wire, mesh=mesh)
+        sids = [server.open_stream(s) for s in settings]
+        got = {sid: [] for sid in sids}
+        for t in range(ticks):
+            for sid, out in server.process({sid: blocks[t, i]
+                                            for i, sid in enumerate(sids)}).items():
+                got[sid].append(out)
+        tel = server.telemetry
+        for tail in server.flush():
+            for sid, out in tail.items():
+                got[sid].append(out)
+        server.close()
+        runs.append(([np.concatenate(got[sid], axis=-1) for sid in sids],
+                     [tel[sid]["target_tdoa_index"] for sid in sids]))
+    for outs, targets in runs[1:]:
+        assert targets == runs[0][1]
+        for a, b in zip(outs, runs[0][0]):
+            np.testing.assert_allclose(a, b, atol=1e-5)
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(ValueError, match="exceeds 1 devices"):
+            local_mesh(2)
+
+
+def test_conv_stft_on_card_matches_fft(cuda):
+    """``method="conv"`` (cuDNN, TF32 off) against ``fft`` on the card, at
+    the JAX suite's bars (tests/test_stft.py:49-80)."""
+    rng = np.random.default_rng(8)
+    y = torch.as_tensor(rng.standard_normal((2, 16000)).astype(np.float32) * 0.1, device=cuda)
+    win = hann_symmetric(1024)
+    spec = {m: stft_ops.stft(y, win, 128, conjugate=True, method=m) for m in ("fft", "conv")}
+    scale = float(spec["fft"].abs().max())
+    assert float((spec["conv"] - spec["fft"]).abs().max()) <= 2e-4 * scale
+    inv = {m: stft_ops.istft(spec["fft"], win, 128, conjugate=True, center_trim=True, method=m)
+           for m in ("fft", "conv")}
+    assert float((inv["conv"] - inv["fft"]).abs().max()) <= 5e-5 * float(inv["fft"].abs().max())
+    assert not torch.backends.cudnn.allow_tf32
+
+
 def test_default_stream_objects_live_on_the_card(cuda):
     """``device=None`` puts every tensor of the processor, its state, the
     default parameters and the server's state on the card."""
@@ -649,7 +708,7 @@ def test_default_stream_objects_live_on_the_card(cuda):
                 for t in v if isinstance(t, torch.Tensor)]
     tensors += list(proc.init_state(2)) + list(StreamParams.default())
     server = StreamServer(w, cfg, max_streams=2)
-    tensors += list(server._state)
+    tensors += list(server._shards[0].state)
     assert len(tensors) > 20
     assert all(t.device.type == "cuda" for t in tensors)
 

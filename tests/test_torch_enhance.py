@@ -339,6 +339,20 @@ class TestEnhancer:
         # 2·129 coherence terms of magnitude <= 1 per angular bin
         np.testing.assert_allclose(got["angular"], want["angular"], atol=1e-4 * 258)
 
+    @pytest.mark.parametrize("num_h_updates", [0, 10])
+    def test_conv_stft_matches_jax(self, enh_problem, num_h_updates):
+        """``stft_method="conv"``, the enhancer's analysis and synthesis as
+        one convolution each, at test_matches_jax's bars."""
+        stereo, w = enh_problem
+        kw = _enh_cfg(stft_method="conv")
+        want = joffline.GCCNMFEnhancer(w, joffline.OfflineConfig(**kw),
+                                       num_h_updates=num_h_updates).enhance(stereo)
+        got = GCCNMFEnhancer(w, OfflineConfig(**kw), num_h_updates=num_h_updates,
+                             device="cpu").enhance(stereo)
+        np.testing.assert_array_equal(got["target_tdoa_index"], want["target_tdoa_index"])
+        np.testing.assert_allclose(got["enhanced"], want["enhanced"], atol=2e-4)
+        np.testing.assert_allclose(got["angular"], want["angular"], atol=1e-4 * 258)
+
     def test_h_updates_change_the_output(self, enh_problem):
         stereo, w = enh_problem
         base, with_h = (GCCNMFEnhancer(w, OfflineConfig(**_enh_cfg()), num_h_updates=n,

@@ -48,19 +48,39 @@ def test_import_pulls_in_no_jax():
 
 
 def test_app_modules_import_no_gui_or_audio_stack():
-    """The realtime app, the native tier, the GUI and profiling import on a
-    machine without tkinter, matplotlib or sounddevice: each is imported
-    only where a window, a figure or a device stream is built."""
+    """The realtime app, the native tier, the GUI, profiling, the plots and
+    the evaluation modules import on a machine without tkinter, matplotlib
+    or sounddevice: each is imported only where a window, a figure or a
+    device stream is built."""
     code = (
         "import sys\n"
         "import gccnmf_torch.gui, gccnmf_torch.gui_model, gccnmf_torch.realtime\n"
         "import gccnmf_torch.native, gccnmf_torch.profiling, gccnmf_torch.cli\n"
+        "import gccnmf_torch.viz, gccnmf_torch.metrics, gccnmf_torch.pesq_p862\n"
+        "import gccnmf_torch.baselines.numpy_ref, gccnmf_torch.utils.stamp\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('tkinter', '_tkinter', 'matplotlib', 'sounddevice')]\n"
         "assert not bad, bad\n"
     )
     res = _run(code)
     assert res.returncode == 0, res.stderr + res.stdout
+
+
+def test_every_module_of_the_jax_package_has_its_counterpart():
+    """The import scans above cover the evaluation modules, and the port
+    keeps a module of the JAX package's name for each one, except the two
+    whose job it does elsewhere: ``ops/xprec.py`` (its policy is
+    ``precision.py``'s TF32 switches) and ``pallas_common.py`` (TPU only;
+    every kernel keeps its ``make_mm`` contract)."""
+    port = {p.relative_to(ROOT / "gccnmf_torch").as_posix() for p in PORT_MODULES}
+    for name in ("metrics.py", "pesq_p862.py", "baselines/numpy_ref.py", "utils/stamp.py",
+                 "viz.py"):
+        assert name in port
+    jax_pkg = {p.relative_to(ROOT / "gccnmf_tpu").as_posix()
+               for p in (ROOT / "gccnmf_tpu").rglob("*.py")}
+    missing = sorted(jax_pkg - port - {"ops/xprec.py", "ops/pallas_common.py"})
+    # the Pallas kernels' counterparts are the CUDA wrappers
+    assert all(m.endswith("_pallas.py") for m in missing), missing
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -242,6 +242,21 @@ class TestInMemory:
         np.testing.assert_allclose(got["mean_angular_spectrum"], want["mean_angular_spectrum"],
                                    rtol=0, atol=1e-5 * np.abs(want["mean_angular_spectrum"]).max())
 
+    def test_conv_stft_matches_jax(self, tmp_path, mesh1):
+        """``stft_method="conv"`` reaches both passes; the synthesis
+        inverts with ``fft``, as JAX's does: in memory, JAX's targets, W at
+        rtol 1e-4 and > 40 dB; streamed, JAX's files within 3 PCM steps."""
+        cfg, jcfg = _configs(nmf_matmul_dtype="float32", stft_method="conv")
+        stereo = _two_source_mix(160)
+        got = LongAudioSeparator(cfg, "cpu").separate(stereo, num_sources=2)
+        want = JaxLongAudioSeparator(jcfg, mesh1).separate(stereo, num_sources=2)
+        assert list(got["target_tdoa_indexes"]) == list(want["target_tdoa_indexes"])
+        np.testing.assert_allclose(got["w"], want["w"], rtol=1e-4, atol=1e-6)
+        for a, b in zip(got["estimates"], np.asarray(want["estimates"]), strict=True):
+            assert _snr(b, a) > 40.0
+        path, _ = _wav(tmp_path, 160, name="conv_mix")
+        _hold_streamed(*_streamed_pair(tmp_path, mesh1, path, cfg, jcfg, 64, tag="conv"))
+
     def test_default_mode_matches_jax(self, mesh1):
         """The default config (the NMF in guarded fp32 on either package's
         plain path): JAX's targets and > 40 dB."""

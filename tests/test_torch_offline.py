@@ -57,6 +57,39 @@ class TestAgainstJax:
         np.testing.assert_allclose(ours["angular"], theirs["angular"], rtol=1e-4, atol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def conv_results(stereo_signal):
+    """The separation above with ``stft_method="conv"`` in both packages."""
+    mix, sr = stereo_signal
+    kw = dict(dictionary_size=64, num_iterations=50, num_sources=2, sample_rate=sr,
+              stft_method="conv")
+    ours = GCCNMFSeparator(OfflineConfig(**kw), device="cpu").separate(mix)
+    theirs = joffline.GCCNMFSeparator(joffline.OfflineConfig(**kw)).separate(mix)
+    return ours, theirs
+
+
+class TestConvAgainstJax:
+    """The conv STFT's separation (one strided convolution in, its
+    transpose out) at test_offline.py:35-61's bars against JAX's conv
+    separation and the NumPy oracle."""
+
+    def test_targets_and_masks(self, conv_results, results):
+        ours, theirs = conv_results
+        assert ours["target_tdoa_indexes"] == theirs["target_tdoa_indexes"]
+        assert ours["target_tdoa_indexes"] == list(results[2]["targets"])
+        agree = (ours["coefficient_masks"] == theirs["coefficient_masks"]).mean()
+        assert agree > 0.995, agree
+
+    def test_waveforms(self, conv_results, results):
+        ours, theirs = conv_results
+        want = results[2]
+        assert ours["estimates"].shape == theirs["estimates"].shape
+        for t in range(ours["estimates"].shape[0]):
+            for ref in (theirs["estimates"][t], want["estimates"][t]):
+                s = snr_db(ref, ours["estimates"][t])
+                assert s > 25.0, f"target {t}: {s:.1f} dB"
+
+
 class TestAgainstOracle:
     def test_targets_and_shape(self, results, stereo_signal):
         ours, _, want = results
@@ -262,13 +295,16 @@ class TestConfig:
             OfflineConfig(nmf_backend="pallas").resolved_nmf_backend(cpu)
 
     def test_unported_modes_raise(self):
-        """What is still unported raises before anything runs: the conv
-        STFT, and the server's slot sharding (the CLI's time-sharded
-        pipeline runs since the process groups were ported:
-        tests/test_torch_cli_sharded.py)."""
+        """Nothing is left unported: the conv STFT builds (TestConvAgainstJax)
+        and the server shards its slots over a ``LocalMesh``
+        (tests/test_torch_serving.py). What neither knows still raises before
+        anything runs: an unknown STFT method, a mesh of another kind."""
         from gccnmf_torch.serving import StreamServer
 
-        with pytest.raises(NotImplementedError, match="conv"):
-            GCCNMFSeparator(OfflineConfig(stft_method="conv"), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6c"):
+        assert GCCNMFSeparator(OfflineConfig(stft_method="conv"),
+                               device="cpu")._stft_method == "conv"
+        with pytest.raises(ValueError, match="unknown stft method"):
+            GCCNMFSeparator(OfflineConfig(stft_method="dct"), device="cpu").separate(
+                np.zeros((2, 4096), np.float32))
+        with pytest.raises(TypeError, match="LocalMesh"):
             StreamServer(np.ones((513, 8), np.float32), device="cpu", mesh=object())

@@ -12,11 +12,12 @@ import jax.numpy as jnp
 from gccnmf_tpu.ops import gcc as jgcc
 from gccnmf_tpu.ops import localize as jloc
 from gccnmf_tpu.ops import masks as jmasks
+from gccnmf_tpu.ops import nmf as jnmf
 from gccnmf_tpu.ops import stft as jstft
 from gccnmf_tpu.ops import windows as jwin
 from gccnmf_tpu.utils import wav as jwav
 from gccnmf_torch.convert import from_numpy_state
-from gccnmf_torch.ops import gcc, localize, masks, stft
+from gccnmf_torch.ops import gcc, localize, masks, nmf, stft
 from gccnmf_torch.ops.windows import hann_symmetric
 from gccnmf_torch.utils import wav
 
@@ -44,14 +45,15 @@ def test_hann_symmetric_equals_jax(n):
 
 
 class TestSTFT:
-    @pytest.mark.parametrize("method", ["fft", "matmul"])
+    @pytest.mark.parametrize("method", ["fft", "matmul", "conv"])
     def test_stft_matches_jax_and_oracle(self, stereo_signal, method):
         mix, _ = stereo_signal
         w = hann_symmetric(1024)
         want = np.asarray(jstft.stft(jnp.asarray(mix), w, 128, conjugate=True, method=method))
         got = stft.stft(_t(mix), w, 128, conjugate=True, method=method)
-        # the matmul method sums 1024 fp32 products in another order than
-        # XLA's GEMM: its atol is 1e-5 of the spectrum's scale (≈80)
+        # the matmul and conv methods sum 1024 fp32 products in another
+        # order than XLA's GEMM and convolution: their atol is 1e-5 of the
+        # spectrum's scale (≈80)
         _close(got, want, atol=ATOL if method == "fft" else ATOL * np.abs(want).max())
         ref = oracle.mixture_spectrogram_ref(mix, 1024, 128)  # (2, F, T)
         np.testing.assert_allclose(
@@ -65,7 +67,7 @@ class TestSTFT:
         got = stft.stft(_t(y), win, 128, fft_size=512)
         _close(got, want)
 
-    @pytest.mark.parametrize("method", ["fft", "matmul"])
+    @pytest.mark.parametrize("method", ["fft", "matmul", "conv"])
     def test_istft_matches_jax_and_oracle(self, stereo_signal, method):
         mix, _ = stereo_signal
         spec_ref = oracle.stft_ref(mix[0], 1024, 128)
@@ -209,6 +211,49 @@ class TestLocalize:
         targets, counts = localize.auto_count_targets(_t(np.stack(rows)), 4)
         assert list(counts.numpy()[-2:]) == [2, 1]  # two tall peaks; the ramp has none
         assert list(targets.numpy()[-2, :2]) == [10, 40] and targets[-1, 0] == 63
+
+    @pytest.mark.parametrize("window", [1, 5, 20, 64])
+    def test_sliding_argmax_tdoa_equals_jax(self, rng, window):
+        """The windowed mean's argmax over a (2, 3, 20, 16) history, rows
+        of ties included (the first maximum wins in both), and a window
+        longer than the history (the whole history)."""
+        hist = rng.standard_normal((2, 3, 20, 16)).astype(np.float32)
+        hist[0, 0] = 1.0  # every TDOA ties
+        hist[1, 2, :, 5] = hist[1, 2, :, 9] = 10.0  # two maxima
+        got = localize.sliding_argmax_tdoa(_t(hist), window)
+        want = np.asarray(jloc.sliding_argmax_tdoa(jnp.asarray(hist), window))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got[0, 0] == 0 and got[1, 2] == 5
+
+
+class TestMinibatchNMF:
+    @staticmethod
+    def _problem(stereo_signal, k=16):
+        """|X| of both channels as a batch of two (T, F) spectrograms, the
+        seeded W0 and two H0s."""
+        mix, _ = stereo_signal
+        v = stft.stft(_t(mix), hann_symmetric(1024), 128).abs().numpy()  # (2, T, F)
+        w0, h0 = nmf.nmf_init_numpy(513, k, v.shape[1])
+        _, h1 = nmf.nmf_init_numpy(513, k, v.shape[1], seed_value=1)
+        return v, w0, np.stack([h0, h1])
+
+    def test_matches_jax(self, stereo_signal):
+        """Ten iterations with the W statistics summed over batch and
+        time: JAX's W and H at rtol 1e-5."""
+        v, w0, h0 = self._problem(stereo_signal)
+        w, h = nmf.kl_nmf_minibatch_w(_t(v), _t(w0), _t(h0), 10)
+        jw, jh = jnmf.kl_nmf_minibatch_w(jnp.asarray(v), jnp.asarray(w0), jnp.asarray(h0), 10)
+        assert w.shape == (513, 16) and h.shape == h0.shape
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=1e-5, atol=1e-7)
+        np.testing.assert_allclose(h.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-7)
+
+    def test_batch_of_one_is_kl_nmf(self, stereo_signal):
+        """At batch 1 the shared W is ``kl_nmf``'s (tests/test_ops.py:73-80)."""
+        v, w0, h0 = self._problem(stereo_signal)
+        w_a, h_a = nmf.kl_nmf(_t(v[0]), _t(w0), _t(h0[0]), 10)
+        w_b, h_b = nmf.kl_nmf_minibatch_w(_t(v[:1]), _t(w0), _t(h0[:1]), 10)
+        np.testing.assert_allclose(w_a.numpy(), w_b.numpy(), rtol=2e-4, atol=1e-5)
+        np.testing.assert_allclose(h_a.numpy(), h_b.numpy()[0], rtol=2e-4, atol=1e-5)
 
 
 class TestMasks:

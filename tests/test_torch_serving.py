@@ -1,8 +1,10 @@
 """The port's multi-stream server (``gccnmf_torch/serving.py``) on the CPU:
-every case of tests/test_serving.py but the two mesh tests (slot sharding
-is not ported), then the port's server against the JAX server over the
-same ticks and settings. The captured-graph tick is held on the card in
-``test_torch_cuda.py``."""
+every case of tests/test_serving.py, the two mesh tests on a
+``local_mesh(4, devices=["cpu"] * 4)``, then the port's server against the
+JAX server over the same ticks and settings, unsharded and sharded, and the
+sharded server's own cases (the pipelined, async and int16 modes, slot
+operations across a shard boundary). The captured-graph tick, unsharded and
+sharded, is held on the card in ``test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 
 from gccnmf_tpu import serving as jserving
 from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
+from gccnmf_torch.parallel.mesh import LocalMesh, local_mesh
 from gccnmf_torch.serving import StreamServer, StreamSettings, float_to_pcm
 
 torch.set_num_threads(1)  # Tier-1 runs several xdist workers
@@ -223,7 +226,145 @@ def test_silent_ticks_do_not_poison_localization(w, cfg):
     assert np.isfinite(out[a]).all()
     # the poisoning is invisible through argmax (argmax of NaN is a finite
     # 0) — assert the history state itself stayed NaN-free
-    assert torch.isfinite(srv._state.gcc_history).all()
+    assert torch.isfinite(srv._shards[0].state.gcc_history).all()
+
+
+def _cpu_mesh(n=4):
+    return local_mesh(n, devices=[CPU] * n)
+
+
+def test_mesh_sharded_server_matches_single_device(w, cfg):
+    """A StreamServer with the slot batch sharded over a data mesh produces
+    the same outputs and telemetry as the unsharded server (the step is
+    slot-local: zero per-tick collectives)."""
+    srv_a = _server(w, cfg, max_streams=8)
+    srv_b = StreamServer(w, cfg, max_streams=8, mesh=_cpu_mesh())
+    ids_a = [srv_a.open_stream(StreamSettings(target_tdoa_index=10.0 + i))
+             for i in range(3)]
+    ids_b = [srv_b.open_stream(StreamSettings(target_tdoa_index=10.0 + i))
+             for i in range(3)]
+    blocks = _signal(7, 4, cfg)
+    for t in range(4):
+        subs_a = {i: blocks[t] for i in ids_a}
+        subs_b = {i: blocks[t] for i in ids_b}
+        out_a = srv_a.process(subs_a)
+        out_b = srv_b.process(subs_b)
+        for ia, ib in zip(ids_a, ids_b):
+            np.testing.assert_allclose(out_a[ia], out_b[ib], atol=2e-5)
+    tel_a, tel_b = srv_a.telemetry, srv_b.telemetry
+    for ia, ib in zip(ids_a, ids_b):
+        assert tel_a[ia]["target_tdoa_index"] == pytest.approx(
+            tel_b[ib]["target_tdoa_index"]
+        )
+
+
+def test_mesh_sharded_server_rejects_bad_tenancy(w, cfg):
+    with pytest.raises(ValueError, match="multiple of the data-axis"):
+        StreamServer(w, cfg, max_streams=6, mesh=_cpu_mesh())
+
+
+def test_local_mesh_layout_and_errors():
+    """``local_mesh``: JAX's data-axis shape, the first ``data`` devices,
+    make_mesh's "exceeds" error, one device type, the card by default."""
+    mesh = local_mesh(2, devices=[CPU, "cpu", "cpu"])
+    assert mesh == LocalMesh((torch.device(CPU),) * 2) and mesh.shape == {"data": 2}
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
+        local_mesh(2, devices=[CPU])
+    with pytest.raises(ValueError, match="at least one shard"):
+        local_mesh(0, devices=[CPU])
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="exceeds 0 devices"):
+            local_mesh(1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            local_mesh(2, devices=[CPU, "cuda:0"])
+
+
+def test_mesh_server_rejects_a_disagreeing_device_or_mesh(w, cfg):
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        StreamServer(w, cfg, max_streams=4, mesh=_cpu_mesh(), device="cuda")
+    with pytest.raises(TypeError, match="LocalMesh"):
+        StreamServer(w, cfg, max_streams=4, mesh=object())
+    srv = StreamServer(w, cfg, max_streams=4, mesh=_cpu_mesh(), device=CPU)
+    assert [(s.start, s.stop) for s in srv._shards] == [(0, 1), (1, 2), (2, 3), (3, 4)]
+
+
+MESH_MODES = [
+    pytest.param(dict(pipeline_depth=2, async_fetch=True), id="depth2-async"),
+    pytest.param(dict(pipeline_depth=1, wire_dtype="int16"), id="depth1-int16"),
+    pytest.param(dict(pipeline_depth=2, async_fetch=True, wire_dtype="int16"),
+                 id="depth2-async-int16"),
+]
+
+
+def _drain(srv, ticks):
+    """Every stream's outputs over ``ticks`` (a list of submissions), in the
+    order they arrive, the flushed tail included."""
+    got = {}
+    for subs in ticks:
+        for sid, out in srv.process(subs).items():
+            got.setdefault(sid, []).append(out)
+    for tail in srv.flush():
+        for sid, out in tail.items():
+            got.setdefault(sid, []).append(out)
+    srv.close()
+    return {sid: np.concatenate(blocks, axis=-1) for sid, blocks in got.items()}
+
+
+@pytest.mark.parametrize("mode", MESH_MODES)
+def test_mesh_modes_match_unsharded(w, cfg, mode):
+    """Pipelined, async-fetch and int16-wire sharded servers deliver what
+    the unsharded server in the same mode delivers, with the same
+    telemetry after every tick."""
+    blocks = _signal(12, 6, cfg)
+    plain, sharded = _server(w, cfg, max_streams=8, **mode), StreamServer(
+        w, cfg, max_streams=8, mesh=_cpu_mesh(), **mode)
+    settings = [StreamSettings(target_tdoa_index=5.0 + 3 * i, localization_enabled=i % 2 == 0)
+                for i in range(6)]
+    ids = [(plain.open_stream(s), sharded.open_stream(s)) for s in settings]
+    outs = {}
+    for srv, side in ((plain, 0), (sharded, 1)):
+        ticks = [{pair[side]: blocks[t] * (1 + i) for i, pair in enumerate(ids)}
+                 for t in range(6)]
+        outs[side] = _drain(srv, ticks)
+    for a, b in ids:
+        np.testing.assert_allclose(outs[1][b], outs[0][a], atol=2e-5)
+    tp, ts = plain.telemetry, sharded.telemetry
+    assert [tp[a]["target_tdoa_index"] for a, _ in ids] == \
+        [ts[b]["target_tdoa_index"] for _, b in ids]
+
+
+def test_mesh_slot_operations_touch_only_their_shard(w, cfg):
+    """Opening, closing and resetting slots at a shard boundary, and
+    ``update_stream`` on a slot of the last shard: every other stream gives
+    what it gives on an untouched sharded server, and the changed streams
+    what they give on the unsharded server under the same operations."""
+    blocks = _signal(13, 6, cfg)
+    mesh = _cpu_mesh()
+
+    def run(srv, churn):
+        sids = [srv.open_stream(StreamSettings(target_tdoa_index=8.0 + i)) for i in range(8)]
+        got = {sid: [] for sid in sids}
+        for t in range(6):
+            if churn and t == 2:
+                # slots 3 and 4 straddle the boundary of shards 1 and 2
+                srv.close_stream(sids[3])
+                srv.close_stream(sids[4])
+                sids[3] = srv.open_stream(StreamSettings(separation_enabled=False))
+                sids[4] = srv.open_stream()
+                got[sids[3]], got[sids[4]] = [], []
+                srv.update_stream(sids[7], target_epsilon=1.0, noise_floor=0.3)
+            for sid, out in srv.process({sid: blocks[t] for sid in sids}).items():
+                got[sid].append(out)
+        return [np.concatenate(got[sid], axis=-1) for sid in sids]
+
+    quiet = run(StreamServer(w, cfg, max_streams=8, mesh=mesh), churn=False)
+    churned = run(StreamServer(w, cfg, max_streams=8, mesh=mesh), churn=True)
+    unsharded = run(_server(w, cfg, max_streams=8), churn=True)
+    for i in (0, 1, 2, 5, 6):
+        np.testing.assert_array_equal(churned[i], quiet[i])
+    for i in (3, 4, 7):
+        assert not np.allclose(churned[i], quiet[i][..., -churned[i].shape[-1]:], atol=1e-6)
+        np.testing.assert_allclose(churned[i], unsharded[i], atol=2e-5)
 
 
 def test_pipelined_matches_unpipelined(w, cfg):
@@ -511,6 +652,13 @@ SERVER_MODES = [
 ]
 
 
+def _jax_mesh():
+    import jax
+    from gccnmf_tpu.parallel import mesh as jmesh
+
+    return jmesh.make_mesh(data=4, model=1, devices=jax.devices()[:4])
+
+
 @pytest.mark.parametrize("mode", SERVER_MODES)
 def test_server_matches_jax(w, cfg, mode):
     """The same ticks through both servers: three tenants with their own
@@ -518,8 +666,21 @@ def test_server_matches_jax(w, cfg, mode):
     stream's audio meets the streaming oracle's bars against JAX's (SNR >
     25 dB, > 0.93 of samples within 3e-4 x max) and the localized targets
     are equal after every tick."""
-    port, jax_ = _server(w, cfg, max_streams=4, **mode), jserving.StreamServer(
-        w, cfg, max_streams=4, **mode)
+    _check_against_jax(_server(w, cfg, max_streams=4, **mode),
+                       jserving.StreamServer(w, cfg, max_streams=4, **mode), cfg, mode)
+
+
+@pytest.mark.parametrize("mode", SERVER_MODES)
+def test_mesh_server_matches_jax(w, cfg, mode):
+    """:func:`test_server_matches_jax` with the four slots sharded over
+    four devices on both sides: the port's ``local_mesh(4)`` of the CPU and
+    JAX's ``make_mesh(data=4, model=1)`` of its CPU devices."""
+    _check_against_jax(StreamServer(w, cfg, max_streams=4, mesh=_cpu_mesh(), **mode),
+                       jserving.StreamServer(w, cfg, max_streams=4, mesh=_jax_mesh(), **mode),
+                       cfg, mode)
+
+
+def _check_against_jax(port, jax_, cfg, mode):
     settings = [jserving.StreamSettings(target_tdoa_index=20.0, localization_enabled=False),
                 jserving.StreamSettings(target_epsilon=2.0, localization_window=3),
                 jserving.StreamSettings(separation_enabled=False)]
