@@ -54,6 +54,7 @@ def instrument(src: str, csrc: str, prefetch: bool) -> str:
     """nmf.cu with a stamp at each phase boundary of the tensor-core
     kernels; raises if the source no longer has the expected landmarks."""
     src = src.replace('#include "common.cuh"', f'#include "{csrc}/common.cuh"')
+    src = src.replace('#include "simt_gemm.cuh"', f'#include "{csrc}/simt_gemm.cuh"')
     src = src.replace('#include "tc_gemm.cuh"', f'#include "{csrc}/tc_gemm.cuh"')
     src = src.replace("namespace {\n", STAMPS + "namespace {\n", 1)
     for kid, name in enumerate(KERNELS):

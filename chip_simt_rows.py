@@ -1,0 +1,264 @@
+#!/usr/bin/env python3
+"""Time the float32 bodies of kernels 1 and 4 (the SIMT product core) on one
+NVIDIA GPU, so that two trees can be compared in one call.
+
+Run from the root of a checkout:
+``python3 chip_simt_rows.py [--root DIR] [--rows nmf_ref,nmf_corpus,nmf_hour,mask]
+[--label NAME] [--seed N]``. It imports ``gccnmf_torch`` from ``--root``
+(default: this checkout), builds that tree's kernels there, prints the ptxas
+registers and spills of its float32 product kernels, and then, per row, one
+JSON line:
+
+- ``nmf_ref``: ``kl_nmf_cuda`` float32 at the reference shape (B = 2 of
+  10 s, T = 2,486 rows of left‖right, F = 513, K = 128), V = |X| of the
+  seeded three-source mixtures of ``chip_smoke.py`` (``--seed``);
+- ``nmf_corpus``: B = 1, T = 20,000, K = 256 (the pretraining corpus'
+  shape), V = the first 20,000 rows of |X| of an 81 s seeded mixture;
+- ``nmf_hour``: B = 1, T = 899,986, K = 128 (one audio hour's NMF), V =
+  |X| of an hour of white noise drawn on the card (three sources, the
+  mixture's delays);
+- ``mask``: ``soft_mask_cuda`` float32 at B = 2 on ``bench.py``'s
+  enhancement configuration (10 cm, 128 TDOAs, K = 128), its coherence
+  planes from the 10 s mixtures (one frame NaN), a seeded positive W.
+
+Each row checks the kernel against its plain version (the NMF after 15
+iterations within rtol 1e-4, atol 1e-6 x max|plain|; the soft mask's
+argmax flips only at near-ties and its masks within 2 fp32 ulps elsewhere,
+the NaN frame at TDOA 0), reruns it for bit-identity (and, at B = 2, the
+second element alone), then times the kernel (the NMF at 100 iterations),
+its plain version and the yardstick ``gemm_library_ms`` (the same
+products as ``torch.matmul``, TF32 off) with CUDA events: the median of 5
+after a warm-up (3 at the corpus shape; one call each at the hour). The
+bound is ``chip_smoke.py``'s: the larger of the bytes over 3.35 TB/s and
+the least operations over 67 TFLOP/s fp32.
+
+To compare a parent tree, unpack it (``git archive``) into an ignored
+directory and run, in one call: ``--root <parent>``, then this tree twice,
+then the parent again. ``--profile`` adds each row's device time by kernel
+(torch.profiler: one NMF call of 2 iterations, per iteration; one soft-mask
+call). Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SR, WIN, HOP = 16000, 1024, 128
+F = WIN // 2 + 1
+DELAYS = (8, -11, 3)
+CHECK_ITERS, ITERS = 15, 100
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+PRODUCT_KERNELS = ("wh_ratio_kernel", "h_update_kernel", "qth_split_kernel",
+                   "score_argmax_kernel")
+
+
+def mixture(seed: int, batch: int, seconds: int) -> np.ndarray:
+    """(batch, 2, n): chip_smoke.make_mixture's three white-noise sources."""
+    rng = np.random.default_rng(seed)
+    src = rng.standard_normal((batch, 3, SR * seconds), dtype=np.float32) * 0.1
+    right = sum(np.roll(src[:, i], d, axis=-1) for i, d in enumerate(DELAYS))
+    return np.stack([src.sum(axis=1), right], axis=1).astype(np.float32)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    parser.add_argument("--rows", default="nmf_ref,nmf_corpus,nmf_hour,mask")
+    parser.add_argument("--label", default="")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--profile", action="store_true",
+                        help="also print each row's device time by kernel (torch.profiler)")
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_simt_rows: CUDA is not available", file=sys.stderr)
+        return 1
+    from gccnmf_torch import _build
+    from gccnmf_torch.ops import gcc
+    from gccnmf_torch.ops import stft as stft_ops
+    from gccnmf_torch.ops.enhance_cuda import (
+        argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+    )
+    from gccnmf_torch.ops.nmf import nmf_init_numpy
+    from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
+    from gccnmf_torch.ops.windows import hann_symmetric
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    label = args.label or root
+    t0 = time.perf_counter()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    log = _build.build_log.splitlines()
+    ptxas = {}
+    for i, line in enumerate(log[:-2]):
+        if "Function properties for" in line and any(k in line for k in PRODUCT_KERNELS):
+            name = line.split("Function properties for")[1].strip()
+            if "tc_" not in name:
+                ptxas[name] = f"{log[i + 2].split(':', 1)[1].strip()}; {log[i + 1].strip()}"
+    print(json.dumps(dict(label=label, root=root, device=smi, build_s=build_s, ptxas=ptxas)),
+          flush=True)
+    window = torch.as_tensor(hann_symmetric(WIN), device=dev)
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return statistics.median(out), out
+
+    def mags(x):  # (B, 2, n) → |X| (B, 2T, F), left‖right
+        spec = stft_ops.stft(x, window, HOP, conjugate=True)
+        return spec.abs().reshape(x.shape[0], -1, F)
+
+    def emit(**row):
+        print(json.dumps(dict(label=label, device=smi, **row)), flush=True)
+
+    def by_kernel(fn, per=1):
+        """Device ms of one ``fn()`` by kernel name (torch.profiler), over ``per``."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        out = {ev.key[:80]: ev.device_time_total / 1e3 / per for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0}
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    def nmf_row(name, v, k, reps):
+        b, t = v.shape[0], v.shape[1]
+        w0n, h0n = nmf_init_numpy(F, k, t)
+        w0 = torch.as_tensor(w0n, device=dev).expand(b, F, k)
+        h0 = torch.as_tensor(h0n, device=dev).expand(b, t, k)
+        got = kl_nmf_cuda(v, w0, h0, CHECK_ITERS, matmul_dtype="float32")
+        want = kl_nmf_plain(v, w0, h0, CHECK_ITERS, matmul_dtype="float32")
+        err = 0.0
+        for g, p in zip(got, want):
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-6 * float(p.abs().max()))
+            err = max(err, float((g - p).abs().max()))
+        del want
+        again = kl_nmf_cuda(v, w0, h0, CHECK_ITERS, matmul_dtype="float32")
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        alone = None
+        if b > 1:
+            one = kl_nmf_cuda(v[1:2].clone(), w0[:1], h0[:1], CHECK_ITERS, matmul_dtype="float32")
+            alone = all(torch.equal(g[1], o[0]) for g, o in zip(got, one))
+        del got, again
+        if not same or alone is False:
+            raise RuntimeError(f"{name}: not bit-identical (rerun {same}, alone {alone})")
+        ms, runs = timed(lambda: kl_nmf_cuda(v, w0, h0, ITERS, matmul_dtype="float32"), reps)
+        plain_ms, plain_runs = timed(lambda: kl_nmf_plain(v, w0, h0, ITERS,
+                                                          matmul_dtype="float32"), reps)
+        hb, wb, q = (torch.rand(s, device=dev) for s in ((b, t, k), (b, F, k), (b, t, F)))
+        lib_ms, _ = timed(lambda: (hb @ wb.transpose(-1, -2), q @ wb,
+                                   q.transpose(-1, -2) @ hb, hb @ wb.transpose(-1, -2)),
+                          max(reps, 3))
+        del hb, wb, q
+        flops = 8 * b * t * F * k * ITERS
+        nbytes = b * t * F * 4 + 2 * 4 * b * (F * k + t * k)
+        bound_ms = max(flops / FP32_FLOP_S, nbytes / HBM_BYTES_S) * 1e3
+        prof = (by_kernel(lambda: kl_nmf_cuda(v, w0, h0, 2, matmul_dtype="float32"), 2)
+                if args.profile else None)
+        torch.cuda.empty_cache()
+        emit(row=name, shape=dict(B=b, T=t, F=F, K=k, iterations=ITERS), ms=ms, runs=runs,
+             device_ms_per_iteration=prof,
+             tflop_s=flops / ms / 1e9, plain_ms=plain_ms, plain_runs=plain_runs,
+             gemm_library_ms=lib_ms * ITERS, bound_ms=bound_ms, bound_by="operations",
+             max_abs_err=err, bar="15 iterations: rtol 1e-4, atol 1e-6 x max|plain|",
+             bit_identical=True, batch_element_alone=alone)
+
+    rows = args.rows.split(",")
+    if "nmf_ref" in rows:
+        x = torch.as_tensor(mixture(args.seed, 2, 10), device=dev)
+        nmf_row("nmf_ref", mags(x), 128, 5)
+    if "nmf_corpus" in rows:
+        x = torch.as_tensor(mixture(args.seed + 1, 1, 81), device=dev)
+        nmf_row("nmf_corpus", mags(x)[:, :20000].contiguous(), 256, 3)
+    if "nmf_hour" in rows:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 5)
+        src = torch.randn((3, 3600 * SR), generator=gen, device=dev) * 0.1
+        right = sum(torch.roll(src[i], d) for i, d in enumerate(DELAYS))
+        v = mags(torch.stack([src.sum(0), right])[None])
+        del src, right
+        nmf_row("nmf_hour", v, 128, 1)
+        del v
+        torch.cuda.empty_cache()
+    if "mask" in rows:
+        d_, k_, b = 128, 128, 2
+        x = torch.as_tensor(mixture(args.seed, b, 10), device=dev)
+        spec = stft_ops.stft(x, window, HOP, conjugate=True)
+        coh = gcc.coherence(spec, guard_zeros=True)  # (B, T, F)
+        cre, cim = coh.real.contiguous(), coh.imag.contiguous()
+        cre[1, 5] = float("nan")
+        t = cre.shape[1]
+        cos_m, sin_m = (torch.as_tensor(m, device=dev)
+                        for m in gcc.steering_cos_sin(float(SR), F, 0.1, d_))
+        rng = np.random.default_rng(args.seed + 7)
+        w = torch.as_tensor(rng.random((F, k_), dtype=np.float32) + 0.05, device=dev)
+        basis = soft_mask_basis(cos_m, sin_m, w, "float32")
+        ang = gcc.angular_spectrogram(torch.complex(torch.nan_to_num(cre), cim), cos_m, sin_m)
+        tgt = torch.argmax(gcc.mean_angular_spectrum(ang), dim=-1)
+        margs = (cre, cim, basis, tgt, 5.0, 2.0, 0.0)
+        got, arg = soft_mask_cuda(*margs, matmul_dtype="float32", return_argmax=True)
+        again, arg2 = soft_mask_cuda(*margs, matmul_dtype="float32", return_argmax=True)
+        one = soft_mask_cuda(cre[1:2].clone(), cim[1:2].clone(), basis, tgt[1:2], 5.0, 2.0, 0.0,
+                             matmul_dtype="float32")
+        want = soft_mask_plain(*margs, matmul_dtype="float32")
+        flipped, gap, scale = argmax_flips(cre, cim, basis, arg, matmul_dtype="float32")
+        ulps = int((got.view(torch.int32).long() - want.view(torch.int32).long())
+                   .abs()[~flipped].max())
+        checks = dict(rerun=bool(torch.equal(got, again) and torch.equal(arg, arg2)),
+                      alone=bool(torch.equal(got[1:2], one)),
+                      nan_frame_tdoa0=bool((arg[1, 5] == 0).all()),
+                      flip_gap_ok=gap <= 1e-5 * scale, ulps_ok=ulps <= 2)
+        if not all(checks.values()):
+            raise RuntimeError(f"mask: {checks} (gap {gap}, scale {scale}, ulps {ulps})")
+        ms, runs = timed(lambda: soft_mask_cuda(*margs, matmul_dtype="float32"), 5)
+        plain_ms, plain_runs = timed(lambda: soft_mask_plain(*margs, matmul_dtype="float32"), 5)
+        rows_ = torch.cat([cre, cim], dim=-1).reshape(b * t, 2 * F)
+        fold = torch.cat([basis.cw, basis.sw], dim=1).permute(1, 0, 2).reshape(2 * F, d_ * k_)
+        lib_ms, _ = timed(lambda: rows_ @ fold, 5)
+        least = 2 * b * t * F * d_ * k_ + 3 * b * t * F * d_
+        jax_fn = 4 * b * t * F * d_ * k_
+        nbytes = b * 2 * t * F * 4 + 4 * (F * k_ + 2 * F * d_) + b * 16 + b * t * k_ * 4
+        prof = (by_kernel(lambda: soft_mask_cuda(*margs, matmul_dtype="float32"))
+                if args.profile else None)
+        emit(row="mask", shape=dict(B=b, T=t, F=F, K=k_, D=d_), ms=ms, runs=runs,
+             device_ms=prof,
+             tflop_s=jax_fn / ms / 1e9, plain_ms=plain_ms, plain_runs=plain_runs,
+             gemm_library_ms=lib_ms,
+             bound_ms=max(least / FP32_FLOP_S, nbytes / HBM_BYTES_S) * 1e3,
+             bound_by="operations", function_floor_ms=jax_fn / FP32_FLOP_S * 1e3,
+             max_abs_err=float((got - want).abs().max()), argmax_flips=int(flipped.sum()),
+             flip_gap=gap, scale=scale, mask_ulps=ulps, checks=checks,
+             bar="argmax flips only at near-ties (1e-5 x max), masks within 2 ulps elsewhere")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -15,7 +15,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    instructions in each source that instantiates it, and so must each of
    its instantiations (the NMF ratio's, which the turbo mode launches
    too); their ptxas registers and spills are printed, by source, and the
-   iDFT and the front-end's must not spill.
+   iDFT and the front-end's must not spill. The float32 products on the
+   pipelined SIMT core of ``simt_gemm.cuh`` (the NMF's three, the soft
+   mask's scores) must hold no tensor-core instruction (HGMMA or HMMA: exact
+   fp32, no TF32) and must not spill; their registers and spills are
+   printed too.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
@@ -23,7 +27,8 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    the default config's modes and the turbo NMF (``bfloat16_q_simul``)
    again at batch 16, the NMF at its full 100 iterations, which are the
    shapes ``separate_batch`` gives them. Each NMF row names its product
-   design (``wgmma`` in the bf16 modes, ``simt`` in float32) and carries
+   design (``wgmma`` in the bf16 modes, ``simt2`` in float32: the
+   pipelined core of ``simt_gemm.cuh``) and carries
    ``gemm_library_ms``: the same iteration's products (four; three in the
    turbo mode) as ``torch.matmul`` calls at the row's batch and operand
    type, times 100 (a yardstick only; the port never calls it). Each front-end
@@ -40,7 +45,8 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    (float32, 100 iterations) on the first mixture's |X|. Each soft-mask row
    names its design too and carries ``gemm_library_ms``: the same scores as
    one ``torch.matmul`` of the ``[Re c | Im c]`` rows against the (2F, D·K)
-   fold, in the row's operand type and batch (a yardstick only). The
+   fold, in the row's operand type and batch (a yardstick only); its
+   float32 design is ``simt2``, like the NMF's. The
    synthesis rows (masked and Wiener) name their iDFT design (``wgmma`` in
    bf16, ``simt`` in float32) and carry ``gemm_library_ms``: the iDFT alone
    as one ``torch.matmul`` of the (Z·T, 2F) spectrum rows against the
@@ -140,8 +146,9 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     ``separate`` above 40 dB against it, the default mode (bf16 planes)
     above 20 dB against it, all with the mixture's three targets; a 10 s
     file at the default config streamed on the card and on the CPU, the
-    same targets and >= 40 dB per output; no kernel launched on any of
-    them. Then one hour (``--seed + 5``, 449,993 frames, 899,986 NMF rows)
+    same targets and >= 40 dB per output; one launch of kernel 1 (float32:
+    the one-device exact NMF) in each of the four card runs, no other
+    kernel. Then one hour (``--seed + 5``, 449,993 frames, 899,986 NMF rows)
     through ``separate_streamed`` at ``OfflineConfig()`` and chunks of
     8,192 frames: wall seconds, audio-s/s, the stage seconds and transfer
     MB, the peak of ``torch.cuda.max_memory_allocated`` and the host's
@@ -149,9 +156,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     anonymous part (``RssAnon``, or where ``/proc`` has none ``VmData``
     less the input's copy-on-write memory map) may grow by at most twice
     one chunk's host buffers; the three
-    targets, every output the expected length and nonzero. Last, kernel 1
-    (float32) at the hour's NMF shape (B = 1, T = 899,986, K = 128) against
-    the guarded plain ``kl_nmf`` that the path runs, rtol 1e-4 after 15
+    targets, every output the expected length and nonzero, one launch of
+    kernel 1 and no other. Last, kernel 1 (float32) at the hour's NMF shape
+    (B = 1, T = 899,986, K = 128), which the path runs, against the guarded
+    plain ``kl_nmf`` that it replaced there, rtol 1e-4 after 15
     iterations, both timed once at 100 after a warm-up, and its
     ``gemm_library_ms``: one iteration's four float32 products as
     ``torch.matmul`` at that shape, times 100.
@@ -168,10 +176,14 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     (1e-5 x max, seconds of both), and a fresh trainer resumed from the
     iteration-50 checkpoint against the uninterrupted W; (c)
     ``LongAudioSeparator(mesh=...).separate`` of 10 minutes (``--seed +
-    8``) at ``OfflineConfig()`` against the mesh-less ``separate``: the
-    mixture's targets in both, W within 1e-5 x max, every target above
-    40 dB, audio-s/s and ``max_memory_allocated`` of each, run in turns
-    (mesh, mesh-less, mesh-less, mesh); no kernel launched in (a)-(c). Then (d) the commands as subprocesses: ``separate
+    8``) at ``OfflineConfig()`` against the mesh-less ``separate`` on the
+    same plain guarded updates (the mesh's NMF is JAX's plain
+    ``kl_nmf_sharded``): the mixture's targets in both, W within 1e-5 x
+    max, every target above 40 dB, audio-s/s and ``max_memory_allocated``
+    of each, run in turns (mesh, mesh-less, mesh-less, mesh); no kernel
+    launched in (a)-(c); then the mesh-less ``separate`` as users run it
+    (kernel 1 float32 for its NMF, one launch) against that reference:
+    the same targets, every target above 40 dB. Then (d) the commands as subprocesses: ``separate
     --time-shards 1 --streamed`` (rc 0, its JSON, the targets), ``separate
     --time-shards 2`` on this one card (non-zero, make_mesh's "exceeds"
     error, nothing written), and ``pretrain --data-shards 1 --sizes 64``
@@ -420,6 +432,12 @@ FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "angul
 # the tensor-core kernels that must not spill: two blocks an SM leave each
 # thread 128 registers
 NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
+# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh), by
+# the source that instantiates each: exact fp32, so their SASS must hold no
+# tensor-core instruction (HGMMA, or HMMA as TF32 would use), and they must
+# not spill
+SIMT_KERNELS = {"simt_wh_ratio_kernel": "nmf.cu", "simt_h_update_kernel": "nmf.cu",
+                "simt_qth_split_kernel": "nmf.cu", "simt_score_argmax_kernel": "enhance.cu"}
 # a kernel name that tells a source's SASS apart from the others', tried in
 # this order (synthesis.cu's spectra_kernel is also a substring of
 # enhance.cu's wiener_spectra_kernel)
@@ -427,17 +445,19 @@ SOURCE_MARKERS = {"enhance.cu": "score_argmax_kernel", "nmf.cu": "tc_h_update_ke
                   "frontend.cu": "angular_kernel", "synthesis.cu": "spectra_kernel"}
 
 
-def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str]]:
+def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str], dict[str, int]]:
     """HGMMA instructions per tensor-core kernel and source (``"kernel
     (source)"``, all instantiations together) in the SASS of ``library``,
     read with the ``cuobjdump`` of ``nvcc``'s toolkit: each source's
     object keeps its own ELF in the library, named by its marker kernel.
     Also the instantiations (mangled names) that hold none, such as a
-    ``tc_wh_ratio_kernel<TV, 2>`` that the turbo mode launches."""
+    ``tc_wh_ratio_kernel<TV, 2>`` that the turbo mode launches, and the
+    tensor-core instructions (HGMMA and HMMA) of each SIMT kernel."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts = {f"{k} ({src})": 0 for k, srcs in TC_KERNELS.items() for src in srcs}
+    simt = {f"{k} ({src})": 0 for k, src in SIMT_KERNELS.items()}
     empty = []
     for elf in sass.split("Fatbin elf code")[1:]:
         src = next((s for s, marker in SOURCE_MARKERS.items() if marker in elf), "?")
@@ -449,18 +469,23 @@ def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str]]:
                     counts[key] = counts.get(key, 0) + section.count("HGMMA")
                     if "HGMMA" not in section:
                         empty.append(f"{name.strip()} ({src})")
-    return counts, empty
+            for k in SIMT_KERNELS:
+                if k in name:
+                    key = f"{k} ({src})"
+                    simt[key] = simt.get(key, 0) + section.count("HGMMA") + section.count("HMMA")
+    return counts, empty, simt
 
 
 def ptxas_summary(build_log: str) -> dict[str, str]:
     """Registers and spills that ``ptxas -v`` reported for each
-    instantiation of the tensor-core kernels, by source (the build log's
-    ``== <source>`` lines)."""
+    instantiation of the tensor-core and SIMT product kernels, by source
+    (the build log's ``== <source>`` lines)."""
     lines, out, src = build_log.splitlines(), {}, "?"
     for i, line in enumerate(lines[:-2]):
         if line.startswith("== "):
             src = line[3:].strip()
-        if "Function properties for" in line and any(k in line for k in TC_KERNELS):
+        if "Function properties for" in line and any(k in line for k in (*TC_KERNELS,
+                                                                          *SIMT_KERNELS)):
             name = line.split("Function properties for")[1].strip()
             out[f"{name} ({src})"] = (f"{lines[i + 2].split(':', 1)[1].strip()}; "
                                       f"{lines[i + 1].strip()}")
@@ -540,8 +565,11 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
         default_vs_f32=dict(snr_db=def_snr, bar="> 20 dB"),
         card_vs_cpu_10s=dict(snr_db=cpu_snr, bar=">= 40 dB"),
         launches=parity_launches)
-    require(all(v == 0 for v in parity_launches.values()),
-            f"long_audio: a kernel launched on the long-audio paths: {parity_launches}")
+    # one NMF launch a call (kernel 1 float32, the one-device exact NMF) in
+    # each of the four runs on the card, and no other kernel
+    require(parity_launches == {**{k: 0 for k in parity_launches}, "kl_nmf_cuda": 4},
+            f"long_audio: launches on the long-audio paths {parity_launches}, want 4 of "
+            "kl_nmf_cuda only")
     require(ref32["target_tdoa_indexes"] == want_targets and all(
         r["target_tdoa_indexes"] == want_targets for r in (st32, mem32, stdef)),
             f"long_audio 60 s: targets {parity['targets']}")
@@ -627,8 +655,8 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
          config=f"OfflineConfig() (bfloat16_q planes, guarded fp32 NMF), chunk_frames "
                 f"{sep.chunk_frames}; parity at {LONG_PARITY_S} s with chunk_frames "
                 f"{LONG_CHUNK}", parity=parity, hour=fields)
-    require(all(v == 0 for v in hour_launches.values()),
-            f"long_audio hour: a kernel launched: {hour_launches}")
+    require(hour_launches == {**{k: 0 for k in hour_launches}, "kl_nmf_cuda": 1},
+            f"long_audio hour: launches {hour_launches}, want one of kl_nmf_cuda only")
     require(hour["target_tdoa_indexes"] == want_targets,
             f"long_audio hour: targets {hour['target_tdoa_indexes']} != {want_targets}")
     require(hour["samples_written"] == want_len
@@ -640,8 +668,8 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
             f"long_audio hour: host {anon_key} grew {growth} MiB > {mem_bound} MiB")
     del hour
 
-    # ---- kernel 1 (float32) at the hour's NMF shape, against the guarded
-    # plain kl_nmf that the path runs
+    # ---- kernel 1 (float32) at the hour's NMF shape, which the path runs,
+    # against the guarded plain kl_nmf that it replaced there
     pcm = wav.WavReader(path_h).read_raw(0, HOUR_S * SR)
     x = torch.as_tensor(pcm, device=dev).to(torch.float32) / 32768.0
     del pcm
@@ -664,7 +692,7 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
     gemm_library_ms = time_ms(torch, lambda: (hb @ wb.T, q @ wb, q.T @ hb, hb @ wb.T),
                               3) * NMF_ITERS
     del hb, wb, q
-    record(
+    row = record(
         "kl_nmf_cuda", "float32", 1, "gccnmf_torch/csrc/nmf.cu",
         "gccnmf_tpu/ops/nmf_pallas.py:218", got, None, 0.0,
         lambda: kl_nmf_cuda(v, w0, h0, NMF_ITERS, matmul_dtype="float32"),
@@ -675,13 +703,15 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
         check_fn=lambda: kl_nmf_cuda(v, w0, h0, NMF_CHECK_ITERS, matmul_dtype="float32"),
         err=err, reps=1,
         note=f"{NMF_CHECK_ITERS} iterations: rtol 1e-4, atol 1e-6 x max|plain|",
-        iterations_timed=NMF_ITERS, design="simt",
+        iterations_timed=NMF_ITERS, design="simt2",
         timed="one call of each after a warm-up (CUDA events)",
         gemm_library_ms=gemm_library_ms,
         gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on float32 operands at "
                            f"T = {2 * t_h} (median of 3 after a warm-up), times {NMF_ITERS}; "
                            "not the same function, so library_ms stays null"),
-        off_path="the long-audio path runs JAX's guarded plain kl_nmf (0 launches)")
+        plain_is="the guarded plain kl_nmf (JAX's XLA path; the one-device NMF on the CPU)")
+    row["launches"] = hour_launches["kl_nmf_cuda"]
+    row["launches_on"] = "separate_streamed of the hour (its one-device NMF)"
     del got, v, w0, h0
     torch.cuda.empty_cache()
     tmp_dir.cleanup()
@@ -800,10 +830,23 @@ def distributed_phase(torch, seed: int, kind: str, smi: str, reset_counts, count
         emit("distributed", check="trainer", device=kind, nvidia_smi=smi, **fields["trainer"])
         del args_c, w_one
 
-        # ---- (c) the sharded separator against the mesh-less one, 10 minutes
+        # ---- (c) the sharded separator against the mesh-less one, 10 minutes.
+        # The mesh runs JAX's plain guarded updates (kl_nmf_sharded); the
+        # mesh-less reference here runs the same updates (nmf.kl_nmf with
+        # the guards, as JAX's one-device path does), so that the two differ
+        # only by the sharding. The mesh-less separator as users run it
+        # (kernel 1 float32 for its NMF) is held against it after the turns.
         x = make_mixture(seed + 8, 1, DIST_SEP_S)[0]
         seps = {"mesh": LongAudioSeparator(OfflineConfig(), mesh=mesh),
                 "mesh_less": LongAudioSeparator(OfflineConfig())}
+        plain_sep = seps["mesh_less"]
+
+        def plain_nmf(v2, w0, h0):
+            cfg_ = plain_sep.config
+            return nmf.kl_nmf(v2, torch.as_tensor(w0, device=dev), h0, cfg_.num_iterations,
+                              cfg_.sparsity_alpha, cfg_.epsilon, guard=True)
+
+        plain_sep._run_nmf = plain_nmf
         runs = {name: dict(seconds=[], max_memory_allocated_gib=[]) for name in seps}
         outs = {}
         # in turns, so neither side alone pays the first call's warm-up
@@ -827,9 +870,22 @@ def distributed_phase(torch, seed: int, kind: str, smi: str, reset_counts, count
             seconds_of_audio=DIST_SEP_S, frames=a["frames_processed"], config="OfflineConfig()",
             targets=a["target_tdoa_indexes"], w=close([a["w"]], [b["w"]], "separator W"),
             snr_db=snrs, snr_bar="> 40 dB", order="mesh, mesh_less, mesh_less, mesh", **runs)
-        emit("distributed", check="separator", device=kind, nvidia_smi=smi, **fields["separator"])
         launches = counts()
         require(sum(launches.values()) == 0, f"distributed: a kernel launched: {launches}")
+        routed = LongAudioSeparator(OfflineConfig()).separate(x)  # kernel 1 for the NMF
+        routed_launches = counts()
+        routed_snrs = [snr_db(r, e) for r, e in zip(b["estimates"], routed["estimates"])]
+        require(routed["target_tdoa_indexes"] == b["target_tdoa_indexes"]
+                and min(routed_snrs) > 40.0
+                and routed_launches == {**launches, "kl_nmf_cuda": 1},
+                f"distributed: the routed mesh-less separator {routed['target_tdoa_indexes']}, "
+                f"{routed_snrs} dB, launches {routed_launches}")
+        fields["separator"]["routed_mesh_less"] = dict(
+            snr_db=routed_snrs, snr_bar="> 40 dB", launches=routed_launches,
+            note="LongAudioSeparator(OfflineConfig()).separate as users run it (kernel 1 "
+                 "float32 for the NMF) against the plain-updates reference")
+        emit("distributed", check="separator", device=kind, nvidia_smi=smi, **fields["separator"])
+        del routed
 
     reset_counts()
     try:
@@ -1444,15 +1500,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.library()
     build_s = time.perf_counter() - t0
-    hgmma, no_hgmma = hgmma_counts(_build._nvcc(), lib._name)
+    hgmma, no_hgmma, simt_tc = hgmma_counts(_build._nvcc(), lib._name)
     require(all(n > 0 for n in hgmma.values()), f"a tensor-core kernel has no HGMMA: {hgmma}")
     require(not no_hgmma, f"tensor-core instantiations without HGMMA: {no_hgmma}")
+    require(all(n == 0 for n in simt_tc.values()),
+            f"a float32 SIMT kernel runs tensor-core instructions: {simt_tc}")
     ptxas = ptxas_summary(_build.build_log)  # empty when the library was cached
-    spills = [k for k, v in ptxas.items() if any(n in k for n in NO_SPILL)
+    spills = [k for k, v in ptxas.items() if any(n in k for n in (*NO_SPILL, *SIMT_KERNELS))
               and "0 bytes spill stores, 0 bytes spill loads" not in v]
-    require(not spills, f"a two-blocks-an-SM tensor-core kernel spills: {spills}")
+    require(not spills, f"a tensor-core or SIMT product kernel spills: {spills}")
     emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
-         hgmma=hgmma, ptxas=ptxas)
+         hgmma=hgmma, simt_tensor_core_instructions=simt_tc, ptxas=ptxas)
 
     # ---- 3. kernels against their plain versions ---------------------------
     mix = make_mixture(args.seed, MAIN_BATCH)
@@ -1542,6 +1600,7 @@ def main() -> int:
                    **extra)
         emit("kernel", **row)
         rows.append(row)
+        return row
 
     def check_frontend(x, md, basis, cos_, sin_, hop, shape=""):
         """The front-end kernel in mode ``md`` on the (B, 2, n) signals
@@ -1631,7 +1690,7 @@ def main() -> int:
                 check_fn=lambda md=md: kl_nmf_cuda(v, w0, h0, nmf_check_iters,
                                                    matmul_dtype=md),
                 err=err, note=note, iterations_timed=NMF_ITERS,
-                design="simt" if md == "float32" else "wgmma",
+                design="simt2" if md == "float32" else "wgmma",
                 gemm_library_ms=gemm_library_ms,
                 gemm_library_note=(f"H·Wᵀ {'once' if turbo else 'twice'}, Q·W, Qᵀ·H as "
                                    f"torch.matmul on {dt} operands at B = {b}, times "
@@ -1759,7 +1818,7 @@ def main() -> int:
                       f"the argmax agrees, and agree on {agree:.6f} >= {MASK_AGREE[md]} of "
                       "(t, k) at rtol 1e-6; max_abs_err is over all (t, k), flips included"),
                 argmax_flips=flips, mask_ulps=ulps, mask_agreement=agree,
-                design="simt" if md == "float32" else "wgmma",
+                design="simt2" if md == "float32" else "wgmma",
                 gemm_library_ms=gemm_library_ms,
                 gemm_library_note=(f"[Re c | Im c] rows @ the (2F, D·K) fold as one torch.matmul "
                                    f"on {dt} operands at B = {b}; the scores alone (no argmax, "
@@ -2466,7 +2525,7 @@ def main() -> int:
                 err=pretrain_checks[k]["max_abs_err_w"],
                 note=(f"{NMF_CHECK_ITERS} iterations: rtol 1e-4, atol 1e-6 x max|plain|; "
                       f"KL within 0.5 % of the plain version's at {NMF_ITERS}"),
-                iterations_timed=NMF_ITERS, design="simt", gemm_library_ms=gemm_library_ms,
+                iterations_timed=NMF_ITERS, design="simt2", gemm_library_ms=gemm_library_ms,
                 gemm_library_note=(f"H·Wᵀ twice, Q·W, Qᵀ·H as torch.matmul on float32 "
                                    f"operands at T = {t_c}, times {NMF_ITERS}; not the same "
                                    "function, so library_ms stays null"),

@@ -1,20 +1,27 @@
 // Shared SIMT tile machinery for the port's hand-written Hopper kernels.
 //
-// The syntheses' spectra GEMMs, and every kernel's products in the float32
-// mode, are computed here with a plain tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a 16-deep contraction
-// slice staged in shared memory, a 4x4 register micro-tile per thread, fp32
-// fused multiply-adds. The bf16 modes round each GEMM operand to bf16
+// Its remaining users: the syntheses' spectra GEMMs (synthesis.cu's
+// spectra_kernel, enhance.cu's wiener_spectra_kernel) in every mode, and
+// the float32 DFTs (the front-end's rDFT and angular products in
+// frontend.cu, the iDFT's frames_kernel in istft.cuh). They run a plain
+// tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a 16-deep
+// contraction slice staged in shared memory one scalar at a time, a 4x4
+// register micro-tile per thread, fp32 fused multiply-adds, with no
+// copy/compute overlap. The bf16 modes round each GEMM operand to bf16
 // (round-to-nearest-even) as it is staged, which is exactly JAX's "bf16
 // operands, fp32 accumulation" contract (the product of two bf16 values is
 // exact in fp32). Sums run in a fixed order, with no atomics, so two runs
 // give bit-identical results.
 //
 // What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
-// staging loads with a bf16 round at each. No tensor-core path is exact
-// fp32, so the float32 modes stay here. The bf16 products of the NMF, of
-// the soft mask's scores, of the syntheses' iDFT and of the front-end's
-// rDFT and angular spectrogram moved to the tensor cores (tc_gemm.cuh); the
-// syntheses' spectra GEMMs stay here in every mode.
+// staging loads with a bf16 round at each. Its users are small GEMMs (the
+// float32 DFTs are bound by bytes and their cost is the DFT run as a GEMM).
+// The float32 NMF and soft-mask scores run on the pipelined core of
+// simt_gemm.cuh; the bf16 products of the NMF, of the soft mask's scores,
+// of the syntheses' iDFT and of the front-end's rDFT and angular
+// spectrogram on the tensor cores (tc_gemm.cuh). This file also holds
+// the helpers every source shares (bf16 conversions, the guarded divide,
+// elementwise launch sizes).
 #pragma once
 
 #include <cuda_bf16.h>

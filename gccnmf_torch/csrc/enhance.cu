@@ -21,7 +21,9 @@
 // soft mask needs 4·B·T·F·D·K flop (669 GFLOP at B = 16, T = 1,243,
 // F = 513, D = K = 128; 0.68 ms at the bf16 tensor-core peak) against tens
 // of MB of planes and dictionary, so the products bound it by far. In
-// float32, 2·B·T·F·D·K + 3·B·T·F·D (forming Re c·cos_d + Im c·sin_d first).
+// float32 the least work is 2·B·T·F·D·K + 3·B·T·F·D (forming
+// Re c·cos_d + Im c·sin_d first), but the kernel keeps JAX's function and
+// its 4·B·T·F·D·K (below).
 //
 // bf16 mode, on the tensor cores (tc_gemm.cuh):
 //   1. coherence_rows_kernel packs the planes into bf16 rows
@@ -56,9 +58,23 @@
 //      same strict > (so the first maximum still wins) and applies the mask
 //      with the parameters of the row's utterance. It can also write the
 //      argmax, which only the checks read.
-// float32 mode keeps the SIMT tile of common.cuh (no tensor-core path is
-// exact fp32): score_argmax_kernel runs, for each d, the 64 × 64 tiled fp32
-// FMA GEMM over F against cw[d] and sw[d], then mask_kernel as above.
+// float32 mode runs on the SIMT cores (no tensor-core path is exact fp32),
+// with the pipelined fp32 core of simt_gemm.cuh:
+//   1. coherence_rows_f32_kernel packs the planes into fp32 rows
+//      [Re c | Im c | 0] of ldj floats (16-byte rows).
+//   2. simt_score_argmax_kernel: a block of 128 rows × 64 atoms streams, for
+//      each d of its chunk, the 2F-deep product of those rows (K-major,
+//      float4 loads through registers) against [cw[d]; sw[d]] (MN-major,
+//      cp.async from the two planes) in 8-deep slices, one continuous
+//      3-stage ring across the d's, 8 × 8 outputs a thread; when d's last
+//      slice is in it folds them into the running (max, argmax) as the
+//      tensor-core kernel does (argmax bytes, chunk <= 256; the maxima in
+//      shared memory, so three blocks fit an SM).
+//   3. mask_kernel as above.
+//   It computes JAX's function, mm(Re c, cw[d]) + mm(Im c, sw[d]): 4·B·T·F·D·K
+//   flop (1.25 ms at B = 2, T = 1,243, F = 513, D = K = 128 at the 67
+//   TFLOP/s fp32 SIMT rate), so the FMAs bound it; the A rows are restreamed
+//   for every d from L2 (about 1.3 GB at B = 2), which L2 serves.
 //
 // Every score is the same fixed sequence of operations whatever the batch,
 // the row's place in its tile, or the split, so the argmax depends on none
@@ -85,6 +101,7 @@
 
 #include "common.cuh"
 #include "istft.cuh"
+#include "simt_gemm.cuh"
 #include "tc_gemm.cuh"
 
 using namespace gccnmf;
@@ -93,65 +110,103 @@ extern __shared__ __align__(128) unsigned char tc_smem[];  // a ScoreTile's SMEM
 
 namespace {
 
-// ---- soft mask, float32: the SIMT products of common.cuh -----------------
+// ---- soft mask, float32: the pipelined SIMT products of simt_gemm.cuh -----
 
-// Running (max, argmax) over d in [split·chunk, min(D, (split+1)·chunk)) of
-// s[m,d,k] for the block's (64 × 64) tile of (rows m, atoms k); written to
-// pmax/parg at [split, m, k].
+// rows[m] = [Re c[m, :F] | Im c[m, :F] | 0] in fp32, ldj floats (a multiple
+// of 4), one 16-byte chunk a thread: the scores' A operand, K-major with
+// 16-byte rows (the planes' rows of F = 513 floats are not).
 template <typename TP>
-__global__ void __launch_bounds__(NTHREADS)
-score_argmax_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim, int ldf,
-                    const float* __restrict__ cw, const float* __restrict__ sw,
-                    float* __restrict__ pmax, int* __restrict__ parg, int M, int F, int K,
-                    int D, int chunk) {
-  __shared__ __align__(16) TileA Ar, Ai;
-  __shared__ __align__(16) TileB Bc, Bs;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN, split = blockIdx.z;
-  const int d0 = split * chunk, d1 = min(D, d0 + chunk);
-  float best[4][4];
-  int arg[4][4];
+__global__ void coherence_rows_f32_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim,
+                                          int ldf, float* __restrict__ rows, int ldj, int M,
+                                          int F) {
+  const int chunks = ldj / 4;
+  const long total = (long)M * chunks;
+  for (long idx = blockIdx.x * (long)blockDim.x + threadIdx.x; idx < total;
+       idx += (long)gridDim.x * blockDim.x) {
+    const long m = idx / chunks;
+    const int j0 = (int)(idx % chunks) * 4;
+    float v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      best[i][j] = -INFINITY;
-      arg[i][j] = d0;
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + e;
+      v[e] = j < F ? to_f32(cre[m * ldf + j]) : j < 2 * F ? to_f32(cim[m * ldf + j - F]) : 0.0f;
     }
-  for (int d = d0; d < d1; ++d) {
-    const float* cwd = cw + (long)d * F * K;
-    const float* swd = sw + (long)d * F * K;
-    float acc[4][4];
-    zero(acc);
-    for (int f0 = 0; f0 < F; f0 += BK) {
-      stage_a<true>(Ar, cre, ldf, 1, m0, f0, M, F, false);  // (m, f) at c[m*ldf + f]
-      stage_a<true>(Ai, cim, ldf, 1, m0, f0, M, F, false);
-      stage_b<true>(Bc, cwd, K, 1, f0, n0, F, K, false);    // (f, k) at cw[d][f*K + k]
-      stage_b<true>(Bs, swd, K, 1, f0, n0, F, K, false);
-      __syncthreads();
-      tile_fma(Ar, Bc, acc);
-      tile_fma(Ai, Bs, acc);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (acc[i][j] > best[i][j]) {  // strict: the first maximum wins; NaN never
-          best[i][j] = acc[i][j];
-          arg[i][j] = d;
-        }
+    *reinterpret_cast<float4*>(rows + m * ldj + j0) = make_float4(v[0], v[1], v[2], v[3]);
   }
+}
+
+// 128 rows x 64 atoms a block, 64 accumulators and 16 words of packed
+// argmax a thread; the 64 running maxima a thread live in shared memory
+// (read and written once a TDOA), which keeps the registers to three blocks
+// an SM. Dynamic shared memory: the ring, then the maxima.
+using ScoreTile32 = simt::Tile<128, 64>;
+constexpr int SCORE_SMEM_BYTES =
+    (ScoreTile32::SMEM_FLOATS + 64 * ScoreTile32::THREADS) * (int)sizeof(float);
+
+// Running (max, argmax) over d in [d0, d0 + chunk) ∩ [0, D), d0 = split·chunk
+// (chunk <= 256), of s[m,d,k] = rows[m]·[cw[d]; sw[d]][:, k] (J = 2F deep, in
+// index order: the Re c terms, then the Im c terms) for the block's 128 rows
+// and 64 atoms; written to pmax/parg at [split, m, k]. Grid: (splits, atom
+// tiles, row tiles), as the tensor-core kernel's.
+__global__ void __launch_bounds__(ScoreTile32::THREADS, 3)
+simt_score_argmax_kernel(const float* __restrict__ rows, int ldj, const float* __restrict__ cw,
+                         const float* __restrict__ sw, float* __restrict__ pmax,
+                         int* __restrict__ parg, int M, int F, int K, int D, int chunk) {
+  using TL = ScoreTile32;
+  float* smem = reinterpret_cast<float*>(tc_smem);
+  float* best = smem + TL::SMEM_FLOATS + threadIdx.x;  // best[r * THREADS]: this thread's
+  const int split = blockIdx.x, n0 = blockIdx.y * TL::BN, m0 = blockIdx.z * TL::BM;
+  const int d0 = split * chunk, nd = min(D, d0 + chunk) - d0;
+  const int J = 2 * F, nk = (J + simt::BK - 1) / simt::BK;  // slices per TDOA
+  const simt::Operand a{rows, ldj, M, J};
+  simt::Loader<true, TL::BM, TL::THREADS, TL::LDA> la;
+  simt::Loader<false, TL::BN, TL::THREADS, TL::LDB> lb;
+  float acc[8][8];
+  uint32_t arg[16];  // d − d0 of each running max, a byte each
+  simt::zero(acc);
+#pragma unroll
+  for (int r = 0; r < 64; ++r) best[r * TL::THREADS] = -INFINITY;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) arg[r] = 0u;
+  // the ring fetches and computes the slices in order, once each: slice
+  // (fetch_d, fetch_k) of the TDOA d0 + fetch_d is next to fetch, the slice
+  // fold_k of TDOA d0 + fold_d next to compute
+  int fetch_d = 0, fetch_k = 0, fold_d = 0, fold_k = 0;
+  simt::ring<TL>(
+      smem, nd * nk,
+      [&](int, float* st) {
+        const long d = d0 + fetch_d;
+        const simt::Operand b{cw + d * F * K, K, K, J, sw + d * F * K, F};
+        la.fetch(a, m0, fetch_k * simt::BK, st);
+        lb.fetch(b, n0, fetch_k * simt::BK, st + TL::A_FLOATS);
+        if (++fetch_k == nk) fetch_k = 0, ++fetch_d;
+      },
+      [&](float* st) {
+        la.put(st);
+        lb.put(st + TL::A_FLOATS);
+      },
+      [&](int, const float* st) {
+        simt::fma_slice<TL>(st, acc);
+        if (++fold_k < nk) return;  // the TDOA's scores are complete: fold them
+        fold_k = 0;
+        const uint32_t dl = fold_d++;
+#pragma unroll
+        for (int r = 0; r < 64; ++r) {
+          const int ri = r / 8, rj = r % 8;
+          if (acc[ri][rj] > best[r * TL::THREADS]) {  // strict: the first maximum wins; NaN never
+            best[r * TL::THREADS] = acc[ri][rj];
+            arg[r / 4] = (arg[r / 4] & ~(0xFFu << (8 * (r % 4)))) | (dl << (8 * (r % 4)));
+          }
+          acc[ri][rj] = 0.0f;
+        }
+      });
   const long base = (long)split * M * K;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = out_row(m0, i);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = out_col(n0, j);
-      if (k >= K) continue;
-      pmax[base + (long)m * K + k] = best[i][j];
-      parg[base + (long)m * K + k] = arg[i][j];
+  for (int r = 0; r < 64; ++r) {
+    const int m = m0 + simt::frag_row<TL>(r / 8), k = n0 + simt::frag_col<TL>(r % 8);
+    if (m < M && k < K) {
+      pmax[base + (long)m * K + k] = best[r * TL::THREADS];
+      parg[base + (long)m * K + k] = d0 + (int)((arg[r / 4] >> (8 * (r % 4))) & 0xFFu);
     }
   }
 }
@@ -323,24 +378,40 @@ cudaError_t run_tc_scores(const bf16* rows, const bf16* fold, int ldj, float* pm
   return cudaGetLastError();
 }
 
-// fold null: the float32 mode's SIMT scores from the planes and cw/sw;
-// else the bf16 mode's: the planes packed into rows, then the tensor cores.
+// fold null: the float32 mode's: the planes packed into fp32 rows, then the
+// SIMT scores against cw/sw; else the bf16 mode's: the planes packed into
+// bf16 rows, then the tensor cores.
 template <typename TP>
 cudaError_t run_mask(const TP* cre, const TP* cim, int ldf, const float* cw, const float* sw,
-                     const bf16* fold, bf16* rows, int ldj, const float* params, float* pmax,
+                     const bf16* fold, void* rows, int ldj, const float* params, float* pmax,
                      int* parg, float* hmask, int* argout, int B, int T, int F, int K, int D,
                      int splits, int chunk, cudaStream_t st) {
   const int M = B * T;
   cudaError_t err;
   if (fold) {
+    bf16* rb = static_cast<bf16*>(rows);
     coherence_rows_kernel<TP><<<elementwise_blocks((long)M * (ldj / 8)), 256, 0, st>>>(
-        cre, cim, ldf, rows, ldj, M, F);
+        cre, cim, ldf, rb, ldj, M, F);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    err = run_tc_scores(rows, fold, ldj, pmax, parg, M, F, K, D, splits, chunk, st);
+    err = run_tc_scores(rb, fold, ldj, pmax, parg, M, F, K, D, splits, chunk, st);
   } else {
-    score_argmax_kernel<TP><<<tile_grid(M, K, splits), NTHREADS, 0, st>>>(
-        cre, cim, ldf, cw, sw, pmax, parg, M, F, K, D, chunk);
+    using TL = ScoreTile32;
+    float* rf = static_cast<float*>(rows);
+    coherence_rows_f32_kernel<TP><<<elementwise_blocks((long)M * (ldj / 4)), 256, 0, st>>>(
+        cre, cim, ldf, rf, ldj, M, F);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const void* kernel = reinterpret_cast<const void*>(simt_score_argmax_kernel);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SCORE_SMEM_BYTES);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(splits, (K + TL::BN - 1) / TL::BN, (M + TL::BM - 1) / TL::BM);
+    simt_score_argmax_kernel<<<grid, TL::THREADS, SCORE_SMEM_BYTES, st>>>(
+        rf, ldj, cw, sw, pmax, parg, M, F, K, D, chunk);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return err;
@@ -371,21 +442,21 @@ cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const
 // cre/cim: (B, T, ldf) coherence planes, bf16 if plane_bf16 else f32,
 // ldf >= F; params: (B, 4) f32; pmax/parg: (splits, B·T, K) scratch with
 // splits = ceil(D / chunk); hmask: (B, T, K) f32; argout: (B, T, K) int32
-// or null. float32 mode (fold null): cw/sw the (D, F, K) f32 folded
-// dictionary. bf16 mode: fold (D, K, ldj) bf16 with row (d, k) =
-// [cw[d,:,k] | sw[d,:,k] | 0], ldj >= 2F a multiple of 8; rows (B·T, ldj)
-// bf16 scratch; chunk <= 256; cw/sw unused.
+// or null; ldj >= 2F a multiple of 8; chunk <= 256. float32 mode (fold
+// null): cw/sw the (D, F, K) f32 folded dictionary, rows (B·T, ldj) f32
+// scratch. bf16 mode: fold (D, K, ldj) bf16 with row (d, k) =
+// [cw[d,:,k] | sw[d,:,k] | 0]; rows (B·T, ldj) bf16 scratch; cw/sw unused.
 extern "C" int gccnmf_soft_mask(const void* cre, const void* cim, int plane_bf16, int ldf,
                                 const float* cw, const float* sw, const void* fold, void* rows,
                                 int ldj, const float* params, float* pmax, int* parg,
                                 float* hmask, int* argout, int B, int T, int F, int K, int D,
                                 int splits, int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (fold && (ldj % 8 != 0 || ldj < 2 * F || chunk < 1 || chunk > 256))
+  if (!rows || ldj % 8 != 0 || ldj < 2 * F || chunk < 1 || chunk > 256)
     return (int)cudaErrorInvalidValue;
 #define GCCNMF_RUN(TP)                                                                       \
   return (int)run_mask<TP>(static_cast<const TP*>(cre), static_cast<const TP*>(cim), ldf, cw, \
-                           sw, static_cast<const bf16*>(fold), static_cast<bf16*>(rows), ldj, \
+                           sw, static_cast<const bf16*>(fold), rows, ldj,                     \
                            params, pmax, parg, hmask, argout, B, T, F, K, D, splits, chunk, st)
   if (plane_bf16) GCCNMF_RUN(bf16);
   GCCNMF_RUN(float);

@@ -7,7 +7,7 @@ dictionary column scores highest against the PHAT coherence, then a
 generalized-Gaussian mask around the utterance's target TDOA. The
 (B, T, D, K) scores never reach device memory: each block keeps a running
 (max, argmax) in registers while it loops over the TDOAs. The products
-bound it: in float32, 2·B·T·F·D·K + 3·B·T·F·D flop (form
+bound it: in float32 the least work is 2·B·T·F·D·K + 3·B·T·F·D flop (form
 ``Re c·cos_d + Im c·sin_d``, then one GEMM against W); in bf16, where the
 folded product ``cos_d·W`` is rounded, 4·B·T·F·D·K (669 GFLOP at 16 × 10 s
 with D = K = 128). In the bf16 mode the scores run on the tensor cores
@@ -16,7 +16,12 @@ the coherence rows ``[Re c | Im c]`` (packed by the kernel, as
 :func:`synthesis_cuda.idft_rows` lays them out) and the fold ``[cw[d]; sw[d]]``
 (:func:`fold_rows`, built once with the basis), both bf16 on zero-padded
 16-byte rows. In float32 they stay fp32 FMAs on the SIMT cores, since no
-tensor-core path is exact fp32.
+tensor-core path is exact fp32, on the pipelined core of
+``csrc/simt_gemm.cuh``: the same 2F-deep product per TDOA, between the
+coherence rows packed in fp32 and the fp32 ``cw``/``sw`` as they lie. That
+keeps JAX's function, ``mm(Re c, cw[d]) + mm(Im c, sw[d])``, and its
+4·B·T·F·D·K flop, which bound it at the card's fp32 FMA rate (1.25 ms at
+B = 2 of 10 s, D = K = 128).
 
 ``tf_synthesis_cuda`` replaces ``::tf_synthesis_pallas``: the Wiener TF mask
 ``h_mask·(W/Σ_k W)ᵀ`` multiplied into both channels' planes, then the
@@ -189,23 +194,21 @@ def argmax_flips(coh_re, coh_im, basis, kernel_argmax, *, matmul_dtype="bfloat16
     return flipped.reshape(kernel_argmax.shape), gap, scale
 
 
-# the tensor-core score kernel's argmax is a byte a TDOA chunk
-_MAX_TC_CHUNK = 256
+# both score kernels keep their argmax as a byte a TDOA chunk
+_MAX_CHUNK = 256
 
 
 def _tdoa_chunk(m, k, d, sms, tensor_cores):
     """TDOAs a block scans: split over blocks when the (rows × atoms) tiles
-    alone would leave the card's SMs idle (one or two utterances). The SIMT
-    tile (64 × 64, float32) takes as many chunks as give two blocks an SM.
-    The tensor-core tile (128 rows × 128 atoms, one block an SM) takes the
-    fewest splits whose last wave is at least 90 % full."""
-    if not tensor_cores:
-        tiles = -(-m // 64) * -(-k // 64)
-        return -(-d // min(d, max(1, -(-2 * sms // tiles))))
-    tiles = -(-m // 128) * -(-k // 128)
+    alone would leave the card's SMs idle (one or two utterances). The
+    tensor-core tile (128 rows × 128 atoms) runs one block an SM, the SIMT
+    tile (128 rows × 64 atoms, float32) three; each takes the fewest splits
+    whose last wave is at least 90 % full."""
+    bn, per_sm = (128, 1) if tensor_cores else (64, 3)
+    tiles, slots = -(-m // 128) * -(-k // bn), per_sm * sms
     splits = next((s for s in range(1, d + 1)
-                   if tiles * s >= 0.9 * sms * -(-tiles * s // sms)), d)
-    return min(_MAX_TC_CHUNK, -(-d // splits))
+                   if tiles * s >= 0.9 * slots * -(-tiles * s // slots)), d)
+    return min(_MAX_CHUNK, -(-d // splits))
 
 
 def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_beta,
@@ -220,7 +223,7 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     ``matmul_dtype="bfloat16"`` rounds the GEMM operands to bf16 and runs
     the scores on the tensor cores. ``return_argmax=True`` also returns the
     (B, T, K) int32 argmax-TDOA. ``tdoa_chunk`` is the number of TDOAs one
-    block scans (at most 256 in bf16); ``None`` splits them across blocks
+    block scans (at most 256); ``None`` splits them across blocks
     when the frames alone would leave SMs idle. Any chunk gives the same
     result. Launches the CUDA kernel for CUDA planes; CPU planes take
     :func:`soft_mask_plain`."""
@@ -240,8 +243,8 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     if sw.shape != cw.shape or sw.dtype != cw.dtype:
         raise ValueError("soft_mask_cuda: folded dictionary halves disagree")
     ldj = row_pad(2 * f)
-    # (cw, sw, fold, rows scratch): the SIMT kernel reads the first two, the
-    # tensor-core kernel the last two
+    # (cw, sw, fold, rows scratch): the SIMT kernel reads cw, sw and fp32
+    # rows, the tensor-core kernel the fold and bf16 rows
     if rnd:
         if fold is None or fold.shape != (d, k, ldj) or fold.dtype != torch.bfloat16:
             raise ValueError("soft_mask_cuda: matmul_dtype bfloat16 needs the (D, K, "
@@ -252,7 +255,8 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     elif cw.dtype != torch.float32:
         raise ValueError("soft_mask_cuda: matmul_dtype float32 needs a float32 folded dictionary")
     else:
-        dicts = (cw.contiguous(), sw.contiguous(), None, None)
+        dicts = (cw.contiguous(), sw.contiguous(), None,
+                 torch.empty((b * t, ldj), device=dev, dtype=torch.float32))
     cre, cim = coh_re.contiguous(), coh_im.contiguous()
     params = _mask_params(target_index, target_epsilon, target_beta, noise_floor, b, dev)
     m = b * t
@@ -260,7 +264,7 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         chunk = _tdoa_chunk(m, k, d, sms, rnd)
     else:
-        chunk = min(tdoa_chunk, _MAX_TC_CHUNK) if rnd else tdoa_chunk
+        chunk = min(tdoa_chunk, _MAX_CHUNK)
     splits = -(-d // chunk)
     pmax = torch.empty((splits, m, k), device=dev, dtype=torch.float32)
     parg = torch.empty((splits, m, k), device=dev, dtype=torch.int32)

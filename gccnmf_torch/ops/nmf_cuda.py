@@ -8,8 +8,12 @@ tiled GEMM with its update fused into the epilogue, and Q = V/WH goes
 through device memory. The products are 1.31 GFLOP per iteration per
 utterance. In the bf16 modes they run on the tensor cores (``wgmma``, see
 ``csrc/tc_gemm.cuh``), which leaves this design bound by the bytes of V
-and Q and by its 9 launches per iteration; in float32 they stay fp32 FMAs
-on the SIMT cores, since no tensor-core path is exact fp32.
+and Q and by its 9 launches per iteration. In float32 they stay fp32 FMAs
+on the SIMT cores, since no tensor-core path is exact fp32, on the
+pipelined core of ``csrc/simt_gemm.cuh`` (8 × 8 register micro-tiles, a
+3-stage shared-memory ring), over an fp32 Q whose rows are padded to 16
+bytes and with the Qᵀ·H row splits of :func:`_splits_simt`; that design
+is bound by the card's fp32 FMA rate.
 
 The turbo mode ``"bfloat16_q_simul"`` (kernel mode 3, the Pallas body's
 ``shared_q=True``) runs one ratio launch per iteration instead of two: the
@@ -76,6 +80,19 @@ def _splits(t: int) -> tuple[int, int]:
     return -(-t // rows), rows
 
 
+def _splits_simt(t: int) -> tuple[int, int]:
+    """The float32 mode's row splits of Qᵀ·H (a function of T only), summed
+    in order by ``w_update_kernel``: ≈128 rows each up to 32 splits (the
+    reference 2,486 rows: 20, twice :func:`_splits`'s count, for blocks
+    enough on the SIMT cores), and past that one per ≈4,096 rows (the hour's
+    899,986 rows: 220 splits, about 2,000 blocks). Never fewer splits than
+    :func:`_splits` gives."""
+    splits = max(min(32, -(-t // 128)), -(-t // 4096))
+    rows = -(-t // splits)
+    rows = -(-rows // 16) * 16
+    return -(-t // rows), rows
+
+
 def row_pad(n: int) -> int:
     """``n`` rounded up to a multiple of 8: a bf16 row of 16-byte chunks."""
     return -(-n // 8) * 8
@@ -123,14 +140,17 @@ def kl_nmf_cuda(
     h = torch.empty((*batch, t, k), device=dev, dtype=torch.float32)
     w.copy_(w0.expand(*batch, f, k))
     h.copy_(h0.expand(*batch, t, k))
-    splits, split_rows = _splits(t)
-    if mode == 0:  # SIMT products on fp32 Q
+    splits, split_rows = _splits_simt(t) if mode == 0 else _splits(t)
+    if mode == 0:  # SIMT products on fp32 Q, rows of 16 bytes (the kernel zeroes the pad)
         wb = hb = None
-        q = torch.empty((b, t, f), device=dev, dtype=torch.float32)
+        q = torch.empty((b, t, -(-f // 4) * 4), device=dev, dtype=torch.float32)
     else:  # tensor-core products on bf16 planes of 16-byte rows
         wb, hb = bf16_rows(w), bf16_rows(h)
         q = torch.zeros((b, t, row_pad(f)), device=dev, dtype=torch.bfloat16)
-    part = torch.empty((b, splits, f, k), device=dev, dtype=torch.float32)
+    # Qᵀ·H's (B, splits, F, K) partial sums; mode 0 also keeps H's (B,
+    # ceil(T/64), K) column sums there, per 64-row tile of its H update
+    part = torch.empty(b * max(splits * f * k, -(-t // 64) * k), device=dev,
+                       dtype=torch.float32)
     stats = torch.empty((3, b, k), device=dev, dtype=torch.float32)
     v_sum = torch.empty(b, device=dev, dtype=torch.float32)  # ΣV, read in mode 3
     _build.launch(

@@ -69,8 +69,13 @@ def _nmf_problem(dev, b=2, t=300, f=65, k=24, seed=0):
 
 # (T, F, K) at every ragged edge of the tensor-core tiles (128 rows, 64 or
 # 128 columns, 64-deep slices): T not a multiple of 128 (300, 517), F odd
-# (65; 513 at a small T), K = 24 and K = 136 (more than one 128-wide tile)
-NMF_SHAPES = [(300, 65, 24), (517, 65, 136), (96, 513, 24)]
+# (65; 513 at a small T), K = 24 and K = 136 (more than one 128-wide tile);
+# and of the float32 mode's SIMT tiles (128 x 64 and 64 x 128, 8-deep
+# slices): F = 513 at a ragged T (1,001 rows, 8 splits), K = 256 (two
+# 128-wide tiles), K = 13 (rows of W and H not 16-byte aligned: the 4-byte
+# copies), and T = 140,001 (35 row splits, past the 32 of ≈128 rows)
+NMF_SHAPES = [(300, 65, 24), (517, 65, 136), (96, 513, 24), (1001, 513, 256), (300, 65, 13),
+              (140001, 33, 24)]
 
 
 @pytest.mark.parametrize("shape", NMF_SHAPES, ids=lambda s: "t%d-f%d-k%d" % s)
@@ -319,13 +324,15 @@ def test_separate_batch_auto_on_card_matches_cpu(cuda):
         assert not est[b, c:].any()
 
 
-# (B, T, F, K, D) at the ragged edges of both score tiles (SIMT 64 × 64;
-# tensor cores 128 rows × 128 atoms, 64-deep slices of 2F): 2F = 34,
-# 66, 130 and 1,026 (none a multiple of 64), K = 6 and 72 (not multiples of
-# 8) and 130 (two 128-atom tiles), D against chunks of 3, T = 37, 150, 200
-# and 70 against 64 and 128 rows
+# (B, T, F, K, D) at the ragged edges of both score tiles (SIMT 128 rows ×
+# 64 atoms, 8-deep slices of 2F; tensor cores 128 rows × 128 atoms, 64-deep
+# slices): 2F = 34, 66, 130 and 1,026 (none a multiple of 64), K = 6 and 72
+# (not multiples of 8), 65 (one past a SIMT tile) and 130 (two 128-atom
+# tiles), D against chunks of 3, T = 37, 150, 200, 70 and 129 against 64
+# and 128 rows (B·T = 258: two row tiles and 2 rows), and D = 259 (past the
+# 256 TDOAs of a chunk's argmax bytes)
 SOFT_MASK_SHAPES = [(2, 37, 17, 6, 10), (3, 150, 33, 6, 13), (3, 200, 65, 72, 9),
-                    (3, 70, 513, 130, 7)]
+                    (3, 70, 513, 130, 7), (2, 129, 65, 65, 259)]
 
 
 @pytest.mark.parametrize("shape", SOFT_MASK_SHAPES, ids=lambda s: "b%d-t%d-f%d-k%d-d%d" % s)
@@ -994,14 +1001,15 @@ def _snr_db(ref, est):
 def test_streamed_on_card_matches_cpu(cuda, tmp_path):
     """separate_streamed of 12 s at full config (bf16 planes, chunks of 1024
     frames, the last ragged) on the card: the CPU run's targets, >= 40 dB
-    per output against it, and no kernel launched."""
+    per output against it, and one kernel launched, the NMF's (kernel 1 in
+    float32 on the card, its plain version on the CPU)."""
     path = _long_mix(tmp_path)
     runs = {}
     before = _launches()
     for dev in ("cuda", "cpu"):
         runs[dev] = LongAudioSeparator(OfflineConfig(), device=dev, chunk_frames=1024)\
             .separate_streamed(path, output_prefix=str(tmp_path / dev))
-    assert _launches() == before
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 1, 0, 0, 0]
     assert runs["cuda"]["target_tdoa_indexes"] == runs["cpu"]["target_tdoa_indexes"]
     assert runs["cuda"]["samples_written"] == runs["cpu"]["samples_written"]
     for p, q in zip(runs["cuda"]["paths"], runs["cpu"]["paths"], strict=True):
@@ -1035,6 +1043,33 @@ def test_streamed_silent_span_finite_on_card(cuda, tmp_path):
     for p in out["paths"]:
         x = wav.read_wav(p)[0]
         assert np.isfinite(x).all() and np.abs(x).max() > 0
+
+
+def test_long_audio_nmf_is_kernel_1_on_card(cuda):
+    """The one-device exact NMF of LongAudioSeparator launches kl_nmf_cuda
+    (float32) once, within rtol 1e-4 of kl_nmf_plain after 15 iterations
+    (fp32 sums in another order), a silent frame included; with the turbo
+    updates it launches nothing."""
+    rng = np.random.default_rng(12)
+    cfg = OfflineConfig(num_iterations=15)
+    sep = LongAudioSeparator(cfg, device=cuda)
+    t2 = 3001  # ragged against the 128- and 64-row tiles
+    v2 = torch.as_tensor(rng.random((t2, cfg.num_freq), dtype=np.float32) + 0.05, device=cuda)
+    v2[100] = 0.0
+    w0, h0 = sep._h0_device_chunked(t2)
+    before = _launches()
+    w, h = sep._run_nmf(v2, w0, h0)
+    assert [a - b for a, b in zip(_launches(), before)] == [0, 1, 0, 0, 0]
+    w_p, h_p = kl_nmf_plain(v2, torch.as_tensor(w0, device=cuda), h0, 15, 0.0, cfg.epsilon,
+                            matmul_dtype="float32")
+    for g, p in ((w, w_p), (h, h_p)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-6 * float(p.abs().max()))
+    turbo = LongAudioSeparator(OfflineConfig(num_iterations=3, nmf_matmul_dtype="bfloat16_q_simul"),
+                               device=cuda)
+    before = _launches()
+    turbo._run_nmf(v2, w0, h0)
+    assert _launches() == before
 
 
 @pytest.fixture()

@@ -205,6 +205,37 @@ class TestSoftMaskPlain:
         np.testing.assert_array_equal(got.numpy(), want)
         assert (got[1, 4] == 0).all()
 
+    @pytest.mark.parametrize("f", [17, 41])  # 2F = 34 and 82: fp32 rows of 40 and 88
+    def test_simt_layout_matches_plain_and_jax(self, f):
+        """The float32 kernel's operands: fp32 coherence rows ``[Re c | Im
+        c | 0]`` on 16-byte rows (K-major) and the fold as it lies, cw[d]
+        stacked on sw[d] along the contraction (MN-major, the plane switch
+        at row F). One 2F-deep product per TDOA, in JAX's order (the Re c
+        terms, then the Im c terms), gives the argmax of tdoa_argmax_plain
+        and of JAX's argmax_tdoa, a NaN frame included."""
+        kw = dict(self.KW, f=f)
+        coh, w, cos_m, sin_m = _mask_problem(seed=6, **kw)
+        b, t, k, d = kw["b"], kw["t"], kw["k"], kw["num_tdoas"]
+        s = np.sort(_scores64(coh, w, cos_m, sin_m), axis=2)
+        assert ((s[:, :, -1] - s[:, :, -2]) / np.abs(s).max()).min() > 1e-5  # no near-tie
+        coh[1, 4] = np.nan
+        re, im = _planes(coh)
+        basis = soft_mask_basis(cos_m, sin_m, w, "float32")
+        j = -(-2 * f // 8) * 8  # the wrapper's ldj (row_pad of 2F)
+        rows = torch.zeros((b * t, j))
+        rows[:, :f], rows[:, f : 2 * f] = re.reshape(-1, f), im.reshape(-1, f)
+        fold = torch.cat([basis.cw, basis.sw], dim=1)  # (D, 2F, K): row j < F from cw
+        assert basis.cw.dtype == torch.float32 and fold.shape == (d, 2 * f, k)
+        scores = torch.einsum("mj,djk->mdk", rows[:, : 2 * f].double(), fold.double())
+        got = torch.where(torch.isnan(scores), -torch.inf, scores).max(dim=1).indices
+        _, plain = tdoa_argmax_plain(re, im, basis, matmul_dtype="float32")
+        jcw, jsw = jmasks.fold_steering_dictionary(cos_m, sin_m, w)
+        want = np.asarray(jmasks.argmax_tdoa(jnp.asarray(coh.real), jnp.asarray(coh.imag), jcw,
+                                             jsw, d))
+        np.testing.assert_array_equal(got.numpy(), plain.numpy())
+        np.testing.assert_array_equal(got.reshape(b, t, k).numpy(), want)
+        assert (got.reshape(b, t, k)[1, 4] == 0).all()
+
     def test_wrapper_takes_plain_version_on_cpu(self):
         coh, w, cos_m, sin_m = _mask_problem(b=2, seed=1)
         args = (*_planes(coh), soft_mask_basis(cos_m, sin_m, w, "float32"),
@@ -417,3 +448,34 @@ class TestEnhancer:
             GCCNMFEnhancer(w[:100], OfflineConfig(**_enh_cfg()), device="cpu")
         with pytest.raises(ValueError, match="CUDA kernel"):
             GCCNMFEnhancer(w, OfflineConfig(**_enh_cfg(synthesis_backend="cuda")), device="cpu")
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True], ids=["simt", "wgmma"])
+@pytest.mark.parametrize("m,k,d", [(2486, 128, 128), (1243, 128, 128), (19888, 128, 128),
+                                   (1243, 64, 64), (210, 130, 7), (74, 6, 300)])
+def test_tdoa_chunk_fills_the_last_wave(m, k, d, tensor_cores):
+    """The soft mask's TDOA chunk on a 132-SM card: at most 256 TDOAs (a
+    byte of argmax), and the fewest splits whose last wave of blocks (one
+    an SM on the tensor cores' 128 × 128 tiles, three on the SIMT 128 × 64
+    tiles) is at least 90 % full, unless every TDOA is its own chunk."""
+    from gccnmf_torch.ops.enhance_cuda import _tdoa_chunk
+
+    chunk = _tdoa_chunk(m, k, d, 132, tensor_cores)
+    assert 1 <= chunk <= min(d, 256)
+    bn, slots = (128, 132) if tensor_cores else (64, 396)
+    tiles = -(-m // 128) * -(-k // bn)
+    full = [s for s in range(1, d + 1) if tiles * s >= 0.9 * slots * -(-tiles * s // slots)]
+    want = full[0] if full else d
+    assert chunk == min(256, -(-d // want))
+
+
+def test_tdoa_chunk_at_the_reference_shapes():
+    from gccnmf_torch.ops.enhance_cuda import _tdoa_chunk
+
+    # B = 2 of 10 s (2,486 rows), K = D = 128: the SIMT tiles (40 of them,
+    # three blocks an SM) in nine splits of 15 TDOAs, the tensor-core tiles
+    # (20) in six of 22
+    assert _tdoa_chunk(2486, 128, 128, 132, False) == 15
+    assert _tdoa_chunk(2486, 128, 128, 132, True) == 22
+    # B = 16: 156 row tiles, four splits fill five waves to 95 %
+    assert _tdoa_chunk(19888, 128, 128, 132, True) == 32

@@ -22,7 +22,8 @@ torch.set_num_threads(1)  # Tier-1 runs several xdist workers
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_MODULES = sorted((ROOT / "gccnmf_torch").rglob("*.py"))
-PORT_FILES = PORT_MODULES + [ROOT / "chip_smoke.py"]
+PORT_FILES = PORT_MODULES + [ROOT / name for name in ("chip_smoke.py", "chip_nmf_phases.py",
+                                                      "chip_simt_rows.py")]
 FORBIDDEN = ("jax", "jaxlib", "gccnmf_tpu")
 
 

@@ -304,3 +304,36 @@ class TestInMemory:
         assert auto["estimates"].shape[0] == ref["estimates"].shape[0]
         assert list(auto["target_tdoa_indexes"]) == list(ref["target_tdoa_indexes"])
         assert list(auto["target_tdoa_indexes"]) == list(want["target_tdoa_indexes"])
+
+
+@pytest.mark.parametrize("turbo", [False, True], ids=["exact", "turbo"])
+def test_one_device_nmf_route(monkeypatch, turbo):
+    """The one-device exact NMF goes through kernel 1's float32 mode
+    (``kl_nmf_cuda``), whose CPU version is JAX's guarded ``kl_nmf`` bit for
+    bit, so the JAX parity above holds unchanged; the turbo updates stay on
+    ``kl_nmf_simul`` and never reach the kernel."""
+    from gccnmf_torch.parallel import long_audio
+
+    calls = []
+    real = long_audio.kl_nmf_cuda
+
+    def spy(*args, **kw):
+        calls.append(kw.get("matmul_dtype"))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(long_audio, "kl_nmf_cuda", spy)
+    cfg = OfflineConfig(**SMALL, **({"nmf_matmul_dtype": "bfloat16_q_simul"} if turbo else {}))
+    sep = LongAudioSeparator(cfg, "cpu")
+    rng = np.random.default_rng(3)
+    v2 = torch.as_tensor(rng.random((40, cfg.num_freq), dtype=np.float32) + 0.05)
+    v2[7] = 0.0  # a silent frame: the guards at work
+    w0, h0 = sep._h0_device_chunked(40)
+    w, h = sep._run_nmf(v2, w0, h0)
+    args = (v2, torch.as_tensor(w0), h0, cfg.num_iterations, cfg.sparsity_alpha, cfg.epsilon)
+    if turbo:
+        assert calls == []
+        w_p, h_p = nmf.kl_nmf_simul(*args)
+    else:
+        assert calls == ["float32"]
+        w_p, h_p = nmf.kl_nmf(*args, guard=True)
+    assert torch.equal(w, w_p) and torch.equal(h, h_p)

@@ -222,3 +222,43 @@ def test_operand_planes_hold_the_plain_rounding(rows, cols):
     assert row_pad(cols) % 8 == 0 and cols <= row_pad(cols) < cols + 8
     assert torch.equal(plane[..., :cols].float(), round_bf16(x))
     assert not plane[..., cols:].any()
+
+
+# T at the edges of both split rules: one split, a partial 16-row round,
+# the reference 2,486 rows, both rules' caps (16 and 32 splits), the
+# corpus, past 16 × 4,096 rows and the hour's 899,986
+SPLIT_TS = [1, 17, 255, 257, 2486, 4097, 4609, 20000, 65537, 70000, 899986]
+
+
+@pytest.mark.parametrize("t", SPLIT_TS)
+def test_float32_splits_cover_every_row_in_order(t):
+    """The float32 mode's Qᵀ·H splits (kernel mode 0): a function of T
+    alone, consecutive rows of a multiple of 16 that cover [0, T) with no
+    empty split, and never fewer than the bf16 modes' rule gives (past 16 ×
+    4,096 rows, more than its cap of 16)."""
+    from gccnmf_torch.ops.nmf_cuda import _splits, _splits_simt
+
+    splits, rows = _splits_simt(t)
+    assert rows % 16 == 0 and splits >= 1
+    assert (splits - 1) * rows < t <= splits * rows  # every row, the last split non-empty
+    assert splits >= _splits(t)[0]
+    assert _splits_simt(t) == (splits, rows)  # T alone decides it
+    if t > 16 * 4096:
+        assert splits > 16 and rows <= 4096
+
+
+def test_float32_splits_at_the_hour_and_reference():
+    from gccnmf_torch.ops.nmf_cuda import _splits_simt
+
+    assert _splits_simt(899986) == (220, 4096)
+    assert _splits_simt(2486) == (20, 128)  # twice the bf16 modes' 10
+    assert _splits_simt(20000) == (32, 640)
+
+
+@pytest.mark.parametrize("t,want", [(1, (1, 16)), (255, (1, 256)), (2486, (10, 256)),
+                                    (20000, (16, 1264)), (899986, (16, 56256))])
+def test_bf16_modes_keep_their_splits(t, want):
+    """Modes 1–3 keep their rule: ≈256 rows a split, at most 16."""
+    from gccnmf_torch.ops.nmf_cuda import _splits
+
+    assert _splits(t) == want
