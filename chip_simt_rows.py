@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Time the float32 bodies of kernels 1 and 4 (the SIMT product core) on one
-NVIDIA GPU, so that two trees can be compared in one call.
+"""Time the float32 bodies of the kernels on one NVIDIA GPU (kernels 1 and
+4 on the SIMT product core, kernels 2 and 5 on the iDFT's FFT), so that two
+trees can be compared in one call.
 
 Run from the root of a checkout:
-``python3 chip_simt_rows.py [--root DIR] [--rows nmf_ref,nmf_corpus,nmf_hour,mask]
-[--label NAME] [--seed N]``. It imports ``gccnmf_torch`` from ``--root``
-(default: this checkout), builds that tree's kernels there, prints the ptxas
-registers and spills of its float32 product kernels, and then, per row, one
-JSON line:
+``python3 chip_simt_rows.py [--root DIR] [--rows nmf_ref,nmf_corpus,nmf_hour,mask,
+syn,wiener,nmf_edge,nmf_cap] [--label NAME] [--seed N]``. It imports
+``gccnmf_torch`` from ``--root`` (default: this checkout), builds that
+tree's kernels there, prints the ptxas registers and spills of its float32
+product and iDFT kernels, and then, per row, one JSON line:
 
 - ``nmf_ref``: ``kl_nmf_cuda`` float32 at the reference shape (B = 2 of
   10 s, T = 2,486 rows of left‖right, F = 513, K = 128), V = |X| of the
@@ -19,30 +20,55 @@ JSON line:
   mixture's delays);
 - ``mask``: ``soft_mask_cuda`` float32 at B = 2 on ``bench.py``'s
   enhancement configuration (10 cm, 128 TDOAs, K = 128), its coherence
-  planes from the 10 s mixtures (one frame NaN), a seeded positive W.
+  planes from the 10 s mixtures (one frame NaN), a seeded positive W;
+- ``syn``: ``masked_synthesis_cuda`` float32 at B = 2 of the 10 s mixtures
+  (3 targets, 2 channels, T = 1,243, K = 128, hop 128): the mixtures'
+  STFT planes, a seeded positive W and H and a seeded winner;
+- ``wiener``: ``tf_synthesis_cuda`` float32 at B = 2 on the same planes,
+  a seeded mask and dictionary (K = 128);
+- ``syn16`` and ``wiener16``: the same two in the bf16 mode (the
+  tensor-core iDFT), held within 1e-2 x max|plain|, without yardsticks;
+- ``paths``: the float32 entry points at B = 1 on the first 10 s mixture,
+  ``GCCNMFSeparator(OfflineConfig(nmf_matmul_dtype="float32")).separate``
+  and ``GCCNMFEnhancer`` (a seeded positive K = 128 dictionary, 10 cm, 128
+  TDOAs) ``.enhance``, each the median wall time of 5 calls after a
+  warm-up (host clock around a synchronised call);
+- ``nmf_edge`` and ``nmf_cap``: ``kl_nmf_cuda`` float32 on V of 4,194,240
+  rows (the last row count whose H update fits one grid: 65,535 tiles of
+  64) and of 4,194,304 (past CUDA's cap on gridDim.y), F = 33, K = 8, V
+  drawn on the card from ``--seed``, 3 iterations against the plain
+  updates (a tree that cannot launch it prints its error).
+
+The NMF rows print ``digest``, a SHA-256 of W and H after the checked
+iterations, so two trees' results can be compared bit for bit.
 
 Each row checks the kernel against its plain version (the NMF after 15
 iterations within rtol 1e-4, atol 1e-6 x max|plain|; the soft mask's
 argmax flips only at near-ties and its masks within 2 fp32 ulps elsewhere,
-the NaN frame at TDOA 0), reruns it for bit-identity (and, at B = 2, the
-second element alone), then times the kernel (the NMF at 100 iterations),
-its plain version and the yardstick ``gemm_library_ms`` (the same
-products as ``torch.matmul``, TF32 off) with CUDA events: the median of 5
-after a warm-up (3 at the corpus shape; one call each at the hour). The
-bound is ``chip_smoke.py``'s: the larger of the bytes over 3.35 TB/s and
-the least operations over 67 TFLOP/s fp32.
+the NaN frame at TDOA 0; the syntheses within 1e-4 x max|plain|), reruns
+it for bit-identity (and, at B = 2, the second element alone), then times
+the kernel (the NMF at 100 iterations), its plain version and the
+yardstick ``gemm_library_ms`` (the same products as ``torch.matmul``,
+TF32 off; for the syntheses their iDFT alone, and ``fft_library_ms``, the
+same rows as ``torch.fft.irfft`` times the window) with CUDA events: the
+median of 5 after a warm-up (3 at the corpus shape; one call each at the
+hour). The bound is ``chip_smoke.py``'s: the larger of the bytes over 3.35
+TB/s and the least operations over 67 TFLOP/s fp32 (a float32 DFT counted
+as an FFT, 2.5·N·log2 N a frame).
 
 To compare a parent tree, unpack it (``git archive``) into an ignored
 directory and run, in one call: ``--root <parent>``, then this tree twice,
 then the parent again. ``--profile`` adds each row's device time by kernel
 (torch.profiler: one NMF call of 2 iterations, per iteration; one soft-mask
-call). Imports no JAX.
+call; one synthesis call). Imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -57,7 +83,9 @@ DELAYS = (8, -11, 3)
 CHECK_ITERS, ITERS = 15, 100
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 PRODUCT_KERNELS = ("wh_ratio_kernel", "h_update_kernel", "qth_split_kernel",
-                   "score_argmax_kernel")
+                   "score_argmax_kernel", "frames_kernel")
+# 65,536 row tiles of 64: one past what one grid's y holds
+EDGE_ROWS, CAP_ROWS = 65535 * 64, 65536 * 64
 
 
 def mixture(seed: int, batch: int, seconds: int) -> np.ndarray:
@@ -71,7 +99,7 @@ def mixture(seed: int, batch: int, seconds: int) -> np.ndarray:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    parser.add_argument("--rows", default="nmf_ref,nmf_corpus,nmf_hour,mask")
+    parser.add_argument("--rows", default="nmf_ref,nmf_corpus,nmf_hour,mask,syn,wiener")
     parser.add_argument("--label", default="")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", action="store_true",
@@ -89,7 +117,11 @@ def main() -> int:
     from gccnmf_torch.ops import gcc
     from gccnmf_torch.ops import stft as stft_ops
     from gccnmf_torch.ops.enhance_cuda import (
-        argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain,
+        argmax_flips, soft_mask_basis, soft_mask_cuda, soft_mask_plain, tf_synthesis_basis,
+        tf_synthesis_cuda, tf_synthesis_plain,
+    )
+    from gccnmf_torch.ops.synthesis_cuda import (
+        masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
     )
     from gccnmf_torch.ops.nmf import nmf_init_numpy
     from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
@@ -143,11 +175,22 @@ def main() -> int:
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # a throwaway kernel first: a profiling run after the first has been
+            # seen to drop its first kernel
+            torch.zeros(1, device=dev).add_(1)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         out = {ev.key[:80]: ev.device_time_total / 1e3 / per for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0}
+               if ev.device_type == DeviceType.CUDA and ev.device_time_total > 0
+               and "elementwise" not in ev.key and "fill" not in ev.key.lower()}
         return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
 
     def nmf_row(name, v, k, reps):
         b, t = v.shape[0], v.shape[1]
@@ -161,6 +204,7 @@ def main() -> int:
             torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-6 * float(p.abs().max()))
             err = max(err, float((g - p).abs().max()))
         del want
+        sha = digest(*got)
         again = kl_nmf_cuda(v, w0, h0, CHECK_ITERS, matmul_dtype="float32")
         same = all(torch.equal(g, a) for g, a in zip(got, again))
         alone = None
@@ -189,7 +233,58 @@ def main() -> int:
              tflop_s=flops / ms / 1e9, plain_ms=plain_ms, plain_runs=plain_runs,
              gemm_library_ms=lib_ms * ITERS, bound_ms=bound_ms, bound_by="operations",
              max_abs_err=err, bar="15 iterations: rtol 1e-4, atol 1e-6 x max|plain|",
-             bit_identical=True, batch_element_alone=alone)
+             bit_identical=True, batch_element_alone=alone, digest=sha)
+
+    def cap_row(name, t):
+        f, k, iters = 33, 8, 3
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + t)
+        v = ((torch.rand((t, 4), generator=gen, device=dev) + 0.1)
+             @ (torch.rand((f, 4), generator=gen, device=dev) + 0.1).T + 0.01)[None]
+        w0, h0 = (torch.as_tensor(m, device=dev)[None] for m in nmf_init_numpy(f, k, t))
+        try:
+            got = kl_nmf_cuda(v, w0, h0, iters, matmul_dtype="float32")
+            torch.cuda.synchronize()
+        except RuntimeError as exc:  # a tree whose grid cannot hold the row tiles
+            emit(row=name, shape=dict(B=1, T=t, F=f, K=k, iterations=iters), error=str(exc))
+            return
+        want = kl_nmf_plain(v, w0, h0, iters, matmul_dtype="float32")
+        for g, p in zip(got, want):
+            torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-6 * float(p.abs().max()))
+        err = max(float((g - p).abs().max()) for g, p in zip(got, want))
+        ms, runs = timed(lambda: kl_nmf_cuda(v, w0, h0, iters, matmul_dtype="float32"), 3)
+        emit(row=name, shape=dict(B=1, T=t, F=f, K=k, iterations=iters), ms=ms, runs=runs,
+             max_abs_err=err, bar="rtol 1e-4, atol 1e-6 x max|plain|", digest=digest(*got))
+        del v, w0, h0, got, want
+        torch.cuda.empty_cache()
+
+    def synthesis_row(name, kfn, pfn, one_fn, frames, flops, nbytes, tol=1e-4):
+        got, again, want = kfn(), kfn(), pfn()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        checks = dict(rerun=bool(torch.equal(got, again)),
+                      alone=bool(torch.equal(got[1:2], one_fn())), within_tol=err <= tol * scale)
+        if not all(checks.values()):
+            raise RuntimeError(f"{name}: {checks} (err {err}, scale {scale})")
+        ms, runs = timed(kfn, 5)
+        plain_ms, plain_runs = timed(pfn, 5)
+        gemm_ms = fft_ms = None
+        if tol == 1e-4:  # the float32 rows' yardsticks
+            xr = torch.rand((frames, 2 * F), device=dev)
+            basis_ = torch.rand((2 * F, WIN), device=dev)
+            gemm_ms, _ = timed(lambda: xr @ basis_, 5)
+            xc = torch.complex(xr[:, :F].contiguous(), xr[:, F:].contiguous())
+            win_ = torch.rand(WIN, device=dev)
+            fft_ms, _ = timed(lambda: torch.fft.irfft(xc, n=WIN) * win_, 5)
+            del xr, basis_, xc
+        prof = by_kernel(kfn) if args.profile else None
+        t_ops, t_bytes = flops / FP32_FLOP_S, nbytes / HBM_BYTES_S
+        f32 = tol == 1e-4  # the bound counts float32 work (chip_smoke.py has the bf16 rows')
+        emit(row=name, ms=ms, runs=runs, device_ms=prof, plain_ms=plain_ms,
+             plain_runs=plain_runs, gemm_library_ms=gemm_ms, fft_library_ms=fft_ms,
+             bound_ms=max(t_ops, t_bytes) * 1e3 if f32 else None,
+             bound_by=("operations" if t_ops >= t_bytes else "bytes") if f32 else None,
+             max_abs_err=err, scale=scale, checks=checks, digest=digest(got),
+             bar=f"{tol:g} x max|plain|, rerun and the second element alone bit-equal")
 
     rows = args.rows.split(",")
     if "nmf_ref" in rows:
@@ -208,6 +303,78 @@ def main() -> int:
         nmf_row("nmf_hour", v, 128, 1)
         del v
         torch.cuda.empty_cache()
+    if "nmf_edge" in rows:
+        cap_row("nmf_edge", EDGE_ROWS)
+    if "nmf_cap" in rows:
+        cap_row("nmf_cap", CAP_ROWS)
+    syn_rows = [r for r in rows if r in ("syn", "wiener", "syn16", "wiener16")]
+    if syn_rows:
+        b, k_, gain = 2, 128, HOP / WIN * 2.0
+        x = torch.as_tensor(mixture(args.seed, b, 10), device=dev)
+        spec = stft_ops.stft(x, window, HOP, conjugate=True)  # (B, 2, T, F)
+        sre, sim = spec.real.contiguous(), spec.imag.contiguous()
+        t = sre.shape[2]
+        rng = np.random.default_rng(args.seed + 11)
+        win_np = hann_symmetric(WIN)
+        dft = 2.5 * WIN * math.log2(WIN)  # an FFT's flop a frame
+        w = torch.as_tensor(rng.random((b, F, k_), dtype=np.float32) + 0.05, device=dev)
+        h = torch.as_tensor(rng.random((b, 2, t, k_), dtype=np.float32) + 0.01, device=dev)
+        winner = torch.as_tensor(rng.integers(0, 3, (b, t, k_)), dtype=torch.int32, device=dev)
+        wd = torch.as_tensor(rng.random((F, k_), dtype=np.float32) + 1e-3, device=dev)
+        h_mask = torch.as_tensor(rng.random((b, t, k_), dtype=np.float32), device=dev)
+    for name in syn_rows:
+        md = "float32" if name in ("syn", "wiener") else "bfloat16"
+        tol = 1e-4 if md == "float32" else 1e-2
+        if name.startswith("syn"):
+            basis = synthesis_basis(win_np, gain, md, device=dev)
+            kw = dict(num_targets=3, hop_size=HOP, matmul_dtype=md)
+            synthesis_row(
+                name, lambda: masked_synthesis_cuda(sre, sim, winner, w, h, basis, **kw),
+                lambda: masked_synthesis_plain(sre, sim, winner, w, h, basis, **kw),
+                lambda: masked_synthesis_cuda(sre[1:2].clone(), sim[1:2].clone(),
+                                              winner[1:2].clone(), w[1:2].clone(),
+                                              h[1:2].clone(), basis, **kw),
+                b * 3 * 2 * t, 2 * b * 3 * 2 * t * F * k_ + b * 3 * 2 * t * dft,
+                b * (2 * 2 * t * F * 4 + t * k_ * 4 + F * k_ * 4 + 2 * t * k_ * 4) + 4 * WIN
+                + b * 3 * 2 * (t - 1) * HOP * 4, tol)
+        else:
+            basis = tf_synthesis_basis(wd, win_np, gain, md)
+            kw = dict(hop_size=HOP, matmul_dtype=md)
+            synthesis_row(
+                name, lambda: tf_synthesis_cuda(sre, sim, h_mask, basis, **kw),
+                lambda: tf_synthesis_plain(sre, sim, h_mask, basis, **kw),
+                lambda: tf_synthesis_cuda(sre[1:2].clone(), sim[1:2].clone(),
+                                          h_mask[1:2].clone(), basis, **kw),
+                b * 2 * t, 2 * b * t * k_ * F + b * 2 * t * dft,
+                b * 2 * 2 * t * F * 4 + b * t * k_ * 4 + k_ * F * 4 + 4 * WIN
+                + b * 2 * (t - 1) * HOP * 4, tol)
+    if "paths" in rows:
+        from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
+
+        mix0 = mixture(args.seed, 1, 10)[0]
+        w_e = np.random.default_rng(args.seed + 13).random((F, 128), dtype=np.float32) + 0.05
+        sep = GCCNMFSeparator(OfflineConfig(nmf_matmul_dtype="float32"))
+        enh = GCCNMFEnhancer(w_e, OfflineConfig(mic_separation_m=0.1, num_tdoas=128,
+                                                dictionary_size=128,
+                                                nmf_matmul_dtype="float32"))
+
+        def wall(fn):
+            fn()
+            torch.cuda.synchronize()
+            out = []
+            for _ in range(5):
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t1) * 1e3)
+            return statistics.median(out), out
+
+        sep_ms, sep_runs = wall(lambda: sep.separate(mix0))
+        enh_ms, enh_runs = wall(lambda: enh.enhance(mix0))
+        emit(row="paths", separate_float32_ms=sep_ms, separate_runs=sep_runs,
+             separate_audio_s_per_s=10e3 / sep_ms, enhance_float32_ms=enh_ms,
+             enhance_runs=enh_runs, enhance_audio_s_per_s=10e3 / enh_ms)
+        del sep, enh
     if "mask" in rows:
         d_, k_, b = 128, 128, 2
         x = torch.as_tensor(mixture(args.seed, b, 10), device=dev)

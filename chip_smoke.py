@@ -17,9 +17,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    too); their ptxas registers and spills are printed, by source, and the
    iDFT and the front-end's must not spill. The float32 products on the
    pipelined SIMT core of ``simt_gemm.cuh`` (the NMF's three, the soft
-   mask's scores) must hold no tensor-core instruction (HGMMA or HMMA: exact
-   fp32, no TF32) and must not spill; their registers and spills are
-   printed too.
+   mask's scores) and the float32 iDFT's FFT (``fft_frames_kernel`` of
+   ``istft.cuh``, in both sources) must hold no tensor-core instruction
+   (HGMMA or HMMA: exact fp32, no TF32) and must not spill; their
+   registers and spills are printed too.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
    16 kHz stereo mixture made from ``--seed``) against its plain PyTorch
    version on the card, twice (bit-identical), with CUDA-event times of
@@ -48,9 +49,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    fold, in the row's operand type and batch (a yardstick only); its
    float32 design is ``simt2``, like the NMF's. The
    synthesis rows (masked and Wiener) name their iDFT design (``wgmma`` in
-   bf16, ``simt`` in float32) and carry ``gemm_library_ms``: the iDFT alone
-   as one ``torch.matmul`` of the (Z·T, 2F) spectrum rows against the
-   (2F, win) basis, in the row's operand type and batch (a yardstick only).
+   bf16, ``fft`` in float32: the hand-written FFT of ``istft.cuh``) and
+   carry ``gemm_library_ms``: the iDFT alone as one ``torch.matmul`` of the
+   (Z·T, 2F) spectrum rows against the (2F, win) basis, in the row's
+   operand type and batch; the float32 rows also ``fft_library_ms``: the
+   same rows as ``torch.fft.irfft`` times the window (yardsticks only).
 4. ``separate``: the default ``GCCNMFSeparator()`` (``bfloat16_q``) through
    ``separate`` (3 sources) and ``separate_batch`` (16 utterances), each
    timed as the median of 5 calls after a warm-up, with the kernels' launch
@@ -162,7 +165,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
     plain ``kl_nmf`` that it replaced there, rtol 1e-4 after 15
     iterations, both timed once at 100 after a warm-up, and its
     ``gemm_library_ms``: one iteration's four float32 products as
-    ``torch.matmul`` at that shape, times 100.
+    ``torch.matmul`` at that shape, times 100. ``nmf_row_cap``: kernel 1
+    (float32) on V of 4,194,304 rows (F = 33, K = 8, about 0.55 GB), past
+    the 4,194,240 rows whose H update fits one grid (CUDA caps gridDim.y
+    at 65,535), against the plain updates after 3 iterations (rtol 1e-4,
+    atol 1e-6 x max), the kernel timed once at 3.
 14. ``distributed``: the process groups (``gccnmf_torch/parallel``) in a
     world of one over NCCL in this process, one line per check: (e)
     ``init_process_group`` on a ``file://`` store, timed, one
@@ -311,6 +318,9 @@ PRETRAIN_WAVS, PRETRAIN_SIZES, PRETRAIN_FRAMES = 64, (64, 128, 256), 20000
 # long audio: the parity file's seconds and macro-chunk width (its last
 # chunk ragged), and the seconds of the hour-long file
 LONG_PARITY_S, LONG_CHUNK, HOUR_S = 60, 1024, 3600
+# kernel 1 float32 past CUDA's 65,535 cap on gridDim.y: 65,536 row tiles of
+# 64 in the H update, one more than one grid holds (4.66 h of audio)
+ROW_CAP_ROWS = 4_194_304
 # process groups: the seconds of the 60 s mixture whose V the sharded NMF
 # runs on, the trainer's dictionary size, the sharded separator's seconds of
 # audio, and the bar of each against its one-device run (x max)
@@ -432,12 +442,14 @@ FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "angul
 # the tensor-core kernels that must not spill: two blocks an SM leave each
 # thread 128 registers
 NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
-# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh), by
-# the source that instantiates each: exact fp32, so their SASS must hold no
-# tensor-core instruction (HGMMA, or HMMA as TF32 would use), and they must
-# not spill
-SIMT_KERNELS = {"simt_wh_ratio_kernel": "nmf.cu", "simt_h_update_kernel": "nmf.cu",
-                "simt_qth_split_kernel": "nmf.cu", "simt_score_argmax_kernel": "enhance.cu"}
+# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh) and
+# the float32 iDFT's FFT (csrc/istft.cuh), by the sources that instantiate
+# each: exact fp32, so their SASS must hold no tensor-core instruction
+# (HGMMA, or HMMA as TF32 would use), and they must not spill
+SIMT_KERNELS = {"simt_wh_ratio_kernel": ("nmf.cu",), "simt_h_update_kernel": ("nmf.cu",),
+                "simt_qth_split_kernel": ("nmf.cu",),
+                "simt_score_argmax_kernel": ("enhance.cu",),
+                "fft_frames_kernel": ("synthesis.cu", "enhance.cu")}
 # a kernel name that tells a source's SASS apart from the others', tried in
 # this order (synthesis.cu's spectra_kernel is also a substring of
 # enhance.cu's wiener_spectra_kernel)
@@ -457,7 +469,7 @@ def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str], di
     sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
                           timeout=300, check=True).stdout
     counts = {f"{k} ({src})": 0 for k, srcs in TC_KERNELS.items() for src in srcs}
-    simt = {f"{k} ({src})": 0 for k, src in SIMT_KERNELS.items()}
+    simt = {f"{k} ({src})": 0 for k, srcs in SIMT_KERNELS.items() for src in srcs}
     empty = []
     for elf in sass.split("Fatbin elf code")[1:]:
         src = next((s for s, marker in SOURCE_MARKERS.items() if marker in elf), "?")
@@ -716,6 +728,36 @@ def long_audio_phase(torch, seed: int, kind: str, smi: str, record, reset_counts
     torch.cuda.empty_cache()
     tmp_dir.cleanup()
     return fields
+
+
+def nmf_row_cap_phase(torch, kind: str, smi: str) -> None:
+    """Phase 13's ``nmf_row_cap`` (module docstring): kernel 1 float32 past
+    the row count whose H update fits one grid."""
+    from gccnmf_torch.ops.nmf import nmf_init_numpy
+    from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
+
+    dev = torch.device("cuda")
+    t, f, k, iters = ROW_CAP_ROWS, 33, 8, 3
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(t)
+    v = ((torch.rand((t, 4), generator=gen, device=dev) + 0.1)
+         @ (torch.rand((f, 4), generator=gen, device=dev) + 0.1).T + 0.01)[None]
+    w0, h0 = (torch.as_tensor(m, device=dev)[None] for m in nmf_init_numpy(f, k, t))
+    t1 = time.perf_counter()
+    got = kl_nmf_cuda(v, w0, h0, iters, matmul_dtype="float32")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t1
+    want = kl_nmf_plain(v, w0, h0, iters, matmul_dtype="float32")
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-4, atol=1e-6 * float(w_.abs().max()))
+    err = max(max_err(torch, g, w_)[0] for g, w_ in zip(got, want))
+    ms = time_ms(torch, lambda: kl_nmf_cuda(v, w0, h0, iters, matmul_dtype="float32"), 1)
+    emit("nmf_row_cap", device=kind, nvidia_smi=smi, rows=t, f=f, k=k, iterations=iters,
+         h_update_row_tiles=-(-t // 64), grid_y_cap=65535, max_abs_err=err,
+         bar="rtol 1e-4, atol 1e-6 x max|plain|", first_call_s=first_s, ms=ms,
+         v_gb=t * f * 4 / 1e9)
+    del v, w0, h0, got, want
+    torch.cuda.empty_cache()
 
 
 def distributed_phase(torch, seed: int, kind: str, smi: str, reset_counts, counts):
@@ -1541,6 +1583,21 @@ def main() -> int:
         return ms, (f"the iDFT alone: ({rows}, 2F) @ (2F, win) as one torch.matmul on {dt} "
                     "operands; no spectra and no overlap-add, so library_ms stays null")
 
+    def fft_library_ms(md, rows):
+        """The float32 synthesis rows' second yardstick: the same (rows, F)
+        spectra through one ``torch.fft.irfft`` (n = win, cuFFT) times the
+        window; nothing for the bf16 rows, whose rounded basis no FFT
+        computes."""
+        if md != "float32":
+            return {}
+        x_ = torch.complex(torch.rand((rows, f), device=dev), torch.rand((rows, f), device=dev))
+        w_ = torch.as_tensor(window, device=dev)
+        ms = time_ms(torch, lambda: torch.fft.irfft(x_, n=WIN) * w_)
+        del x_
+        return dict(fft_library_ms=ms, fft_library_note=(
+            f"the iDFT alone: ({rows}, F) spectra as torch.fft.irfft(n=win) times the window; "
+            "no spectra and no overlap-add, so library_ms stays null"))
+
     def device_ms(fn, keys):
         """Device time (ms) of one ``fn()`` after a warm-up, summed over the
         kernels whose names hold one of ``keys`` (torch.profiler): a
@@ -1722,8 +1779,8 @@ def main() -> int:
                 + 4 * basis_len(md) + b * SOURCES * 2 * (t - 1) * HOP * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
-                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
-                gemm_library_note=lib_note,
+                design="fft" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+                gemm_library_note=lib_note, **fft_library_ms(md, b * SOURCES * 2 * t),
             )
 
     # every mode at batch 2, the NMF checked after 15 iterations
@@ -1841,8 +1898,8 @@ def main() -> int:
                 + 4 * basis_len(md) + b * 2 * (t_ - 1) * hop * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
-                design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
-                gemm_library_note=lib_note, shape=shape,
+                design="fft" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+                gemm_library_note=lib_note, shape=shape, **fft_library_ms(md, b * 2 * t_),
             )
 
     check_enhance_kernels(KERNEL_BATCH, ("float32", "bfloat16"))
@@ -2061,7 +2118,8 @@ def main() -> int:
     snrs = [snr_db(r, e) for r, e in zip(want["estimates"], got["estimates"])]
     require(min(snrs) > 25.0, f"parity SNR {snrs}")
     emit("parity", nmf_matmul_dtype="float32", targets=got["target_tdoa_indexes"],
-         snr_db=snrs, launches=f32["counts"],
+         snr_db=snrs, launches=f32["counts"], separate_s=f32["s_separate"],
+         separate_audio_s_per_s=SECONDS / f32["s_separate"],
          mask_agreement=float((got["coefficient_masks"] == want["coefficient_masks"]).mean()))
 
     # ---- 6. enhancement: GCCNMFEnhancer ------------------------------------
@@ -2163,7 +2221,8 @@ def main() -> int:
         require(min(snrs) > 25.0, f"enhance parity (H updates {nh}): SNR {snrs}")
         emit("enhance_parity", nmf_matmul_dtype="float32", num_h_updates=nh,
              target=int(got["target_tdoa_index"]), snr_db=snrs,
-             launches=enh32[nh]["counts"]["enhance"])
+             launches=enh32[nh]["counts"]["enhance"], enhance_s=enh32[nh]["s_enhance"],
+             enhance_audio_s_per_s=SECONDS / enh32[nh]["s_enhance"])
 
     # ---- 7. where the time goes: torch.profiler ---------------------------
     def profile_call(call, fn, stages):
@@ -2718,6 +2777,7 @@ def main() -> int:
 
     # ---- 13. long_audio: LongAudioSeparator, one hour streamed from disk ----
     long_audio_phase(torch, args.seed, kind, smi, record, reset_counts, counts)
+    nmf_row_cap_phase(torch, kind, smi)
 
     # ---- 14. distributed: the process groups in a world of one over NCCL ----
     distributed_phase(torch, args.seed, kind, smi, reset_counts, counts)

@@ -52,7 +52,8 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,  # sre sim mag cre cim ang stream
     ],
     "gccnmf_masked_synthesis": [
-        _P, _P, _I, _I, _P, _P, _P, _P, _P,  # sre sim plane_bf16 ldf winner w h a b
+        _P, _P, _I, _I, _P, _P, _P,  # sre sim plane_bf16 ldf winner w h
+        _P, _P, _P, _I,  # scale twiddle radix passes (the float32 FFT)
         _P, _I, _P, _P, _P,  # basis_rows ldj x frames out
         _I, _I, _I, _I, _I, _I, _I, _I, _I,  # B S C T F K win hop rnd
         _P,  # stream
@@ -64,7 +65,8 @@ _SIGNATURES = {
         _P,  # stream
     ],
     "gccnmf_tf_synthesis": [
-        _P, _P, _I, _I, _P, _P, _P, _P,  # sre sim plane_bf16 ldf hmask wn a b
+        _P, _P, _I, _I, _P, _P,  # sre sim plane_bf16 ldf hmask wn
+        _P, _P, _P, _I,  # scale twiddle radix passes (the float32 FFT)
         _P, _I, _P, _P, _P,  # basis_rows ldj x frames out
         _I, _I, _I, _I, _I, _I, _I, _I,  # B C T F K win hop rnd
         _P,  # stream

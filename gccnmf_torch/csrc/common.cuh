@@ -2,8 +2,9 @@
 //
 // Its remaining users: the syntheses' spectra GEMMs (synthesis.cu's
 // spectra_kernel, enhance.cu's wiener_spectra_kernel) in every mode, and
-// the float32 DFTs (the front-end's rDFT and angular products in
-// frontend.cu, the iDFT's frames_kernel in istft.cuh). They run a plain
+// the float32 DFTs of the front-end (the rDFT and angular products in
+// frontend.cu; the syntheses' float32 iDFT is an FFT, istft.cuh
+// fft_frames_kernel). They run a plain
 // tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a 16-deep
 // contraction slice staged in shared memory one scalar at a time, a 4x4
 // register micro-tile per thread, fp32 fused multiply-adds, with no
@@ -136,6 +137,11 @@ inline int elementwise_blocks(long total) {
   return (int)(blocks < cap ? blocks : cap);
 }
 
+// The (column tile, row tile, batch) grid of a common.cuh product. CUDA caps
+// gridDim.y at 65,535, so rows past 4,194,240 (65,535 tiles of 64) cannot
+// launch. No path comes near it: the syntheses' spectra GEMMs and the
+// front-end tile T frames of one utterance (1,243 at 10 s, hop 128), or
+// B·T at the enhancer's 16 utterances.
 inline dim3 tile_grid(int rows, int cols, int batch) {
   return dim3((cols + BN - 1) / BN, (rows + BM - 1) / BM, batch);
 }

@@ -92,11 +92,12 @@
 //      where JAX's next make_mm rounds them; fp32 planes in float32).
 //   2. the iDFT and 3. ola_kernel from istft.cuh, shared with synthesis.cu:
 //      tc_frames_kernel on the tensor cores in bf16 over the B·C·T rows,
-//      frames_kernel on the SIMT tile in float32.
-// As computed here it is 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16)
-// against about 190 MB; in float32 an FFT would need far fewer operations
-// than its iDFT GEMM. The tf GEMM runs as fp32 FMAs on the SIMT tile of
-// common.cuh, with bf16-rounded operands in the bf16 mode.
+//      fft_frames_kernel (a hand-written FFT) in float32.
+// In bf16 it is 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16) against
+// about 190 MB; in float32 the iDFT is an FFT (2.5·win·log2 win flop a
+// frame), so the bytes of X's planes and the frames bound it. The tf GEMM
+// runs as fp32 FMAs on the SIMT tile of common.cuh, with bf16-rounded
+// operands in the bf16 mode.
 #include <math.h>
 
 #include "common.cuh"
@@ -421,12 +422,12 @@ cudaError_t run_mask(const TP* cre, const TP* cim, int ldf, const float* cw, con
 }
 
 // TX = bf16 (the bf16 mode): X on bf16 rows of ldj, the tensor-core iDFT;
-// TX = float: fp32 planes, the SIMT iDFT.
+// TX = float: fp32 planes, the FFT.
 template <typename TP, typename TX>
 cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const float* wn,
-                   const float* basis_a, const float* basis_b, const bf16* basis_rows, int ldj,
-                   TX* x, TX* frames, float* out, int B, int C, int T, int F, int K, int win,
-                   int hop, cudaStream_t st) {
+                   const FftPlan& plan, const bf16* basis_rows, int ldj, TX* x, TX* frames,
+                   float* out, int B, int C, int T, int F, int K, int win, int hop,
+                   cudaStream_t st) {
   const int M = B * T, Z = B * C;
   const bool rows = sizeof(TX) == 2;
   wiener_spectra_kernel<TP, TX><<<tile_grid(M, F, 1), NTHREADS, 0, st>>>(
@@ -434,7 +435,7 @@ cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const
       K, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return run_istft<TX>(x, basis_a, basis_b, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
+  return run_istft<TX>(x, plan, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
 }
 
 }  // namespace
@@ -467,20 +468,24 @@ extern "C" int gccnmf_soft_mask(const void* cre, const void* cim, int plane_bf16
 // hmask: (B, T, K) f32; wn: (K, F) f32; out: (B, C, (T−1)·hop) f32. rnd
 // (the bf16 mode): basis_rows (win, ldj) bf16 with row j =
 // [A[:, j] | −B[:, j] | 0], ldj >= 2F a multiple of 8; x (B·C·T, ldj) and
-// frames (B·C, T, win) bf16 scratch; basis_a/basis_b unused. Else
-// basis_a/basis_b (F, win) f32 (basis_b already negated); x (2, B·C, T, F)
-// and frames (B·C, T, win) f32 scratch; basis_rows unused.
+// frames (B·C, T, win) bf16 scratch; the FFT's arguments unused. Else the
+// FFT's: scale (win,) f32, twiddle (win, 2) f32 e^{+2πi m/win}, radix
+// (passes,) int32, F = win/2 + 1; x (2, B·C, T, F) and frames (B·C, T, win)
+// f32 scratch; basis_rows unused.
 extern "C" int gccnmf_tf_synthesis(const void* sre, const void* sim, int plane_bf16, int ldf,
-                                   const float* hmask, const float* wn, const float* basis_a,
-                                   const float* basis_b, const void* basis_rows, int ldj,
-                                   void* x, void* frames, float* out, int B, int C, int T, int F,
-                                   int K, int win, int hop, int rnd, void* stream) {
+                                   const float* hmask, const float* wn, const float* scale,
+                                   const float* twiddle, const int* radix, int passes,
+                                   const void* basis_rows, int ldj, void* x, void* frames,
+                                   float* out, int B, int C, int T, int F, int K, int win,
+                                   int hop, int rnd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rnd && (ldj % 8 != 0 || ldj < 2 * F)) return (int)cudaErrorInvalidValue;
+  if (F != win / 2 + 1) return (int)cudaErrorInvalidValue;
+  const FftPlan plan{scale, reinterpret_cast<const float2*>(twiddle), radix, passes};
   const bf16* brows = static_cast<const bf16*>(basis_rows);
 #define GCCNMF_RUN(TP, TX)                                                                  \
   return (int)run_tf<TP, TX>(static_cast<const TP*>(sre), static_cast<const TP*>(sim), ldf, \
-                             hmask, wn, basis_a, basis_b, brows, ldj, static_cast<TX*>(x),  \
+                             hmask, wn, plan, brows, ldj, static_cast<TX*>(x),              \
                              static_cast<TX*>(frames), out, B, C, T, F, K, win, hop, st)
   if (plane_bf16) {
     if (rnd) GCCNMF_RUN(bf16, bf16);

@@ -1,5 +1,5 @@
 // The inverse-STFT tail shared by the separation and enhancement synthesis
-// kernels (synthesis.cu, enhance.cu): a windowed, gained iDFT GEMM from the
+// kernels (synthesis.cu, enhance.cu): a windowed, gained iDFT from the
 // masked spectrum X to frames, then the gather form of overlap-add with the
 // window/2 center trim.
 //
@@ -11,13 +11,49 @@
 // Where X lives (put_x): the spectra kernels write spectrum row r = z·T + t
 // of every (utterance, target, channel) z.
 //   float32: two fp32 planes, Re X at x[r·F + f] and Im X at
-//     x[Z·T·F + r·F + f]; frames_kernel, the SIMT tile of common.cuh, reads
-//     them (no tensor-core path is exact fp32).
+//     x[Z·T·F + r·F + f]; fft_frames_kernel reads them.
 //   bf16 (the rounding points of JAX's make_mm: X and the basis in bf16,
 //     fp32 sums, frames in bf16): one bf16 row a spectrum row,
 //     [Re X[:F] | Im X[:F] | 0] of ldj = 2F rounded up to 8 (16-byte rows
 //     for cp.async), the padding written as zeros by the spectra kernel.
 //     tc_frames_kernel reads them on the tensor cores.
+//
+// fft_frames_kernel (float32): frames[r, j] = scale[j] · irfft(conj X[r,
+// :F], n = win)[j], scale = window · gain: what Re X·A − Im X·B computes
+// (ops/synthesis_cuda.py idft_frames_plain), the imaginary parts of the DC
+// bin and, for an even window, of the Nyquist bin dropping out as they do
+// in the GEMM. Exact fp32 rules out the tensor cores, and as a GEMM the
+// iDFT is 2·2F·win flop a frame (2.1 MFLOP at win = 1,024) where an FFT
+// needs 2.5·win·log2 win (26 kFLOP): at B = 2 of 10 s with 3 targets the
+// GEMM would take 0.47 ms at the 67 TFLOP/s fp32 peak, while reading X and
+// writing the frames once (2 × 61 MB) take 0.04 ms at 3.35 TB/s. So the
+// kernel runs an FFT (measured on an H100 at about a third of that byte
+// rate, its time moving with its instruction count; PERF.md):
+//   - a block of 256 threads holds a few frames (fft_frames_per_block: 4
+//     at win = 1,024) wholly in shared memory, two rows of fft_row(win)
+//     complex fp32 values a frame, the odd of L + 1 and L + 2 so that the
+//     frames' rows start in different banks;
+//   - X's rows are staged coalesced along f, then packed into the complex
+//     input of one L-point inverse FFT a frame, the conjugation applied on
+//     the way: for an even window L = win/2, and the usual real-output
+//     packing (Z_k = E_k + i·O_k with E_k = Y_k + conj Y_{L−k}, O_k =
+//     (Y_k − conj Y_{L−k})·e^{2πik/win}, Y = conj X) gives y[2n] + i·y[2n+1]
+//     as output n; for an odd window L = win, the Hermitian spectrum in
+//     full;
+//   - Stockham passes (self-sorting, ping-pong between the two rows), one
+//     per radix of the host's plan (ops/synthesis_cuda.py fft_plan: 4s, a 2,
+//     3s, 5s, then any other prime as a generic radix, a direct p-point DFT
+//     in one pass), butterflies in registers, every twiddle read from one
+//     table of the win-th roots of unity built in float64 on the host and
+//     rounded once to fp32 (fft_twiddles);
+//   - window · gain and 1/win applied on the store, two samples a thread
+//     for an even window (8-byte stores);
+//   - compiled twice: for the reference window of 1,024 as a constant, so
+//     that every index and division folds (a power-of-two length also
+//     takes j mod ns as a mask), and for any window given at run time.
+// Each frame runs the same butterflies in the same order wherever it
+// lies, so reruns are bit-identical and a batch element gives what it
+// gives alone. The error is O(ε·log win) against the GEMM's O(ε·win).
 //
 // tc_frames_kernel: frames = rows · basisᵀ, one product over M = Z·T rows
 // (every utterance, target and channel stacked, since the basis is shared),
@@ -31,7 +67,9 @@
 // a second block in flight hides one block's ring fill and store; a
 // 4-stage ring would allow only one. The column tile is the grid's fastest
 // index, so the 8 blocks that read one 128-row tile of X run together and
-// share it in L2; the 2 MB basis stays in L2.
+// share it in L2; the 2 MB basis stays in L2. (In bf16 JAX rounds the
+// basis itself, which no FFT reproduces, so the GEMM is the mode's least
+// work.)
 //
 // The kernels sit in a top-level anonymous namespace (nvcc's registration
 // stubs reject one nested in a named namespace): each source that includes
@@ -63,37 +101,238 @@ __device__ __forceinline__ void pad_x(bf16* x, long r, int F, int ldx, int lane)
   if (2 * F + lane < ldx) x[r * ldx + 2 * F + lane] = __float2bfloat16_rn(0.0f);
 }
 
-// float32: frames[z,t,j] = Σ_f Re X[t,f]·A[f,j] + Im X[t,f]·Bneg[f,j]
-__global__ void __launch_bounds__(NTHREADS)
-frames_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-              const float* __restrict__ basis_a, const float* __restrict__ basis_b,
-              float* __restrict__ frames, int T, int F, int win) {
-  __shared__ __align__(16) TileA Ar, Ai;
-  __shared__ __align__(16) TileB Ba, Bb;
-  const int z = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* xrb = xr + (long)z * T * F;
-  const float* xib = xi + (long)z * T * F;
-  float acc[4][4];
-  zero(acc);
-  for (int f0 = 0; f0 < F; f0 += BK) {
-    stage_a<true>(Ar, xrb, F, 1, m0, f0, T, F, false);        // (t, f) at X[t*F + f]
-    stage_a<true>(Ai, xib, F, 1, m0, f0, T, F, false);
-    stage_b<true>(Ba, basis_a, win, 1, f0, n0, F, win, false);  // (f, j) at A[f*win + j]
-    stage_b<true>(Bb, basis_b, win, 1, f0, n0, F, win, false);
-    __syncthreads();
-    tile_fma(Ar, Ba, acc);
-    tile_fma(Ai, Bb, acc);
-    __syncthreads();
+// ---- float32: the FFT --------------------------------------------------------
+
+// The float32 iDFT's constants, built once on the host (synthesis_basis).
+struct FftPlan {
+  const float* scale;  // (win,) window · gain
+  const float2* tw;    // (win,) e^{+2πi m/win}
+  const int* radix;    // the Stockham passes' radices, in order
+  int passes;
+};
+
+constexpr int FFT_THREADS = 256;  // the kernel's loops stride by it: launch exactly this many
+constexpr int FFT_LOADS = 8;      // X's loads a thread keeps in flight while staging
+constexpr int FFT_SMEM_TARGET = 40960;  // a block's bytes at most (4 frames, 32 KB at 1,024)
+constexpr int FFT_MAX_FRAMES = 16;      // and its frames at most (short windows)
+
+// The complex transform's length, a frame's row in shared memory
+// (ops/synthesis_cuda.py fft_row_len), and the frames a block holds.
+__host__ __device__ constexpr int fft_len(int win) { return win % 2 == 0 ? win / 2 : win; }
+__host__ __device__ constexpr int fft_row(int win) { return (fft_len(win) + 1) | 1; }
+__host__ __device__ constexpr int fft_frames_per_block(int win) {
+  const int per = FFT_SMEM_TARGET / (2 * fft_row(win) * (int)sizeof(float2));
+  return per < 1 ? 1 : per > FFT_MAX_FRAMES ? FFT_MAX_FRAMES : per;
+}
+
+// The window that fft_frames_kernel is also compiled for, its length a
+// constant: the reference configurations' 1,024. Every division and index
+// of the kernel then folds at compile time, where at a window known only
+// at run time each butterfly spends dozens of instructions dividing.
+constexpr int FFT_FIXED_WIN = 1024;
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cscale(float s, float2 a) { return make_float2(s * a.x, s * a.y); }
+__device__ __forceinline__ float2 times_i(float2 a) { return make_float2(-a.y, a.x); }
+
+// v ← the R-point inverse DFT of v: v[q] = Σ_u v[u]·e^{+2πi qu/R}.
+template <int R>
+__device__ __forceinline__ void idft(float2 (&v)[R]);
+
+template <>
+__device__ __forceinline__ void idft<2>(float2 (&v)[2]) {
+  const float2 a = v[0], b = v[1];
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
+}
+
+template <>
+__device__ __forceinline__ void idft<4>(float2 (&v)[4]) {
+  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+  const float2 t2 = cadd(v[1], v[3]), t3 = times_i(csub(v[1], v[3]));
+  v[0] = cadd(t0, t2);
+  v[1] = cadd(t1, t3);
+  v[2] = csub(t0, t2);
+  v[3] = csub(t1, t3);
+}
+
+template <>
+__device__ __forceinline__ void idft<3>(float2 (&v)[3]) {
+  constexpr float S = 0.86602540378443865f;  // sin(2π/3)
+  const float2 s = cadd(v[1], v[2]);
+  const float2 m = csub(v[0], cscale(0.5f, s));
+  const float2 e = times_i(cscale(S, csub(v[1], v[2])));
+  v[0] = cadd(v[0], s);
+  v[1] = cadd(m, e);
+  v[2] = csub(m, e);
+}
+
+template <>
+__device__ __forceinline__ void idft<5>(float2 (&v)[5]) {
+  constexpr float C1 = 0.30901699437494742f, C2 = -0.80901699437494742f;  // cos 2π/5, 4π/5
+  constexpr float S1 = 0.95105651629515357f, S2 = 0.58778525229247314f;   // sin 2π/5, 4π/5
+  const float2 s14 = cadd(v[1], v[4]), d14 = csub(v[1], v[4]);
+  const float2 s23 = cadd(v[2], v[3]), d23 = csub(v[2], v[3]);
+  const float2 m1 = cadd(v[0], cadd(cscale(C1, s14), cscale(C2, s23)));
+  const float2 m2 = cadd(v[0], cadd(cscale(C2, s14), cscale(C1, s23)));
+  const float2 e1 = times_i(cadd(cscale(S1, d14), cscale(S2, d23)));
+  const float2 e2 = times_i(csub(cscale(S2, d14), cscale(S1, d23)));
+  v[0] = cadd(v[0], cadd(s14, s23));
+  v[1] = cadd(m1, e1);
+  v[4] = csub(m1, e1);
+  v[2] = cadd(m2, e2);
+  v[3] = csub(m2, e2);
+}
+
+// One Stockham pass of radix R over the block's nf frames (rows of ld):
+// with ns the product of the earlier passes' radices, butterfly j of a
+// frame (k = j mod ns) reads src[j + q·L/R], multiplies input q by
+// e^{2πi kq/(ns·R)}, transforms, and writes output q to
+// dst[(j − k)·R + k + q·ns]. tstep = win/L maps a power of the L-th root
+// to the table of win-th roots; pow2 (L a power of two, so ns is one too)
+// takes j mod ns as a mask.
+template <int R>
+__device__ __forceinline__ void fft_pass(const float2* __restrict__ src, float2* __restrict__ dst,
+                                         const float2* __restrict__ tw, int L, int ns,
+                                         int tstep, int nf, int ld, bool pow2) {
+  const int m = L / R, step = (L / (ns * R)) * tstep;
+  for (int e = threadIdx.x; e < nf * m; e += FFT_THREADS) {
+    const int fr = e / m, j = e - fr * m, k = pow2 ? j & (ns - 1) : j % ns;
+    const float2* s = src + fr * ld + j;
+    float2 v[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) v[q] = s[q * m];
+#pragma unroll
+    for (int q = 1; q < R; ++q) v[q] = cmul(v[q], __ldg(tw + k * q * step));
+    idft<R>(v);
+    float2* d = dst + fr * ld + (j - k) * R + k;
+#pragma unroll
+    for (int q = 0; q < R; ++q) d[q * ns] = v[q];
   }
-  float* fb = frames + (long)z * T * win;
+}
+
+// The same pass for any other prime radix p: output q = Σ_u (input u ·
+// e^{2πi ku/(ns·p)}) · e^{2πi qu/p}, a direct p-point DFT from shared
+// memory (the radix is known only at run time, so nothing is held in
+// registers).
+__device__ __forceinline__ void fft_pass_generic(const float2* __restrict__ src,
+                                                 float2* __restrict__ dst,
+                                                 const float2* __restrict__ tw, int L, int ns,
+                                                 int p, int tstep, int nf, int ld) {
+  const int m = L / p, step = (L / (ns * p)) * tstep, rot = m * tstep;
+  for (int e = threadIdx.x; e < nf * m; e += FFT_THREADS) {
+    const int fr = e / m, j = e - fr * m, k = j % ns;
+    const float2* s = src + fr * ld + j;
+    float2* d = dst + fr * ld + (j - k) * p + k;
+    for (int q = 0; q < p; ++q) {
+      float2 acc = make_float2(0.0f, 0.0f);
+      for (int u = 0; u < p; ++u) {
+        const float2 x = cmul(s[u * m], __ldg(tw + k * u * step));
+        acc = cadd(acc, cmul(x, __ldg(tw + (q * u % p) * rot)));
+      }
+      d[q * ns] = acc;
+    }
+  }
+}
+
+// frames[r, :] = scale ⊙ irfft(conj X[r, :F], n = win) for the frames
+// [blockIdx.x · per_block, + per_block) of rows; X in put_x's fp32 planes
+// (Re at xr[r·F + f], Im at xi[r·F + f]), F = win/2 + 1, frames (rows,
+// win) fp32. WC: the window as a compile-time constant (FFT_FIXED_WIN), or
+// 0 for a window given at run time (win_rt, per_rt). Dynamic shared memory:
+// 2 · per_block · fft_row(win) float2.
+template <int WC>
+__global__ void __launch_bounds__(FFT_THREADS)
+fft_frames_kernel(const float* __restrict__ xr, const float* __restrict__ xi, FftPlan plan,
+                  float* __restrict__ frames, long rows, int win_rt, int per_rt) {
+  extern __shared__ __align__(16) float2 fft_smem[];
+  const int win = WC ? WC : win_rt, per_block = WC ? fft_frames_per_block(WC) : per_rt;
+  const int L = fft_len(win), ld = fft_row(win), tstep = win / L, F = win / 2 + 1;
+  const bool even = win % 2 == 0, pow2 = (L & (L - 1)) == 0;
+  const long r0 = (long)blockIdx.x * per_block, left = rows - r0;
+  const int nf = left < per_block ? (int)left : per_block;
+  const int half = per_block * ld;  // buffer 1 follows buffer 0
+  // X's rows into buffer 1: the block's frames are nf·F consecutive values
+  // of each plane, read coalesced, FFT_LOADS of them a thread in flight
+  const float* xrb = xr + r0 * F;
+  const float* xib = xi + r0 * F;
+  const int n_x = nf * F;
+  for (int e0 = threadIdx.x; e0 < n_x; e0 += FFT_LOADS * FFT_THREADS) {
+    float re[FFT_LOADS], im[FFT_LOADS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = out_row(m0, i);
-    if (t >= T) continue;
+    for (int u = 0; u < FFT_LOADS; ++u) {
+      const int e = e0 + u * FFT_THREADS;
+      re[u] = e < n_x ? xrb[e] : 0.0f;
+      im[u] = e < n_x ? xib[e] : 0.0f;
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = out_col(n0, j);
-      if (col < win) fb[(long)t * win + col] = acc[i][j];
+    for (int u = 0; u < FFT_LOADS; ++u) {
+      const int e = e0 + u * FFT_THREADS, fr = e / F;
+      if (e < n_x) fft_smem[half + fr * ld + e - fr * F] = make_float2(re[u], im[u]);
+    }
+  }
+  __syncthreads();
+  // the L-point transform's input into buffer 0, conjugating on the way
+  for (int e = threadIdx.x; e < nf * L; e += FFT_THREADS) {
+    const int fr = e / L, k = e - fr * L;
+    const float2* x = fft_smem + half + fr * ld;
+    float2 z;
+    if (even) {
+      // Y_k = conj X_k = (a.x, −ai) and conj Y_{L−k} = X_{L−k} = (c.x, ci), the
+      // imaginary parts of DC and Nyquist (both read at k = 0) dropped
+      const float2 a = x[k], c = x[L - k];
+      const float ai = k == 0 ? 0.0f : a.y, ci = k == 0 ? 0.0f : c.y;
+      const float2 ev = make_float2(a.x + c.x, ci - ai);
+      const float2 od = cmul(make_float2(a.x - c.x, -ai - ci), __ldg(plan.tw + k));
+      z = make_float2(ev.x - od.y, ev.y + od.x);  // E + i·O
+    } else {
+      // Y_k = conj X_k below F, conj Y_{N−k} = X_{N−k} from F, Im Y_0 dropped
+      z = k == 0 ? make_float2(x[0].x, 0.0f)
+          : k < F ? make_float2(x[k].x, -x[k].y)
+                  : x[L - k];
+    }
+    fft_smem[fr * ld + k] = z;
+  }
+  __syncthreads();
+  int cur = 0;  // the buffer that holds the latest pass's output
+  for (int p = 0, ns = 1; p < plan.passes; ++p) {
+    const int r = plan.radix[p];
+    const float2* src = fft_smem + cur * half;
+    float2* dst = fft_smem + (cur ^ 1) * half;
+    switch (r) {
+      case 4: fft_pass<4>(src, dst, plan.tw, L, ns, tstep, nf, ld, pow2); break;
+      case 2: fft_pass<2>(src, dst, plan.tw, L, ns, tstep, nf, ld, pow2); break;
+      case 3: fft_pass<3>(src, dst, plan.tw, L, ns, tstep, nf, ld, pow2); break;
+      case 5: fft_pass<5>(src, dst, plan.tw, L, ns, tstep, nf, ld, pow2); break;
+      default: fft_pass_generic(src, dst, plan.tw, L, ns, r, tstep, nf, ld);
+    }
+    __syncthreads();
+    cur ^= 1;
+    ns *= r;
+  }
+  // the frames: window · gain / win on the store
+  const float inv_n = 1.0f / (float)win;
+  const float2* z = fft_smem + cur * half;
+  float* out = frames + r0 * win;
+  if (even) {  // output n is samples 2n and 2n + 1
+    for (int e = threadIdx.x; e < nf * L; e += FFT_THREADS) {
+      const int fr = e / L, n = e - fr * L;
+      const float2 v = z[fr * ld + n];
+      *reinterpret_cast<float2*>(out + (long)fr * win + 2 * n) =
+          make_float2(v.x * inv_n * plan.scale[2 * n], v.y * inv_n * plan.scale[2 * n + 1]);
+    }
+  } else {  // the real part of output n is sample n
+    for (int e = threadIdx.x; e < nf * win; e += FFT_THREADS) {
+      const int fr = e / win, n = e - fr * win;
+      out[(long)fr * win + n] = z[fr * ld + n].x * inv_n * plan.scale[n];
     }
   }
 }
@@ -150,16 +389,30 @@ __global__ void ola_kernel(const TF* __restrict__ frames, float* __restrict__ ou
   }
 }
 
-cudaError_t launch_frames(const float* x, const float* basis_a, const float* basis_b,
-                          const bf16*, int, float* frames, int Z, int T, int F, int win,
-                          cudaStream_t st) {
-  frames_kernel<<<tile_grid(T, win, Z), NTHREADS, 0, st>>>(x, x + (long)Z * T * F, basis_a,
-                                                           basis_b, frames, T, F, win);
+cudaError_t launch_frames(const float* x, const FftPlan& plan, const bf16*, int, float* frames,
+                          int Z, int T, int F, int win, cudaStream_t st) {
+  const int per = fft_frames_per_block(win);
+  const int smem = 2 * per * fft_row(win) * (int)sizeof(float2);
+  const long rows = (long)Z * T;
+  const unsigned blocks = (unsigned)((rows + per - 1) / per);
+  if (win == FFT_FIXED_WIN) {
+    fft_frames_kernel<FFT_FIXED_WIN><<<blocks, FFT_THREADS, smem, st>>>(
+        x, x + rows * F, plan, frames, rows, win, per);
+    return cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {  // one long frame: dynamic shared memory past 48 KiB
+    const cudaError_t err = cudaFuncSetAttribute(
+        reinterpret_cast<const void*>(fft_frames_kernel<0>),
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  fft_frames_kernel<0><<<blocks, FFT_THREADS, smem, st>>>(x, x + rows * F, plan, frames, rows,
+                                                          win, per);
   return cudaGetLastError();
 }
 
-cudaError_t launch_frames(const bf16* x, const float*, const float*, const bf16* basis_rows,
-                          int ldj, bf16* frames, int Z, int T, int F, int win, cudaStream_t st) {
+cudaError_t launch_frames(const bf16* x, const FftPlan&, const bf16* basis_rows, int ldj,
+                          bf16* frames, int Z, int T, int F, int win, cudaStream_t st) {
   using TL = FramesTile;
   const void* kernel = reinterpret_cast<const void*>(tc_frames_kernel);
   // dynamic shared memory past 48 KiB, and the carveout for two blocks an SM
@@ -176,14 +429,14 @@ cudaError_t launch_frames(const bf16* x, const float*, const float*, const bf16*
 }
 
 // The iDFT then the overlap-add over Z = (batch · targets · channels)
-// spectra of T frames: X as put_x laid it out (fp32 planes, or bf16 rows of
-// ldj with the (win, ldj) bf16 basis_rows), frames (Z, T, win) scratch in
-// the type of X, out (Z, (T−1)·hop) fp32.
+// spectra of T frames: X as put_x laid it out (fp32 planes with the FFT's
+// plan, or bf16 rows of ldj with the (win, ldj) bf16 basis_rows), frames
+// (Z, T, win) scratch in the type of X, out (Z, (T−1)·hop) fp32.
 template <typename TX>
-cudaError_t run_istft(const TX* x, const float* basis_a, const float* basis_b,
-                      const bf16* basis_rows, int ldj, TX* frames, float* out, int Z, int T,
-                      int F, int win, int hop, cudaStream_t st) {
-  cudaError_t err = launch_frames(x, basis_a, basis_b, basis_rows, ldj, frames, Z, T, F, win, st);
+cudaError_t run_istft(const TX* x, const FftPlan& plan, const bf16* basis_rows, int ldj,
+                      TX* frames, float* out, int Z, int T, int F, int win, int hop,
+                      cudaStream_t st) {
+  cudaError_t err = launch_frames(x, plan, basis_rows, ldj, frames, Z, T, F, win, st);
   if (err != cudaSuccess) return err;
   const long n_out = (long)(T - 1) * hop, total = (long)Z * n_out;
   ola_kernel<TX><<<elementwise_blocks(total), 256, 0, st>>>(frames, out, Z, T, win, hop, n_out);

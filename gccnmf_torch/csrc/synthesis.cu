@@ -18,18 +18,22 @@
 //      in the epilogue, in fp32; writes X where istft.cuh's iDFT reads it:
 //      fp32 planes in float32, bf16 rows [Re X | Im X | 0] in bf16.
 //   2. the iDFT (istft.cuh, shared with enhance.cu): tc_frames_kernel on the
-//      tensor cores in bf16, frames_kernel on the SIMT tile in float32.
+//      tensor cores in bf16, fft_frames_kernel (a hand-written FFT) in
+//      float32.
 //   3. ola_kernel: the gather form of overlap-add with the window/2 trim.
 //
 // Time rows past T do not exist here: staging masks them to 0, which is the
 // TPU kernel's padded rows (winner −1, H 0), and the gather never reads them.
 //
-// What bounds it on the card: 2·S·C·T·F·(K + 2·win) flop per utterance
-// (about 16.7 GFLOP at the reference shape with 3 targets) against about
-// 20 MB of planes, H, winner and waveforms, so the products bound it. The
-// mag GEMM (about 6 % of them) runs as fp32 FMAs on the SIMT cores, its
-// operands rounded to bf16 in the bf16 mode where JAX's make_mm rounds them;
-// the iDFT runs on wgmma in bf16.
+// What bounds it on the card: in bf16, 2·S·C·T·F·(K + 2·win) flop per
+// utterance (about 16.7 GFLOP at the reference shape with 3 targets)
+// against about 20 MB of planes, H, winner and waveforms, so the products
+// bound it; the mag GEMM (about 6 % of them) runs as fp32 FMAs on the SIMT
+// cores, its operands rounded to bf16 where JAX's make_mm rounds them, the
+// iDFT on wgmma. In float32 the iDFT is an FFT (2.5·win·log2 win flop a
+// frame), which leaves the mag GEMM (2·S·C·T·F·K) as most of the
+// operations, and X's planes and the frames (written and read once each)
+// as most of the bytes.
 #include "common.cuh"
 #include "istft.cuh"
 
@@ -94,12 +98,12 @@ spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
 }
 
 // TX = bf16 (the bf16 mode): X on bf16 rows of ldj, the tensor-core iDFT;
-// TX = float: fp32 planes, the SIMT iDFT.
+// TX = float: fp32 planes, the FFT.
 template <typename TP, typename TX>
 cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const float* w,
-                const float* h, const float* basis_a, const float* basis_b,
-                const bf16* basis_rows, int ldj, TX* x, TX* frames, float* out, int B, int S,
-                int C, int T, int F, int K, int win, int hop, cudaStream_t st) {
+                const float* h, const FftPlan& plan, const bf16* basis_rows, int ldj, TX* x,
+                TX* frames, float* out, int B, int S, int C, int T, int F, int K, int win,
+                int hop, cudaStream_t st) {
   const int Z = B * S * C;
   const bool rows = sizeof(TX) == 2;
   spectra_kernel<TP, TX><<<tile_grid(T, F, Z), NTHREADS, 0, st>>>(
@@ -107,7 +111,7 @@ cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const 
       T, F, K, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return run_istft<TX>(x, basis_a, basis_b, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
+  return run_istft<TX>(x, plan, basis_rows, ldj, frames, out, Z, T, F, win, hop, st);
 }
 
 }  // namespace
@@ -117,22 +121,24 @@ cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const 
 // out: (B, S, C, (T−1)·hop) f32. rnd (the bf16 mode): basis_rows
 // (win, ldj) bf16 with row j = [A[:, j] | −B[:, j] | 0], ldj >= 2F a
 // multiple of 8; x (B·S·C·T, ldj) and frames (B·S·C, T, win) bf16 scratch;
-// basis_a/basis_b unused. Else basis_a/basis_b (F, win) f32 (basis_b
-// already negated); x (2, B·S·C, T, F) and frames (B·S·C, T, win) f32
-// scratch; basis_rows unused.
+// the FFT's arguments unused. Else the FFT's: scale (win,) f32, twiddle
+// (win, 2) f32 e^{+2πi m/win}, radix (passes,) int32, F = win/2 + 1; x (2,
+// B·S·C, T, F) and frames (B·S·C, T, win) f32 scratch; basis_rows unused.
 extern "C" int gccnmf_masked_synthesis(const void* sre, const void* sim, int plane_bf16,
                                        int ldf, const int* winner, const float* w,
-                                       const float* h, const float* basis_a,
-                                       const float* basis_b, const void* basis_rows, int ldj,
-                                       void* x, void* frames, float* out, int B, int S, int C,
-                                       int T, int F, int K, int win, int hop, int rnd,
-                                       void* stream) {
+                                       const float* h, const float* scale,
+                                       const float* twiddle, const int* radix, int passes,
+                                       const void* basis_rows, int ldj, void* x, void* frames,
+                                       float* out, int B, int S, int C, int T, int F, int K,
+                                       int win, int hop, int rnd, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rnd && (ldj % 8 != 0 || ldj < 2 * F)) return (int)cudaErrorInvalidValue;
+  if (F != win / 2 + 1) return (int)cudaErrorInvalidValue;
+  const FftPlan plan{scale, reinterpret_cast<const float2*>(twiddle), radix, passes};
   const bf16* brows = static_cast<const bf16*>(basis_rows);
 #define GCCNMF_RUN(TP, TX)                                                                  \
   return (int)run<TP, TX>(static_cast<const TP*>(sre), static_cast<const TP*>(sim), ldf,   \
-                          winner, w, h, basis_a, basis_b, brows, ldj, static_cast<TX*>(x), \
+                          winner, w, h, plan, brows, ldj, static_cast<TX*>(x),             \
                           static_cast<TX*>(frames), out, B, S, C, T, F, K, win, hop, st)
   if (plane_bf16) {
     if (rnd) GCCNMF_RUN(bf16, bf16);

@@ -363,6 +363,12 @@ __device__ __forceinline__ uint2 pack_bf16x4(float a, float b, float c, float d)
                     *reinterpret_cast<const uint32_t*>(&hi));
 }
 
+// The (column tile, row tile, batch) grid of a product. CUDA caps gridDim.y
+// at 65,535, so rows past 8,388,480 (65,535 tiles of 128) cannot launch.
+// No path comes near it: the bf16 products run 10 s utterances (T = 2,486
+// rows of left‖right at the reference shape, 16 of them at once in z), and
+// long audio's one-device NMF runs the float32 mode, whose launches are
+// chunked along the rows (nmf.cu row_chunks).
 template <class TL>
 inline dim3 grid(int rows, int cols, int batch) {
   return dim3((cols + TL::BN - 1) / TL::BN, (rows + BM - 1) / BM, batch);

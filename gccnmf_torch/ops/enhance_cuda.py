@@ -28,7 +28,8 @@ B = 2 of 10 s, D = K = 128).
 windowed, gained iDFT, overlap-add and window/2 center trim that the
 separation synthesis uses (``csrc/istft.cuh``; in the bf16 mode the iDFT on
 the tensor cores over the spectrum rows of every utterance and channel,
-against the basis rows of :func:`synthesis_cuda.synthesis_basis`). Its
+against the basis rows of :func:`synthesis_cuda.synthesis_basis`; in
+float32 the hand-written FFT of its ``plan`` and ``twiddle``). Its
 result equals
 ``istft(wiener_tf_mask(W, h_mask) ⊙ X, conjugate=True, center_trim=True)
 · gain``: (B, C, (T-1)·hop) fp32.
@@ -50,7 +51,7 @@ from gccnmf_torch import _build
 from gccnmf_torch.ops import masks
 from gccnmf_torch.ops.nmf_cuda import row_pad
 from gccnmf_torch.ops.synthesis_cuda import (
-    check_idft_basis, istft_plain, synthesis_basis,
+    check_idft_basis, idft_args, istft_plain, synthesis_basis,
 )
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
@@ -286,14 +287,18 @@ soft_mask_cuda.launches = 0
 
 class TfSynthesisBasis(NamedTuple):
     """The Wiener synthesis's constants (:func:`tf_synthesis_basis`): the
-    normalized dictionary ``wn`` (K, F) fp32, then the iDFT basis of
-    :func:`synthesis_cuda.synthesis_basis` (``a``, ``b_neg``, and ``rows``
-    in the bf16 mode, else None)."""
+    normalized dictionary ``wn`` (K, F) fp32, then the fields of
+    :func:`synthesis_cuda.synthesis_basis` (``a``, ``b_neg``, ``rows`` in
+    the bf16 mode, else None, and the float32 FFT's ``scale``, ``twiddle``
+    and ``plan``), so that ``basis[1:]`` is the iDFT's basis."""
 
     wn: torch.Tensor
     a: torch.Tensor
     b_neg: torch.Tensor
     rows: torch.Tensor | None
+    scale: torch.Tensor
+    twiddle: torch.Tensor
+    plan: torch.Tensor
 
 
 def tf_synthesis_basis(w, window, gain: float, matmul_dtype: str = "bfloat16",
@@ -352,7 +357,7 @@ def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype
         raise ValueError("tf_synthesis_cuda: planes must be fp32/bf16 with >= F bins")
     if h_mask.shape != (b, t, k) or wn.shape != (k, f):
         raise ValueError("tf_synthesis_cuda: h_mask or Wn shape disagrees")
-    a, b_neg, rows = check_idft_basis("tf_synthesis_cuda", basis[1:], rnd, f, win, dev)
+    fft, rows = check_idft_basis("tf_synthesis_cuda", basis[1:], rnd, f, win, dev)
     sre, sim = spec_re.contiguous(), spec_im.contiguous()
     hm = h_mask.to(torch.float32).contiguous()
     wn = wn.to(torch.float32).contiguous()
@@ -362,11 +367,10 @@ def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype
          else torch.empty((2, b * c, t, f), device=dev, dtype=torch.float32))
     frames = torch.empty((b * c, t, win), device=dev, dtype=x.dtype)
     out = torch.empty((b, c, (t - 1) * hop_size), device=dev, dtype=torch.float32)
-    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
     _build.launch(
         "gccnmf_tf_synthesis", dev,
         sre.data_ptr(), sim.data_ptr(), int(sre.dtype == torch.bfloat16), fp,
-        hm.data_ptr(), wn.data_ptr(), ptr(a), ptr(b_neg), ptr(rows), ldj,
+        hm.data_ptr(), wn.data_ptr(), *idft_args(fft, rows), ldj,
         x.data_ptr(), frames.data_ptr(), out.data_ptr(),
         b, c, t, f, k, win, hop_size, int(rnd),
     )

@@ -14,8 +14,13 @@ nearly all in the iDFT. In the bf16 mode the iDFT runs on the tensor cores
 over the spectrum rows ``[Re X | Im X | 0]`` of every utterance, target and
 channel (laid out as :func:`idft_rows` lays them out) against the basis rows
 ``[A ; −B]`` (:func:`synthesis_basis`'s ``rows``), both bf16 on zero-padded
-16-byte rows. In float32 it stays fp32 FMAs on the SIMT cores, since no
-tensor-core path is exact fp32.
+16-byte rows. In float32 the iDFT is a hand-written FFT
+(``csrc/istft.cuh`` ``fft_frames_kernel``): exact fp32 rules out the tensor
+cores, and as a GEMM the iDFT is some 80 times the operations of an FFT
+(2·N·2F against 2.5·N·log2 N a frame), so the kernel runs the FFT of
+:func:`fft_plan` with the twiddles of :func:`fft_twiddles`, one block a few
+frames in shared memory; the least it must do is read X once and write the
+frames once.
 
 The result equals ``istft(masked_reconstruction(...), conjugate=True,
 center_trim=True) * gain``: (B, N, C, (T-1)·hop) fp32.
@@ -34,7 +39,11 @@ from gccnmf_torch.ops.stft import idft_matrices, overlap_add
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
+    "FFT_MAX_SMEM",
     "SynthesisBasis",
+    "fft_plan",
+    "fft_row_len",
+    "fft_twiddles",
     "synthesis_basis",
     "idft_rows",
     "idft_frames_plain",
@@ -45,14 +54,66 @@ __all__ = [
 ]
 
 
+# Shared memory a block may use on Hopper (227 KB): the float32 FFT holds
+# two rows of fft_row_len(win) complex fp32 values a frame, so one frame
+# must fit (win up to 29,052 samples when even, 14,525 when odd).
+FFT_MAX_SMEM = 232448
+
+
 class SynthesisBasis(NamedTuple):
-    """The iDFT basis of :func:`synthesis_basis`: ``a``, ``b_neg`` (F, win)
-    fp32, and in the bf16 mode ``rows``, the same values in bf16 in the
-    tensor-core layout (None in float32)."""
+    """The iDFT constants of :func:`synthesis_basis`: ``a``, ``b_neg`` (F,
+    win) fp32 (the plain versions' GEMM basis), in the bf16 mode ``rows``,
+    the same values in bf16 in the tensor-core layout (None in float32),
+    then the float32 FFT's ``scale`` (win,) = window·gain, ``twiddle``
+    (win, 2) of :func:`fft_twiddles` and ``plan``, the int32 radices of
+    :func:`fft_plan`."""
 
     a: torch.Tensor
     b_neg: torch.Tensor
     rows: torch.Tensor | None
+    scale: torch.Tensor
+    twiddle: torch.Tensor
+    plan: torch.Tensor
+
+
+def fft_plan(win: int) -> list[int]:
+    """The radices of the float32 iDFT's complex FFT of length L (win/2 for
+    an even window, whose real output packs two samples in each complex
+    one; win for an odd window), one Stockham pass each, in order: radix
+    4 while 4 divides, a 2 for what is left of the powers of two, then 3s,
+    5s, and every other prime factor as a generic radix (a direct p-point
+    DFT in one pass). Their product is L."""
+    left = win // 2 if win % 2 == 0 else win
+    plan = []
+    for p in (4, 2, 3, 5):
+        while left % p == 0:
+            plan.append(p)
+            left //= p
+    p = 7
+    while left > 1:
+        while left % p == 0:
+            plan.append(p)
+            left //= p
+        p += 2
+    return plan
+
+
+def fft_twiddles(win: int) -> np.ndarray:
+    """(win, 2) fp32: ``e^{+2πi m/win}`` (cos, sin) for m < win, computed in
+    float64 and rounded once. Every twiddle of the float32 FFT is one of
+    them: a power of the L-th root is the entry at win/L times its
+    exponent, and the even window's pre-twiddle takes the win-th roots."""
+    ang = 2.0 * np.pi * np.arange(win, dtype=np.float64) / win
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1).astype(np.float32)
+
+
+def fft_row_len(win: int) -> int:
+    """Complex values a frame's row of the FFT's shared-memory buffers
+    holds: at least L + 1 (the F bins of X are staged there first), the
+    odd of L + 1 and L + 2 so that the rows of a block's frames start in
+    different banks."""
+    length = win // 2 if win % 2 == 0 else win
+    return (length + 1) | 1
 
 
 def synthesis_basis(window, gain: float, matmul_dtype: str = "bfloat16",
@@ -63,15 +124,22 @@ def synthesis_basis(window, gain: float, matmul_dtype: str = "bfloat16",
     also ``rows``: (win, :func:`row_pad` ``(2F)``) bf16, row j =
     ``[A[:, j] | −B[:, j] | 0]``, the K-major operand of the tensor-core
     iDFT (the layout of the soft mask's fold), stored once, so that
-    ``idft_rows(xr, xi) @ rows.T`` are the frames."""
+    ``idft_rows(xr, xi) @ rows.T`` are the frames. Then the constants of
+    the float32 FFT, built once on the host: ``scale`` = window·gain,
+    ``twiddle`` (:func:`fft_twiddles`) and ``plan`` (:func:`fft_plan`), so
+    that frames = scale ⊙ irfft(conj X, n=win)."""
     window = np.asarray(window, np.float32)
-    a_m, b_m = idft_matrices(window.shape[0])
+    win = window.shape[0]
+    a_m, b_m = idft_matrices(win)
     a = torch.as_tensor(a_m * window[None, :] * gain, device=device)
     b_neg = torch.as_tensor(-(b_m * window[None, :] * gain), device=device)
     rows = None
     if bf16_operands(matmul_dtype):
         rows = idft_rows(a.T, b_neg.T)
-    return SynthesisBasis(a, b_neg, rows)
+    scale = torch.as_tensor(window * np.float32(gain), device=device)
+    twiddle = torch.as_tensor(fft_twiddles(win), device=device)
+    plan = torch.as_tensor(np.asarray(fft_plan(win), np.int32), device=device)
+    return SynthesisBasis(a, b_neg, rows, scale, twiddle, plan)
 
 
 def idft_rows(xr, xi, f=None, dtype=torch.bfloat16):
@@ -136,22 +204,47 @@ def masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis, *,
 
 
 def check_idft_basis(name, basis, rnd, f, win, dev):
-    """The basis of a CUDA call, validated: ``(a, b_neg, rows)`` contiguous,
-    rows None in float32. A bf16 call needs :func:`synthesis_basis`'s bf16
-    ``rows``; without them it raises, as nothing falls back to the SIMT
-    iDFT."""
+    """The operands of a CUDA call's iDFT from its basis (a
+    :class:`SynthesisBasis` or the same fields as a tuple), validated:
+    ``((scale, twiddle, plan), None)`` for the float32 FFT, ``(None,
+    rows)`` for the bf16 tensor-core iDFT. A call whose basis lacks its
+    mode's constants raises, as nothing falls back to another iDFT."""
     a, b_neg = basis[:2]
-    rows = basis[2] if len(basis) > 2 else None
     if a.shape != (f, win) or b_neg.shape != (f, win):
         raise ValueError(f"{name}: the iDFT basis must be (F, win)")
+    if f != win // 2 + 1:
+        raise ValueError(f"{name}: the iDFT basis must have win // 2 + 1 bins")
     if not rnd:
-        return a.to(torch.float32).contiguous(), b_neg.to(torch.float32).contiguous(), None
+        scale, twiddle, plan = basis[3:6] if len(basis) >= 6 else (None,) * 3
+        if (scale is None or scale.shape != (win,) or twiddle.shape != (win, 2)
+                or plan.dtype != torch.int32 or plan.dim() != 1):
+            raise ValueError(f"{name}: matmul_dtype float32 needs the FFT's scale, twiddle "
+                             "and plan of synthesis_basis")
+        if 16 * fft_row_len(win) > FFT_MAX_SMEM:
+            raise ValueError(f"{name}: window {win} is too long for the float32 FFT, which "
+                             "holds a frame in one block's shared memory")
+        if any(v.device != dev for v in (scale, twiddle, plan)):
+            raise ValueError(f"{name}: all tensors must be on one CUDA device")
+        fft = (scale.to(torch.float32).contiguous(), twiddle.to(torch.float32).contiguous(),
+               plan.contiguous())
+        return fft, None
+    rows = basis[2] if len(basis) > 2 else None
     if rows is None or rows.shape != (win, row_pad(2 * f)) or rows.dtype != torch.bfloat16:
         raise ValueError(f"{name}: matmul_dtype bfloat16 needs the (win, row_pad(2F)) bf16 "
                          "rows of synthesis_basis(..., 'bfloat16')")
     if rows.device != dev:
         raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    return None, None, rows.contiguous()
+    return None, rows.contiguous()
+
+
+def idft_args(fft, rows):
+    """The iDFT's pointer arguments of a launch from
+    :func:`check_idft_basis`'s result: the FFT's scale, twiddles, radices
+    and pass count, then the bf16 basis rows (0 where the mode has none)."""
+    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
+    scale, twiddle, plan = fft if fft is not None else (None, None, None)
+    return (ptr(scale), ptr(twiddle), ptr(plan), 0 if plan is None else plan.numel(),
+            ptr(rows))
 
 
 def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
@@ -186,7 +279,7 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
         raise ValueError("masked_synthesis_cuda: W, H or winner shape disagrees")
     if winner.dtype != torch.int32:
         raise ValueError("masked_synthesis_cuda: winner must be int32")
-    a, b_neg, rows = check_idft_basis("masked_synthesis_cuda", basis, rnd, f, win, dev)
+    fft, rows = check_idft_basis("masked_synthesis_cuda", basis, rnd, f, win, dev)
     sre, sim = spec_re.contiguous(), spec_im.contiguous()
     win_idx = winner.contiguous()
     w32 = w.to(torch.float32).contiguous()
@@ -199,11 +292,10 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
     frames = torch.empty((z, t, win), device=dev, dtype=x.dtype)
     out = torch.empty((b, num_targets, c, (t - 1) * hop_size), device=dev,
                       dtype=torch.float32)
-    ptr = lambda v: 0 if v is None else v.data_ptr()  # noqa: E731
     _build.launch(
         "gccnmf_masked_synthesis", dev,
         sre.data_ptr(), sim.data_ptr(), int(sre.dtype == torch.bfloat16), fp,
-        win_idx.data_ptr(), w32.data_ptr(), h32.data_ptr(), ptr(a), ptr(b_neg), ptr(rows), ldj,
+        win_idx.data_ptr(), w32.data_ptr(), h32.data_ptr(), *idft_args(fft, rows), ldj,
         x.data_ptr(), frames.data_ptr(), out.data_ptr(),
         b, num_targets, c, t, f, k, win, hop_size, int(rnd),
     )

@@ -103,6 +103,25 @@ def test_nmf_kernel_matches_plain(cuda, mode, shape):
             assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
 
 
+@pytest.mark.parametrize("t", [4_194_240, 4_194_304], ids=["last-one-grid", "past-the-cap"])
+def test_nmf_float32_past_the_row_grid_cap(cuda, t):
+    """Kernel 1's float32 mode at 4,194,240 rows (65,535 tiles of 64, the
+    last row count whose H update fits one grid) and at 4,194,304 (65,536
+    tiles, past CUDA's 65,535 cap on gridDim.y: the row tiles launch in
+    chunks), F = 33, K = 8 (V about 0.55 GB), against the plain updates
+    after 3 iterations at the NMF bars."""
+    f, k = 33, 8
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(t)
+    v = ((torch.rand((t, 4), generator=gen, device=cuda) + 0.1)
+         @ (torch.rand((f, 4), generator=gen, device=cuda) + 0.1).T + 0.01)[None]
+    w0, h0 = (torch.as_tensor(m, device=cuda)[None] for m in nmf_init_numpy(f, k, t))
+    w, h = kl_nmf_cuda(v, w0, h0, 3, matmul_dtype="float32")
+    w_p, h_p = kl_nmf_plain(v, w0, h0, 3, matmul_dtype="float32")
+    torch.testing.assert_close(w, w_p, rtol=1e-4, atol=1e-6 * float(w_p.abs().max()))
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-6 * float(h_p.abs().max()))
+
+
 def test_attribution_winner_is_batch_invariant(cuda):
     """The attribution winner of a batch equals each utterance's alone, bit
     for bit: a batched cuBLAS product may sum in another order than a
@@ -216,12 +235,30 @@ SYNTHESIS_SHAPES = [(32, 2, 70), (256, 32, 150)]
 TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150), (1024, 512, 61)]
 
 
+# the float32 FFT at windows that are not powers of two: 48 (radices 4, 2,
+# 3), 1,000 (4, 5, 5, 5), 88 (4 and the generic 11), 194 (the generic 97)
+# and the odd 45 (the full 45-point transform: 3, 3, 5)
+FFT_SYNTHESIS_SHAPES = [(48, 8, 41), (1000, 250, 33), (45, 9, 30), (88, 22, 29)]
+FFT_TF_SYNTHESIS_SHAPES = [(48, 16, 37), (1000, 500, 23), (45, 15, 40), (194, 97, 21)]
+
+
 @pytest.mark.parametrize("shape", SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_synthesis_kernel_matches_plain(cuda, mode, shape):
     """Planes wider than F, exact-zero mixture bins; bf16 planes and the
     tensor-core iDFT in the bf16 mode. Reruns are bit-identical and every
     batch element equals the call of it alone, bit for bit."""
+    _check_synthesis(cuda, mode, shape)
+
+
+@pytest.mark.parametrize("shape", FFT_SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
+def test_synthesis_fft_at_any_window_matches_plain(cuda, shape):
+    """The float32 FFT at windows of radices 2, 3, 4, 5 and a generic
+    prime, and at an odd window, at the same bars."""
+    _check_synthesis(cuda, "float32", shape)
+
+
+def _check_synthesis(cuda, mode, shape):
     win, hop, t = shape
     rng = np.random.default_rng(4)
     b, f, k = 2, win // 2 + 1, 6
@@ -401,6 +438,17 @@ def test_tf_synthesis_kernel_matches_plain(cuda, mode, shape):
     """K = 6, B = 2; bf16 planes and the tensor-core iDFT in the bf16 mode.
     Reruns are bit-identical and every batch element equals the call of it
     alone, bit for bit."""
+    _check_tf_synthesis(cuda, mode, shape)
+
+
+@pytest.mark.parametrize("shape", FFT_TF_SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
+def test_tf_synthesis_fft_at_any_window_matches_plain(cuda, shape):
+    """The Wiener synthesis's float32 FFT at windows that are not powers of
+    two and at an odd window, at the same bars."""
+    _check_tf_synthesis(cuda, "float32", shape)
+
+
+def _check_tf_synthesis(cuda, mode, shape):
     win, hop, t = shape
     rng = np.random.default_rng(7)
     b, f, k = 2, win // 2 + 1, 6

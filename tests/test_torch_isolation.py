@@ -98,6 +98,34 @@ def test_no_jax_import_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
 
 
+KERNEL_PATH = (sorted((ROOT / "gccnmf_torch" / "csrc").glob("*.cu*"))
+               + sorted((ROOT / "gccnmf_torch" / "ops").glob("*_cuda.py")))
+
+
+@pytest.mark.parametrize("path", KERNEL_PATH, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_library_fft_on_the_kernel_path(path):
+    """The kernels and their wrappers compute no transform through a
+    library: no cuFFT in ``csrc/``, and no ``torch.fft`` (attribute or
+    import) in ``ops/*_cuda.py``. The float32 iDFT of the syntheses is the
+    hand-written FFT of ``csrc/istft.cuh``."""
+    text = path.read_text()
+    assert "cufft" not in text.lower(), f"{path} names cuFFT"
+    if path.suffix != ".py":
+        return
+    for node in ast.walk(ast.parse(text, filename=str(path))):
+        if isinstance(node, ast.Attribute) and node.attr == "fft":
+            assert not (isinstance(node.value, ast.Name) and node.value.id == "torch"), \
+                f"{path}:{node.lineno} calls torch.fft"
+        elif isinstance(node, ast.Import):
+            assert all(not a.name.startswith("torch.fft") for a in node.names), \
+                f"{path}:{node.lineno} imports torch.fft"
+        elif isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            assert not mod.startswith("torch.fft") and not (
+                mod == "torch" and any(a.name == "fft" for a in node.names)), \
+                f"{path}:{node.lineno} imports torch.fft"
+
+
 def test_default_device_is_cuda_and_raises_without_one():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
