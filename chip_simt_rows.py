@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the float32 bodies of the kernels on one NVIDIA GPU (kernels 1 and
-4 on the SIMT product core, kernels 2 and 5 on the iDFT's FFT), so that two
-trees can be compared in one call.
+4 on the SIMT product core, kernels 2 and 5 on the iDFT's FFT, kernel 3 on
+the rDFT's FFT), so that two trees can be compared in one call.
 
 Run from the root of a checkout:
 ``python3 chip_simt_rows.py [--root DIR] [--rows nmf_ref,nmf_corpus,nmf_hour,mask,
-syn,wiener,nmf_edge,nmf_cap] [--label NAME] [--seed N]``. It imports
+syn,wiener,syn16,wiener16,frontend,frontend16,nmf_edge,nmf_cap,paths] [--label NAME]
+[--seed N] [--profile]``. It imports
 ``gccnmf_torch`` from ``--root`` (default: this checkout), builds that
 tree's kernels there, prints the ptxas registers and spills of its float32
 product and iDFT kernels, and then, per row, one JSON line:
@@ -28,6 +29,17 @@ product and iDFT kernels, and then, per row, one JSON line:
   a seeded mask and dictionary (K = 128);
 - ``syn16`` and ``wiener16``: the same two in the bf16 mode (the
   tensor-core iDFT), held within 1e-2 x max|plain|, without yardsticks;
+- ``frontend``: ``stft_gcc_frontend_cuda`` float32 at B = 2 of the 10 s
+  mixtures (window 1,024, hop 128, T = 1,243, F = 513, 128 TDOAs over
+  1 m), held within 1e-4 x max of the plain version (spec, |X|, angular)
+  and its coherence planes within 1e-4 x max of the plain version or of
+  the function in float64, whichever is nearer (an earlier tree's GEMM
+  sits by the plain version, the FFT by float64; all three distances are
+  printed), with
+  ``gemm_library_ms`` (the rDFT and angular products as ``torch.matmul``)
+  and ``fft_library_ms`` (the windowed frames through ``torch.fft.rfft``
+  plus the angular ``torch.matmul``); ``frontend16``: the same in bf16
+  (the tensor cores), within 8e-3 x max|plain|, without yardsticks;
 - ``paths``: the float32 entry points at B = 1 on the first 10 s mixture,
   ``GCCNMFSeparator(OfflineConfig(nmf_matmul_dtype="float32")).separate``
   and ``GCCNMFEnhancer`` (a seeded positive K = 128 dictionary, 10 cm, 128
@@ -40,7 +52,9 @@ product and iDFT kernels, and then, per row, one JSON line:
   updates (a tree that cannot launch it prints its error).
 
 The NMF rows print ``digest``, a SHA-256 of W and H after the checked
-iterations, so two trees' results can be compared bit for bit.
+iterations, the synthesis rows one of their output and the front-end rows
+one of their six planes, so two trees' results can be compared bit for
+bit.
 
 Each row checks the kernel against its plain version (the NMF after 15
 iterations within rtol 1e-4, atol 1e-6 x max|plain|; the soft mask's
@@ -83,7 +97,7 @@ DELAYS = (8, -11, 3)
 CHECK_ITERS, ITERS = 15, 100
 HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 PRODUCT_KERNELS = ("wh_ratio_kernel", "h_update_kernel", "qth_split_kernel",
-                   "score_argmax_kernel", "frames_kernel")
+                   "score_argmax_kernel", "frames_kernel", "coherence_kernel")
 # 65,536 row tiles of 64: one past what one grid's y holds
 EDGE_ROWS, CAP_ROWS = 65535 * 64, 65536 * 64
 
@@ -189,7 +203,9 @@ def main() -> int:
     def digest(*tensors):
         h = hashlib.sha256()
         for x in tensors:
-            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+            x = x.detach().contiguous()
+            x = x.view(torch.int16) if x.dtype == torch.bfloat16 else x  # the bits, for NumPy
+            h.update(x.cpu().numpy().tobytes())
         return h.hexdigest()
 
     def nmf_row(name, v, k, reps):
@@ -348,6 +364,82 @@ def main() -> int:
                 b * 2 * t, 2 * b * t * k_ * F + b * 2 * t * dft,
                 b * 2 * 2 * t * F * 4 + b * t * k_ * 4 + k_ * F * 4 + 4 * WIN
                 + b * 2 * (t - 1) * HOP * 4, tol)
+    for name in [r for r in rows if r in ("frontend", "frontend16")]:
+        from gccnmf_torch.ops.frontend_cuda import (
+            frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
+        )
+
+        md = "float32" if name == "frontend" else "bfloat16"
+        b, d_ = 2, 128
+        x = torch.as_tensor(mixture(args.seed, b, 10), device=dev)
+        cos_m, sin_m = (torch.as_tensor(m, device=dev)
+                        for m in gcc.steering_cos_sin(float(SR), F, 1.0, d_))
+        basis = frontend_basis(hann_symmetric(WIN), True, dev, md, (cos_m, sin_m))
+        kw = dict(hop_size=HOP, matmul_dtype=md, plane_dtype=md)
+        kfn = lambda: stft_gcc_frontend_cuda(x, basis, cos_m, sin_m, **kw)  # noqa: E731
+        pfn = lambda: stft_gcc_frontend_plain(x, basis, cos_m, sin_m, **kw)  # noqa: E731
+        got, again, want = kfn(), kfn(), pfn()
+        one = stft_gcc_frontend_cuda(x[1:2].clone(), basis, cos_m, sin_m, **kw)
+        t = got[5].shape[1]
+
+        def rel(a, e):
+            return float((a.double() - e.double()).abs().max()) / float(e.double().abs().max())
+
+        extra, ref = {}, list(want)
+        if md == "float32":  # the coherence against the function in float64
+            frames = x.double().unfold(-1, WIN, HOP) * window.double()
+            spec = torch.conj(torch.fft.rfft(frames, dim=-1))
+            mag = spec.abs()
+            coh = spec[:, 0] * torch.conj(spec[:, 1]) / (mag[:, 0] * mag[:, 1])
+            ref[3:5] = coh.real, coh.imag
+            extra = dict(coherence_vs_plain=max(rel(got[i], want[i]) for i in (3, 4)),
+                         coherence_vs_float64=max(rel(got[i], ref[i]) for i in (3, 4)),
+                         plain_coherence_vs_float64=max(rel(want[i], ref[i]) for i in (3, 4)),
+                         spectrum_vs_float64=max(rel(g, e) for g, e in zip(
+                             got[:3], (spec.real, spec.imag, mag))),
+                         plain_spectrum_vs_float64=max(rel(w, e) for w, e in zip(
+                             want[:3], (spec.real, spec.imag, mag))))
+            del frames, spec, mag, coh
+        tol = 1e-4 if md == "float32" else 8e-3
+        err = max(rel(g, r) for g, r in zip(got, ref))
+        checks = dict(rerun=all(torch.equal(g, a) for g, a in zip(got, again)),
+                      alone=all(torch.equal(g[1:2], o) for g, o in zip(got, one)),
+                      within_tol=err <= tol)
+        if md == "float32":  # a parent's GEMM sits by the plain version, the FFT by float64
+            err = max(max(rel(g, w) for g, w in zip(got[:3] + got[5:], want[:3] + want[5:])),
+                      min(extra["coherence_vs_plain"], extra["coherence_vs_float64"]))
+            checks["within_tol"] = err <= tol
+        if not all(checks.values()):
+            raise RuntimeError(f"{name}: {checks} (err {err} x max)")
+        sha = digest(*got)
+        del again, one, ref
+        ms, runs = timed(kfn, 5)
+        plain_ms, plain_runs = timed(pfn, 5)
+        gemm_ms = fft_ms = None
+        if md == "float32":  # the float32 row's yardsticks
+            fr = torch.rand((b * 2 * t, WIN), device=dev)
+            wb = torch.cat([basis.wcos, basis.wsin], dim=1)
+            co = torch.rand((b * t, 2 * F), device=dev)
+            st = torch.cat([cos_m, sin_m])
+            gemm_ms, _ = timed(lambda: (fr @ wb, co @ st), 5)
+            fft_ms, _ = timed(lambda: (torch.fft.rfft(fr * window, dim=-1), co @ st), 5)
+            del fr, wb, co, st
+        prof = by_kernel(kfn) if args.profile else None
+        flops = b * 2 * t * 2.5 * WIN * math.log2(WIN) + 4 * b * t * F * d_
+        nbytes = (b * 2 * x.shape[-1] * 4 + 4 * (WIN + 2 * F * d_) + b * 4 * 8 * t * F
+                  + b * t * d_ * 4)
+        t_ops, t_bytes = flops / FP32_FLOP_S, nbytes / HBM_BYTES_S
+        emit(row=name, shape=dict(B=b, T=t, F=F, D=d_, win=WIN, hop=HOP), ms=ms, runs=runs,
+             device_ms=prof, plain_ms=plain_ms, plain_runs=plain_runs, gemm_library_ms=gemm_ms,
+             fft_library_ms=fft_ms,
+             bound_ms=max(t_ops, t_bytes) * 1e3 if md == "float32" else None,
+             bound_by=("operations" if t_ops >= t_bytes else "bytes") if md == "float32"
+             else None, max_rel_err=err, checks=checks, digest=sha,
+             bar=(f"{tol:g} x max|plain| (float32: the coherence x max of the plain version or of "
+                  "float64, the nearer), rerun and "
+                  "the second element alone bit-equal"), **extra)
+        del got, want
+        torch.cuda.empty_cache()
     if "paths" in rows:
         from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
 

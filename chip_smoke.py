@@ -17,8 +17,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    too); their ptxas registers and spills are printed, by source, and the
    iDFT and the front-end's must not spill. The float32 products on the
    pipelined SIMT core of ``simt_gemm.cuh`` (the NMF's three, the soft
-   mask's scores) and the float32 iDFT's FFT (``fft_frames_kernel`` of
-   ``istft.cuh``, in both sources) must hold no tensor-core instruction
+   mask's scores), the float32 iDFT's FFT (``fft_frames_kernel`` of
+   ``istft.cuh``, in both sources) and the front-end's float32 rDFT on
+   the same FFT passes (``fft_coherence_kernel`` of ``frontend.cu``) must
+   hold no tensor-core instruction
    (HGMMA or HMMA: exact fp32, no TF32) and must not spill; their
    registers and spills are printed too.
 3. ``kernel``: each kernel and mode at the reference shapes (batch 2, a 10 s
@@ -33,13 +35,23 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    ``gemm_library_ms``: the same iteration's products (four; three in the
    turbo mode) as ``torch.matmul`` calls at the row's batch and operand
    type, times 100 (a yardstick only; the port never calls it). Each front-end
-   row names its design too (``wgmma`` in bf16, ``simt`` in float32) and
+   row names its design too (``wgmma`` in bf16, ``fft`` in float32: the
+   hand-written FFT of ``frontend.cu`` on the passes of ``fft.cuh``) and
    carries ``gemm_library_ms``: the rDFT as one ``torch.matmul`` of the
    (B·2·T, win) frames against the (win, 2F) basis plus the angular
    spectrogram as one of the (B·T, 2F) coherence rows against the (2F, D)
    steering planes, in the row's operand type and batch (a yardstick only),
-   and ``device_ms``: its kernels' device time in one call (torch.profiler),
-   which the CUDA-event ``ms`` exceeds by the wrapper's host time.
+   in float32 also ``fft_library_ms`` (the frames times the window through
+   ``torch.fft.rfft`` plus the same angular ``torch.matmul``), and
+   ``device_ms``: its kernels' device time in one call (torch.profiler),
+   which the CUDA-event ``ms`` exceeds by the wrapper's host time, with
+   ``device_ms_by_kernel``. In float32 the coherence planes are held
+   against the front-end's function in float64 (the float64 rfft of the
+   windowed frames) at the same 1e-4 × max bar, since near a bin of tiny
+   |X| the plain version's fp32 GEMM is itself farther than the bar from
+   it; the row gives the kernel's and the plain version's distances
+   (``coherence_vs_plain``, ``coherence_vs_float64``,
+   ``plain_coherence_vs_float64``, and the same for the spectrum).
    The enhancement kernels (soft mask, Wiener synthesis) are held the same
    way on the enhancement configuration of ``bench.py`` (10 cm spacing,
    128 TDOAs, K = 128), with a dictionary learned by the NMF kernel
@@ -438,18 +450,21 @@ TC_KERNELS = {"tc_wh_ratio_kernel": ("nmf.cu",), "tc_h_update_kernel": ("nmf.cu"
               "tc_frames_kernel": ("synthesis.cu", "enhance.cu"),
               "tc_dft_coherence_kernel": ("frontend.cu",), "tc_angular_kernel": ("frontend.cu",)}
 # substrings of the front-end's kernel names, for the profiler
-FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "angular_kernel")
+FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "fft_coherence",
+                    "angular_kernel")
 # the tensor-core kernels that must not spill: two blocks an SM leave each
 # thread 128 registers
 NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
-# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh) and
-# the float32 iDFT's FFT (csrc/istft.cuh), by the sources that instantiate
-# each: exact fp32, so their SASS must hold no tensor-core instruction
-# (HGMMA, or HMMA as TF32 would use), and they must not spill
+# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh), the
+# float32 iDFT's FFT (csrc/istft.cuh) and the front-end's float32 rDFT on
+# the same FFT passes (csrc/fft.cuh), by the sources that instantiate each:
+# exact fp32, so their SASS must hold no tensor-core instruction (HGMMA, or
+# HMMA as TF32 would use), and they must not spill
 SIMT_KERNELS = {"simt_wh_ratio_kernel": ("nmf.cu",), "simt_h_update_kernel": ("nmf.cu",),
                 "simt_qth_split_kernel": ("nmf.cu",),
                 "simt_score_argmax_kernel": ("enhance.cu",),
-                "fft_frames_kernel": ("synthesis.cu", "enhance.cu")}
+                "fft_frames_kernel": ("synthesis.cu", "enhance.cu"),
+                "fft_coherence_kernel": ("frontend.cu",)}
 # a kernel name that tells a source's SASS apart from the others', tried in
 # this order (synthesis.cu's spectra_kernel is also a substring of
 # enhance.cu's wiener_spectra_kernel)
@@ -1600,16 +1615,47 @@ def main() -> int:
 
     def device_ms(fn, keys):
         """Device time (ms) of one ``fn()`` after a warm-up, summed over the
-        kernels whose names hold one of ``keys`` (torch.profiler): a
-        kernel's own time, without the wrapper's host time that CUDA events
-        around the call include where the card waits for it."""
+        kernels whose names hold one of ``keys`` (torch.profiler), and by
+        key: a kernel's own time, without the wrapper's host time that CUDA
+        events around the call include where the card waits for it."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(ev.device_time_total for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA and any(k in ev.key for k in keys)) / 1e3
+        by_key = {k: sum(ev.device_time_total for ev in prof.key_averages()
+                         if ev.device_type == DeviceType.CUDA and k in ev.key) / 1e3 for k in keys}
+        by_key = {k: ms for k, ms in by_key.items() if ms > 0}
+        return sum(by_key.values()), by_key
+
+    def frontend_float64(x, basis, cos_, sin_, hop):
+        """The float32 front-end's function in float64, the yardstick of its
+        coherence planes: the float64 rfft of the windowed frames (conjugated
+        as the basis says), |X|, the guarded PHAT coherence and the angular
+        spectrogram of (B, 2, n) signals ``x``."""
+        frames = x.double().unfold(-1, basis.window.shape[0], hop) * basis.window.double()
+        spec = torch.fft.rfft(frames, dim=-1)
+        spec = spec.conj() if basis.conjugate else spec
+        mag = spec.abs()
+        den = mag[:, 0] * mag[:, 1]
+        ok = den > 1e-30
+        coh = torch.where(ok, spec[:, 0] * spec[:, 1].conj() / torch.where(ok, den, 1.0), 0.0)
+        return (spec.real, spec.imag, mag, coh.real, coh.imag,
+                coh.real @ cos_.double() + coh.imag @ sin_.double())
+
+    def fft_frontend_library_ms(b, t_, basis, cos_, sin_):
+        """The float32 front-end row's second yardstick: the rDFT as one
+        ``torch.fft.rfft`` (cuFFT) of the (B·2·T, win) frames times the
+        window, plus the angular spectrogram as one ``torch.matmul``."""
+        win_, f_ = basis.wcos.shape
+        fr = torch.rand((b * 2 * t_, win_), device=dev)
+        co = torch.rand((b * t_, 2 * f_), device=dev)
+        st = torch.cat([cos_, sin_])
+        ms = time_ms(torch, lambda: (torch.fft.rfft(fr * basis.window, dim=-1), co @ st))
+        del fr, co, st
+        return dict(fft_library_ms=ms, fft_library_note=(
+            f"({b * 2 * t_}, win) frames times the window as torch.fft.rfft and ({b * t_}, 2F) "
+            "@ (2F, D) as torch.matmul; no |X|, no coherence, so library_ms stays null"))
 
     def frontend_library_ms(md, b, t_, basis, cos_, sin_):
         """The yardstick for a front-end row: the rDFT as one torch.matmul of
@@ -1661,7 +1707,13 @@ def main() -> int:
 
     def check_frontend(x, md, basis, cos_, sin_, hop, shape=""):
         """The front-end kernel in mode ``md`` on the (B, 2, n) signals
-        ``x`` against its plain version; returns the kernel's planes."""
+        ``x`` against its plain version; returns the kernel's planes. In
+        float32 the coherence planes are held against the function in
+        float64 (:func:`frontend_float64`), at the same bar: near a bin of
+        |X| a thousandth of the median the fp32 GEMM of the plain version
+        moves the coherence by more than the bar, which the kernel's FFT,
+        nearer the float64 result, cannot match; the row gives both
+        distances."""
         kw = dict(hop_size=hop, matmul_dtype=md, plane_dtype=md)
         kfn = lambda: stft_gcc_frontend_cuda(x, basis, cos_, sin_, **kw)  # noqa: E731
         pfn = lambda: stft_gcc_frontend_plain(x, basis, cos_, sin_, **kw)  # noqa: E731
@@ -1671,6 +1723,21 @@ def main() -> int:
         psize = 4 if md == "float32" else 2
         dft, counted = dft_flops(b * 2 * t_, md)
         lib_ms, lib_note = frontend_library_ms(md, b, t_, basis, cos_, sin_)
+        extra = {}
+        if md == "float32":
+            exact = frontend_float64(x, basis, cos_, sin_, hop)
+            rel = lambda a, e: max_err(torch, a, e)[0] / max_err(torch, a, e)[1]  # noqa: E731
+            extra = dict(
+                coherence_reference="float64", coherence_vs_plain=max(
+                    rel(g, w) for g, w in zip(got[3:5], want[3:5])),
+                coherence_vs_float64=max(rel(g, e) for g, e in zip(got[3:5], exact[3:5])),
+                plain_coherence_vs_float64=max(rel(w, e) for w, e in zip(want[3:5], exact[3:5])),
+                spectrum_vs_float64=max(rel(g, e) for g, e in zip(got[:3], exact[:3])),
+                plain_spectrum_vs_float64=max(rel(w, e) for w, e in zip(want[:3], exact[:3])),
+                **fft_frontend_library_ms(b, t_, basis, cos_, sin_))
+            want = (*want[:3], *(e.float() for e in exact[3:5]), want[5])
+            del exact
+        total_ms, split_ms = device_ms(kfn, FRONTEND_KERNELS)
         record(
             "stft_gcc_frontend_cuda", md, b, "gccnmf_torch/csrc/frontend.cu",
             "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
@@ -1678,12 +1745,14 @@ def main() -> int:
             flops=dft + b * 4 * t_ * f * d_, counted=counted + ", angular GEMM",
             nbytes=b * 2 * n_ * 4 + 4 * (basis_len(md) + 2 * f * d_)
             + b * psize * (3 * 2 * t_ * f + 2 * t_ * f) + b * t_ * d_ * 4,
-            note=("1e-4" if md == "float32" else "8e-3 (one bf16 step)") + " x max|plain|",
-            design="simt" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
-            gemm_library_note=lib_note, device_ms=device_ms(kfn, FRONTEND_KERNELS),
+            note=("1e-4 x max|plain| (the coherence planes: x max|float64|, against the "
+                  "function in float64)" if md == "float32"
+                  else "8e-3 (one bf16 step) x max|plain|"),
+            design="fft" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
+            gemm_library_note=lib_note, device_ms=total_ms, device_ms_by_kernel=split_ms,
             device_note="its kernels' device time in one call (torch.profiler); ms is CUDA "
                         "events around the call, the wrapper's host time included",
-            shape=shape,
+            shape=shape, **extra,
         )
         return got
 

@@ -45,7 +45,8 @@ _SIGNATURES = {
         _F, _F, _I, _P,  # alpha eps mode stream
     ],
     "gccnmf_frontend": [
-        _P, _I, _L, _I, _I, _P, _P, _P, _P,  # x B n hop win wcos wsin cos sin
+        _P, _I, _L, _I, _I,  # x B n hop win
+        _P, _P, _P, _I, _I, _P, _P, _P,  # window twiddle radix passes conjugate y0 cos sin
         _P, _I, _I, _P, _I,  # basis nb ldw steer ldj
         _P, _L, _I, _P,  # stage ldx frame_rows crows
         _I, _I, _I, _I, _I,  # T F D rnd plane_bf16

@@ -2,9 +2,8 @@
 //
 // Its remaining users: the syntheses' spectra GEMMs (synthesis.cu's
 // spectra_kernel, enhance.cu's wiener_spectra_kernel) in every mode, and
-// the float32 DFTs of the front-end (the rDFT and angular products in
-// frontend.cu; the syntheses' float32 iDFT is an FFT, istft.cuh
-// fft_frames_kernel). They run a plain
+// the front-end's float32 angular product (frontend.cu angular_kernel; the
+// float32 DFTs are FFTs on the passes of fft.cuh). They run a plain
 // tiled SIMT GEMM: a 64x64 output tile per 256-thread block, a 16-deep
 // contraction slice staged in shared memory one scalar at a time, a 4x4
 // register micro-tile per thread, fp32 fused multiply-adds, with no
@@ -16,7 +15,7 @@
 //
 // What bounds it: fp32 FMAs at 16-21 TFLOP/s on an H100 (PERF.md), scalar
 // staging loads with a bf16 round at each. Its users are small GEMMs (the
-// float32 DFTs are bound by bytes and their cost is the DFT run as a GEMM).
+// float32 front-end is bound by bytes).
 // The float32 NMF and soft-mask scores run on the pipelined core of
 // simt_gemm.cuh; the bf16 products of the NMF, of the soft mask's scores,
 // of the syntheses' iDFT and of the front-end's rDFT and angular

@@ -4,16 +4,17 @@
 // (body _frontend_kernel). The TPU kernel assembles frames in VMEM from
 // hop-sized rows with pltpu.roll. Here frame t is read where it lies in the
 // signal, x[t*hop + j], so no frame tensor reaches device memory when hop
-// allows it. Per call: the windowed rDFT of both channels against the
-// host-built [window·cos | ±window·sin] basis (conjugation sign folded in),
-// then |X| per channel and the PHAT coherence X0·conj(X1)/(|X0||X1|) with
-// the guarded divide, written as spec re/im, V and coherence re/im planes
-// exactly F bins wide (fp32 or bf16); then the angular spectrogram
+// allows it. Per call: the windowed rDFT of both channels (conjugated or
+// not), then |X| per channel and the PHAT coherence X0·conj(X1)/(|X0||X1|)
+// with the guarded divide, written as spec re/im, V and coherence re/im
+// planes exactly F bins wide (fp32 or bf16); then the angular spectrogram
 // Re(C)@cos + Im(C)@sin, stored fp32.
 //
-// What bounds it on the card: 8·T·win·F + 4·T·F·D flop per utterance
-// (about 5.6 GFLOP at the reference shape) against eight (T, F) planes
-// written, about 20 MB in fp32 (10 MB in bf16), so the products bound it.
+// What bounds it on the card: in float32 the rDFT is an FFT (2.5·win·log2
+// win flop a frame), so the bytes do: the signal read once and eight (T,
+// F) planes written, about 20 MB an utterance in fp32; in bf16 JAX rounds
+// the DFT basis, so the least work is the GEMM, 8·T·win·F + 4·T·F·D flop
+// (about 5.6 GFLOP an utterance at the reference shape).
 //
 // bf16 mode (JAX's make_mm rounding points: frames and the windowed basis
 // in bf16, fp32 sums; the angular product on the coherence and the steering
@@ -44,10 +45,29 @@
 //      wgmma product with fp32 output.
 //   Each output sums its K in one fixed order, and the DFT tiles are per
 //   utterance, so reruns and batch elements are bit-identical.
-// float32 mode keeps the SIMT tile of common.cuh (no tensor-core path is
-// exact fp32): dft_coherence_kernel, then angular_kernel from the stored
-// planes.
+// float32 mode (exact fp32 rules out the tensor cores):
+//   1. fft_coherence_kernel: the rDFT as the Stockham FFT of fft.cuh (the
+//      passes that istft.cuh's iDFT runs, from frontend_basis's window,
+//      twiddle table and radix plan): a block takes two frames of both
+//      channels at win = 1,024 (fe_frames_per_block), reads them from the
+//      signal coalesced and windowed, packs an even window's real samples
+//      two a complex value (an L = win/2-point transform; an odd window
+//      runs the win-point transform of its real input), runs the + sign
+//      passes, which give conj rfft directly, unpacks the bins and writes
+//      the planes and the coherence in the same block (put_bin). A window
+//      too long for both channels' transforms in one block (even from
+//      2,558 samples, odd from 1,279) takes one frame a block, channel 0
+//      then channel 1, channel 0's bins held in an fp32 scratch row; past
+//      29,052 (even) or 14,525 (odd) samples one transform does not fit
+//      and the call is refused.
+//   2. angular_kernel: the angular product from the stored coherence
+//      planes, on the SIMT tile of common.cuh.
+//   The FFT's butterflies run in one fixed order for each frame, so reruns
+//   and batch elements are bit-identical.
+#include <climits>
+
 #include "common.cuh"
+#include "fft.cuh"
 #include "tc_gemm.cuh"
 
 using namespace gccnmf;
@@ -81,60 +101,119 @@ __device__ __forceinline__ float2 put_bin(float r0, float i0, float r1, float i1
   return make_float2(cr, ci);
 }
 
-// ---- float32: the SIMT products of common.cuh ----------------------------
+// ---- float32: the rDFT as the FFT of fft.cuh ------------------------------
 
-template <typename TP>
-__global__ void __launch_bounds__(NTHREADS)
-dft_coherence_kernel(const float* __restrict__ x, long n, int hop, int win,
-                     const float* __restrict__ wcos, const float* __restrict__ wsin,
-                     int T, int F, TP* __restrict__ sre, TP* __restrict__ sim,
-                     TP* __restrict__ mag, TP* __restrict__ cre, TP* __restrict__ cim) {
-  __shared__ __align__(16) TileA A0, A1;
-  __shared__ __align__(16) TileB Bc, Bs;
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* x0 = x + (long)b * 2 * n;
-  const float* x1 = x0 + n;
-  float re0[4][4], im0[4][4], re1[4][4], im1[4][4];
-  zero(re0); zero(im0); zero(re1); zero(im1);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int j0 = 0; j0 < win; j0 += BK) {
-    stage_a<true>(A0, x0, hop, 1, m0, j0, T, win, false);  // (t, j) at x[t*hop + j]
-    stage_a<true>(A1, x1, hop, 1, m0, j0, T, win, false);
-    stage_b<true>(Bc, wcos, F, 1, j0, n0, win, F, false);  // (j, f) at basis[j*F + f]
-    stage_b<true>(Bs, wsin, F, 1, j0, n0, win, F, false);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float a0[4], a1[4], c[4], s[4];
-      load4(&A0[k][ty * 4], a0);
-      load4(&A1[k][ty * 4], a1);
-      load4(&Bc[k][tx * 4], c);
-      load4(&Bs[k][tx * 4], s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          re0[i][j] = fmaf(a0[i], c[j], re0[i][j]);
-          im0[i][j] = fmaf(a0[i], s[j], im0[i][j]);
-          re1[i][j] = fmaf(a1[i], c[j], re1[i][j]);
-          im1[i][j] = fmaf(a1[i], s[j], im1[i][j]);
-        }
-    }
-    __syncthreads();
+// Frames a block takes, both channels of each: two of fft.cuh's transforms
+// a frame. 0 where fewer than two transforms fit (an even window from
+// 2,558 samples, an odd one from 1,279): one frame a block then, its
+// channels transformed one after the other.
+__host__ __device__ constexpr int fe_frames_per_block(int win) {
+  return fft_frames_per_block(win) / 2;
+}
+
+// Bin k of the transform in row z: Y[k] = Σ_j y[j]·e^{+2πi jk/win} = conj
+// rfft(y)[k] of the windowed frame y, negated in Im for an unconjugated
+// spectrum. Even window: z holds the L-point transform Z of z[n] = y[2n] +
+// i·y[2n+1], and Y[k] = A[k] + e^{+2πi k/win}·B[k] with A[k] = (Z[k] +
+// conj Z[L−k])/2, B[k] = (Z[k] − conj Z[L−k])/(2i), Z[L] ≡ Z[0]. Odd
+// window: z holds Y itself.
+__device__ __forceinline__ float2 fft_bin(const float2* z, int k, int L, bool even,
+                                          const float2* __restrict__ tw, bool conjugate) {
+  float2 y;
+  if (even) {
+    const float2 a = z[k == L ? 0 : k], c = z[k == 0 ? 0 : L - k];
+    const float2 av = make_float2(0.5f * (a.x + c.x), 0.5f * (a.y - c.y));
+    const float2 bv = make_float2(0.5f * (a.y + c.y), 0.5f * (c.x - a.x));
+    y = cadd(av, cmul(__ldg(tw + k), bv));
+  } else {
+    y = z[k];
   }
+  if (!conjugate) y.y = -y.y;
+  return y;
+}
+
+// For the frames [blockIdx.x·P, + P) of the B·T frames (frame r: utterance
+// r / T, frame t = r % T), P = fe_frames_per_block(win) or 1: the windowed
+// rDFT of both channels, frame t of channel c read where it lies, at
+// x[(2b + c)·n + t·hop + j], coalesced along j and times the window on the
+// way in, then the planes and the coherence (put_bin) coalesced along the
+// bins. Both channels' transforms sit in the block's shared memory at once
+// (rows 2p + c); with P = 0 (a long window) channel 0 runs first, its F
+// bins go to y0 (B·T, F) fp32 scratch, and channel 1's pass reads them
+// back. WC: the window as a compile-time constant (FFT_FIXED_WIN), or 0
+// for win_rt. Dynamic shared memory: 2 · rows · fft_row(win) float2, rows
+// = 2P (1 for P = 0).
+template <typename TP, int WC>
+__global__ void __launch_bounds__(FFT_THREADS)
+fft_coherence_kernel(const float* __restrict__ x, long n, int hop, FftPlan plan, int T,
+                     int frames, int win_rt, int conjugate, float2* __restrict__ y0,
+                     TP* __restrict__ sre, TP* __restrict__ sim, TP* __restrict__ mag,
+                     TP* __restrict__ cre, TP* __restrict__ cim) {
+  extern __shared__ __align__(16) float2 fft_smem[];
+  const int win = WC ? WC : win_rt, per = fe_frames_per_block(win);
+  const int L = fft_len(win), ld = fft_row(win), tstep = win / L, F = win / 2 + 1;
+  const bool even = win % 2 == 0, pow2 = (L & (L - 1)) == 0, conj = conjugate != 0;
+  const int P = per ? per : 1;
+  // frame indices in 32 bits (the host checks B·T): a 64-bit division
+  // would be a called routine, its registers saved on the stack
+  const int r0 = blockIdx.x * P;
+  const int nf = frames - r0 < P ? frames - r0 : P;
+  const int half = (per ? 2 * P : 1) * ld;  // buffer 1 follows buffer 0
+  const int b0 = r0 / T, t0 = r0 - b0 * T;
+  // with both channels in the block one phase; else channel 0, then 1
+  for (int phase = 0;; ++phase) {
+    // buffer 0 ← the transforms' input: row rr is frame p and channel c
+    // (rr = 2p + c, or the block's one frame in channel `phase`), two
+    // samples a complex value for an even window (the row's float view is
+    // the windowed frame), one real sample for an odd one; the row loop
+    // unrolls where the window is a constant, so all of a thread's loads
+    // can be in flight at once
+    const int nr = per ? 2 * nf : 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = out_row(m0, i);
-    if (t >= T) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = out_col(n0, j);
-      if (f < F)
-        put_bin(re0[i][j], im0[i][j], re1[i][j], im1[i][j], b, t, f, T, F, sre, sim, mag, cre,
-                cim);
+    for (int rr = 0; rr < (WC ? 2 * fe_frames_per_block(WC) : nr); ++rr) {
+      if (rr >= nr) break;
+      int t = t0 + (per ? rr >> 1 : 0), b = b0;
+      while (t >= T) t -= T, ++b;
+      const float* src = x + (2L * b + (per ? rr & 1 : phase)) * n + (long)t * hop;
+      float2* row = fft_smem + rr * ld;
+#pragma unroll 4
+      for (int j = threadIdx.x; j < win; j += FFT_THREADS) {
+        const float v = src[j] * __ldg(plan.scale + j);
+        if (even)
+          reinterpret_cast<float*>(row)[j] = v;
+        else
+          row[j] = make_float2(v, 0.0f);
+      }
     }
+    __syncthreads();
+    const float2* z = fft_smem + fft_passes(fft_smem, half, plan, L, tstep, nr, ld, pow2) * half;
+    if (!per && phase == 0) {  // channel 0's bins to the scratch row
+      for (int k = threadIdx.x; k < F; k += FFT_THREADS)
+        y0[(long)r0 * F + k] = fft_bin(z, k, L, even, plan.tw, conj);
+      __syncthreads();  // the buffers take channel 1
+      continue;
+    }
+    // the last phase: nothing of the loads and passes stays live past here
+    if (per) {  // both channels' bins of each frame, coalesced along the bins
+      for (int e = threadIdx.x; e < nf * F; e += FFT_THREADS) {
+        const int p = e / F, k = e - p * F;
+        int t = t0 + p, b = b0;
+        while (t >= T) t -= T, ++b;
+        const float2 v0 = fft_bin(z + 2 * p * ld, k, L, even, plan.tw, conj);
+        const float2 v1 = fft_bin(z + (2 * p + 1) * ld, k, L, even, plan.tw, conj);
+        put_bin(v0.x, v0.y, v1.x, v1.y, b, t, k, T, F, sre, sim, mag, cre, cim);
+      }
+    } else {  // each thread reads back the bins of channel 0 it wrote
+      for (int k = threadIdx.x; k < F; k += FFT_THREADS) {
+        const float2 v0 = y0[(long)r0 * F + k], v1 = fft_bin(z, k, L, even, plan.tw, conj);
+        put_bin(v0.x, v0.y, v1.x, v1.y, b0, t0, k, T, F, sre, sim, mag, cre, cim);
+      }
+    }
+    return;
   }
 }
+
+// ---- the angular product on the SIMT tile of common.cuh ---------------------
 
 // ang[t,d] = Σ_f cre[t,f]·cos[f,d] + cim[t,f]·sin[f,d]
 template <typename TP>
@@ -172,13 +251,30 @@ angular_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim,
   }
 }
 
+// The FFT front-end, then the angular product from the stored coherence.
 template <typename TP>
-cudaError_t run_simt(const float* x, int B, long n, int hop, int win, const float* wcos,
-                     const float* wsin, const float* cosm, const float* sinm, int T, int F, int D,
-                     TP* sre, TP* sim, TP* mag, TP* cre, TP* cim, float* ang, cudaStream_t st) {
-  dft_coherence_kernel<TP><<<tile_grid(T, F, B), NTHREADS, 0, st>>>(
-      x, n, hop, win, wcos, wsin, T, F, sre, sim, mag, cre, cim);
-  cudaError_t err = cudaGetLastError();
+cudaError_t run_fft(const float* x, int B, long n, int hop, int win, const FftPlan& plan,
+                    int conjugate, float2* y0, const float* cosm, const float* sinm, int T, int F,
+                    int D, TP* sre, TP* sim, TP* mag, TP* cre, TP* cim, float* ang,
+                    cudaStream_t st) {
+  const int per = fe_frames_per_block(win), P = per ? per : 1;
+  const int smem = 2 * (per ? 2 * P : 1) * fft_row(win) * (int)sizeof(float2);
+  const int frames = B * T;  // below 2^31 (gccnmf_frontend checks)
+  const unsigned blocks = (unsigned)(((long)frames + P - 1) / P);
+  cudaError_t err;
+  if (win == FFT_FIXED_WIN) {
+    fft_coherence_kernel<TP, FFT_FIXED_WIN><<<blocks, FFT_THREADS, smem, st>>>(
+        x, n, hop, plan, T, frames, win, conjugate, y0, sre, sim, mag, cre, cim);
+  } else {
+    if (smem > 48 * 1024) {  // one long frame: dynamic shared memory past 48 KiB
+      err = cudaFuncSetAttribute(reinterpret_cast<const void*>(fft_coherence_kernel<TP, 0>),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    fft_coherence_kernel<TP, 0><<<blocks, FFT_THREADS, smem, st>>>(
+        x, n, hop, plan, T, frames, win, conjugate, y0, sre, sim, mag, cre, cim);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   angular_kernel<TP><<<tile_grid(T, D, B), NTHREADS, 0, st>>>(cre, cim, cosm, sinm, ang, T, F, D);
   return cudaGetLastError();
@@ -348,17 +444,22 @@ cudaError_t run_tc(const float* x, int B, long n, int hop, int win, const bf16* 
 
 // x: (B, 2, n) f32; sre/sim/mag: (B, 2, T, F) and cre/cim: (B, T, F), bf16
 // if plane_bf16 else f32; ang: (B, T, D) f32.
-// float32 (rnd 0): wcos/wsin (win, F) and cosm/sinm (F, D) f32, the SIMT
-// products; the bf16 operands are unused.
+// float32 (rnd 0): the FFT's window (win,) f32, twiddle (win,) float2 of
+// e^{+2πi m/win} and radix (passes,) int32 (frontend_basis), conjugate
+// (the spectrum's sign), y0 (B·T, F) float2 scratch for a window whose
+// channels are transformed one after the other (fe_frames_per_block 0,
+// else unused), and cosm/sinm (F, D) f32 for the angular product; the
+// bf16 operands are unused.
 // bf16 (rnd 1): basis (nb, ldw) bf16 rows, nb = 128·ceil(F / 64), group g =
 // the cos rows then the sin rows of bins 64g..64g+63, ldw >= win a
 // multiple of 8; steer (D, ldj) bf16 rows [cos_m[:, d] | sin_m[:, d] | 0],
 // ldj >= 2F a multiple of 8; crows (B·T, ldj) bf16 scratch; stage bf16
 // scratch: (B·2, ldx) signal rows, ldx >= n a multiple of 8 (needs hop and
 // win multiples of 8), or with frame_rows (B·2·T, ldw) frame rows. The fp32
-// operands are unused: nothing falls back to the SIMT products.
+// operands are unused: nothing falls back to the FFT.
 extern "C" int gccnmf_frontend(const float* x, int B, long n, int hop, int win,
-                               const float* wcos, const float* wsin, const float* cosm,
+                               const float* window, const void* twiddle, const int* radix,
+                               int passes, int conjugate, void* y0, const float* cosm,
                                const float* sinm, const void* basis, int nb, int ldw,
                                const void* steer, int ldj, void* stage, long ldx, int frame_rows,
                                void* crows, int T, int F, int D, int rnd, int plane_bf16,
@@ -370,9 +471,13 @@ extern "C" int gccnmf_frontend(const float* x, int B, long n, int hop, int win,
                      ldj < 2 * F || nb != 2 * GROUP * ((F + GROUP - 1) / GROUP) ||
                      (!frame_rows && (hop % 8 || win % 8 || ldx % 8 || ldx < n));
     if (bad) return (int)cudaErrorInvalidValue;
-  } else if (!wcos || !wsin || !cosm || !sinm) {
+  } else if (!window || !twiddle || !radix || passes < 0 || !cosm || !sinm ||
+             F != win / 2 + 1 || 2 * fft_row(win) * (int)sizeof(float2) > FFT_MAX_SMEM ||
+             (long)B * T > INT_MAX ||
+             (!fe_frames_per_block(win) && !y0)) {
     return (int)cudaErrorInvalidValue;
   }
+  const FftPlan plan{window, static_cast<const float2*>(twiddle), radix, passes};
 #define GCCNMF_RUN(TP)                                                                          \
   {                                                                                             \
     if (rnd)                                                                                    \
@@ -382,10 +487,10 @@ extern "C" int gccnmf_frontend(const float* x, int B, long n, int hop, int win,
                              static_cast<TP*>(sre), static_cast<TP*>(sim),                      \
                              static_cast<TP*>(mag), static_cast<TP*>(cre),                      \
                              static_cast<TP*>(cim), ang, st);                                   \
-    return (int)run_simt<TP>(x, B, n, hop, win, wcos, wsin, cosm, sinm, T, F, D,                 \
-                             static_cast<TP*>(sre), static_cast<TP*>(sim),                      \
-                             static_cast<TP*>(mag), static_cast<TP*>(cre),                      \
-                             static_cast<TP*>(cim), ang, st);                                   \
+    return (int)run_fft<TP>(x, B, n, hop, win, plan, conjugate, static_cast<float2*>(y0), cosm, \
+                            sinm, T, F, D, static_cast<TP*>(sre), static_cast<TP*>(sim),        \
+                            static_cast<TP*>(mag), static_cast<TP*>(cre),                       \
+                            static_cast<TP*>(cim), ang, st);                                    \
   }
   if (plane_bf16) GCCNMF_RUN(bf16)
   GCCNMF_RUN(float)

@@ -4,8 +4,9 @@ and its plain twin.
 Replaces ``gccnmf_tpu/ops/frontend_pallas.py::stft_gcc_frontend_pallas``:
 one pass over raw stereo producing the conjugated spectrogram planes, the
 magnitudes |X| (the NMF's V), the PHAT coherence planes and the angular
-spectrogram. Any hop works (the TPU kernel needs hop | window). The
-products bound it (≈5.6 GFLOP per utterance at the reference shape).
+spectrogram. Any hop works (the TPU kernel needs hop | window). In bf16
+the products bound it (≈5.6 GFLOP per utterance at the reference shape);
+in float32 the bytes of the planes do.
 
 In the bf16 mode the products run on the tensor cores (``wgmma``,
 ``csrc/tc_gemm.cuh``). The rDFT is one product of the frames, read from a
@@ -17,8 +18,15 @@ epilogue writes the planes and the coherence as rows ``[Re c | Im c | 0]``
 (the layout of :func:`synthesis_cuda.idft_rows`); the angular spectrogram is
 one product of those rows against the steering fold
 ``[cos_mᵀ | sin_mᵀ | 0]``. :func:`frontend_basis` stores both bf16 operands
-once. In float32 the products stay fp32 FMAs on the SIMT cores, since no
-tensor-core path is exact fp32.
+once. In float32, where no tensor-core path is exact, the rDFT is a
+hand-written FFT (``csrc/frontend.cu`` ``fft_coherence_kernel`` on the
+Stockham passes of ``csrc/fft.cuh``, which the syntheses' float32 iDFT
+runs too): a block transforms a few frames of both channels in shared
+memory from :func:`frontend_basis`'s window, twiddle table and radix plan
+(:func:`synthesis_cuda.fft_plan`, :func:`synthesis_cuda.fft_twiddles`) and
+writes the planes and the coherence from the same block; the angular
+spectrogram stays an fp32 product on the SIMT cores. Any window up to
+29,052 samples (even) or 14,525 (odd) runs; a longer one raises.
 
 Planes are exactly F wide (the port pads nothing); the TPU kernel's
 contract is equality on ``[..., :F]``. The angular spectrogram is computed
@@ -36,7 +44,9 @@ import torch
 from gccnmf_torch import _build
 from gccnmf_torch.ops.nmf_cuda import row_pad
 from gccnmf_torch.ops.stft import dft_matrices, frame_signal, num_frames
-from gccnmf_torch.ops.synthesis_cuda import idft_rows
+from gccnmf_torch.ops.synthesis_cuda import (
+    FFT_MAX_SMEM, FFT_SMEM_TARGET, fft_plan, fft_row_len, fft_twiddles, idft_rows,
+)
 from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
@@ -45,6 +55,7 @@ __all__ = [
     "dft_rows",
     "reads_signal",
     "check_frontend_basis",
+    "fft_channels_apart",
     "stft_gcc_frontend_cuda",
     "stft_gcc_frontend_plain",
     "BIN_GROUP",
@@ -57,14 +68,22 @@ BIN_GROUP = 64  # bins a tensor-core output tile: their cos rows, then their sin
 
 class FrontendBasis(NamedTuple):
     """The front-end's constants (:func:`frontend_basis`): ``wcos``, ``wsin``
-    (win, F) fp32, and in the bf16 mode ``rows``, the rDFT basis in the
-    tensor-core layout of :func:`dft_rows`, and ``steer``, the (D,
-    row_pad(2F)) bf16 steering fold (both None in float32)."""
+    (win, F) fp32 (the plain version's GEMM basis), in the bf16 mode
+    ``rows``, the rDFT basis in the tensor-core layout of :func:`dft_rows`,
+    and ``steer``, the (D, row_pad(2F)) bf16 steering fold (both None in
+    float32), then the float32 FFT's ``window`` (win,) fp32, ``twiddle``
+    (win, 2) of :func:`synthesis_cuda.fft_twiddles`, ``plan``, the int32
+    radices of :func:`synthesis_cuda.fft_plan`, and ``conjugate``, the
+    spectrum's sign, built in every mode."""
 
     wcos: torch.Tensor
     wsin: torch.Tensor
     rows: torch.Tensor | None
     steer: torch.Tensor | None
+    window: torch.Tensor
+    twiddle: torch.Tensor
+    plan: torch.Tensor
+    conjugate: bool
 
 
 def frontend_basis(window, conjugate: bool = True, device=None, matmul_dtype: str = "float32",
@@ -75,20 +94,26 @@ def frontend_basis(window, conjugate: bool = True, device=None, matmul_dtype: st
     ``matmul_dtype="bfloat16"`` also the tensor-core operands, stored once:
     ``rows`` (:func:`dft_rows`) and ``steer``, the rows
     ``[cos_m[:, d] | sin_m[:, d] | 0]`` of the ``steering=(cos_m, sin_m)``
-    (F, D) planes in bf16, which that mode needs."""
+    (F, D) planes in bf16, which that mode needs. In every mode the
+    constants of the float32 FFT, built once on the host: the window, the
+    twiddle table and the radix plan of the win-point real transform."""
     window = np.asarray(window, np.float32)
-    dcos, dsin = dft_matrices(window.shape[0])
+    win = window.shape[0]
+    dcos, dsin = dft_matrices(win)
     sign = 1.0 if conjugate else -1.0
     wcos = torch.as_tensor(window[:, None] * dcos, device=device)
     wsin = torch.as_tensor((sign * window)[:, None] * dsin, device=device)
+    fft = (torch.as_tensor(window, device=device),
+           torch.as_tensor(fft_twiddles(win), device=device),
+           torch.as_tensor(np.asarray(fft_plan(win), np.int32), device=device), bool(conjugate))
     if not bf16_operands(matmul_dtype):
-        return FrontendBasis(wcos, wsin, None, None)
+        return FrontendBasis(wcos, wsin, None, None, *fft)
     if steering is None:
         raise ValueError("frontend_basis: matmul_dtype bfloat16 needs steering=(cos_m, sin_m) "
                          "for the angular product's fold")
     cos_m, sin_m = (torch.as_tensor(m, dtype=torch.float32, device=wcos.device)
                     for m in steering)
-    return FrontendBasis(wcos, wsin, dft_rows(wcos, wsin), idft_rows(cos_m.T, sin_m.T))
+    return FrontendBasis(wcos, wsin, dft_rows(wcos, wsin), idft_rows(cos_m.T, sin_m.T), *fft)
 
 
 def dft_rows(wcos, wsin, dtype=torch.bfloat16):
@@ -115,14 +140,38 @@ def reads_signal(hop_size: int, win: int) -> bool:
     return hop_size % 8 == 0 and win % 8 == 0
 
 
+def fft_channels_apart(win: int) -> bool:
+    """Whether the float32 kernel transforms a frame's two channels one
+    after the other (one frame a block, channel 0's bins held in an fp32
+    scratch row): a block's shared-memory target holds fewer than two
+    transforms' pairs of rows (even windows from 2,558 samples, odd from
+    1,279)."""
+    return 2 * 2 * 8 * fft_row_len(win) > FFT_SMEM_TARGET
+
+
 def check_frontend_basis(basis, rnd: bool, win: int, f: int, d: int, dev):
-    """The tensor-core operands of a CUDA call, validated: ``(rows, steer)``
-    contiguous, or ``(None, None)`` in float32. A bf16 call needs
-    :func:`frontend_basis`'s bf16 ``rows`` and ``steer`` for these shapes;
-    without them it raises, as nothing falls back to the SIMT products."""
+    """The operands of a CUDA call from its basis, validated: ``(fft,
+    None)`` in float32, ``fft = (window, twiddle, plan, conjugate)`` for the
+    FFT, or ``(None, (rows, steer))`` in bf16, the tensor-core operands,
+    contiguous. A call whose basis lacks its mode's constants (a bf16 call
+    without :func:`frontend_basis`'s bf16 ``rows`` and ``steer`` for these
+    shapes, a float32 call without the FFT's) raises, as nothing falls back
+    to another DFT; so does a float32 window too long for one transform in
+    a block's shared memory."""
     if not rnd:
-        return None, None
-    rows, steer = (basis[2], basis[3]) if len(basis) == 4 else (None, None)
+        window, twiddle, plan, conjugate = basis[4:8] if len(basis) >= 8 else (None,) * 4
+        if (window is None or window.shape != (win,) or twiddle.shape != (win, 2)
+                or plan.dtype != torch.int32 or plan.dim() != 1 or conjugate is None):
+            raise ValueError("stft_gcc_frontend_cuda: matmul_dtype float32 needs the FFT's "
+                             "window, twiddle and plan of frontend_basis")
+        if 16 * fft_row_len(win) > FFT_MAX_SMEM:
+            raise ValueError(f"stft_gcc_frontend_cuda: window {win} is too long for the float32 "
+                             "FFT, which holds a transform in one block's shared memory")
+        if any(m.device != dev for m in (window, twiddle, plan)):
+            raise ValueError("stft_gcc_frontend_cuda: all tensors must be on one CUDA device")
+        return (window.to(torch.float32).contiguous(), twiddle.to(torch.float32).contiguous(),
+                plan.contiguous(), bool(conjugate)), None
+    rows, steer = (basis[2], basis[3]) if len(basis) >= 4 else (None, None)
     want = ((2 * BIN_GROUP * -(-f // BIN_GROUP), row_pad(win)), (d, row_pad(2 * f)))
     for m, shape in zip((rows, steer), want):
         if m is None or m.shape != shape or m.dtype != torch.bfloat16:
@@ -131,7 +180,7 @@ def check_frontend_basis(basis, rnd: bool, win: int, f: int, d: int, dev):
                              "(cos_m, sin_m)) for these shapes")
         if m.device != dev:
             raise ValueError("stft_gcc_frontend_cuda: all tensors must be on one CUDA device")
-    return rows.contiguous(), steer.contiguous()
+    return None, (rows.contiguous(), steer.contiguous())
 
 
 def _check_dtypes(matmul_dtype: str, plane_dtype: str):
@@ -174,7 +223,9 @@ def stft_gcc_frontend_cuda(stereo, basis, cos_m, sin_m, *, hop_size,
     ``plane_dtype``, and the angular spectrogram (..., T, D) fp32.
     ``matmul_dtype="bfloat16"`` rounds every GEMM operand to bf16 (fp32
     accumulation) and runs the products on the tensor cores, from the
-    basis's ``rows`` and ``steer`` (the kernel reads no fp32 operand then).
+    basis's ``rows`` and ``steer`` (the kernel reads no fp32 operand then);
+    ``"float32"`` runs the rDFT as the FFT of the basis's ``window``,
+    ``twiddle`` and ``plan``.
     Launches the CUDA kernels for a CUDA ``stereo``; a CPU ``stereo`` takes
     :func:`stft_gcc_frontend_plain`."""
     rnd, pd = _check_dtypes(matmul_dtype, plane_dtype)
@@ -192,9 +243,9 @@ def stft_gcc_frontend_cuda(stereo, basis, cos_m, sin_m, *, hop_size,
         raise ValueError(f"stft_gcc_frontend_cuda: signal shorter than the {win}-sample window")
     if wsin.shape != (win, f) or cos_m.shape != (f, d) or sin_m.shape != (f, d):
         raise ValueError("stft_gcc_frontend_cuda: basis/steering shapes disagree")
-    rows, steer = check_frontend_basis(basis, rnd, win, f, d, dev)
+    fft, tc_ops = check_frontend_basis(basis, rnd, win, f, d, dev)
     if not rnd:
-        for name, m in (("basis", wcos), ("basis", wsin), ("cos_m", cos_m), ("sin_m", sin_m)):
+        for name, m in (("cos_m", cos_m), ("sin_m", sin_m)):
             if m.dtype != torch.float32 or not m.is_contiguous():
                 raise ValueError(f"stft_gcc_frontend_cuda: {name} must be contiguous float32")
     t = num_frames(n, win, hop_size)
@@ -204,15 +255,21 @@ def stft_gcc_frontend_cuda(stereo, basis, cos_m, sin_m, *, hop_size,
     coh = torch.empty((2, b, t, f), device=dev, dtype=pd)
     ang = torch.empty((b, t, d), device=dev, dtype=torch.float32)
     if rnd:  # the bf16 operands, and scratch: signal (or frame) rows, coherence rows
+        rows, steer = tc_ops
         frame_rows, ldx = not reads_signal(hop_size, win), row_pad(n)
         stage = torch.empty((b * 2 * t, rows.shape[1]) if frame_rows else (b * 2, ldx),
                             device=dev, dtype=torch.bfloat16)
         crows = torch.empty((b * t, steer.shape[1]), device=dev, dtype=torch.bfloat16)
-        fp32 = (0, 0, 0, 0)
+        fp32 = (0,) * 8
         tc = (rows.data_ptr(), *rows.shape, steer.data_ptr(), steer.shape[1], stage.data_ptr(),
               ldx, int(frame_rows), crows.data_ptr())
-    else:  # the fp32 operands of the SIMT products
-        fp32 = tuple(m.data_ptr() for m in (wcos, wsin, cos_m, sin_m))
+    else:  # the FFT's constants, channel 0's bins for a long window, the steering planes
+        window, twiddle, plan, conjugate = fft
+        y0 = (torch.empty((b * t, f, 2), device=dev, dtype=torch.float32)
+              if fft_channels_apart(win) else None)
+        fp32 = (window.data_ptr(), twiddle.data_ptr(), plan.data_ptr(), plan.numel(),
+                int(conjugate), 0 if y0 is None else y0.data_ptr(), cos_m.data_ptr(),
+                sin_m.data_ptr())
         tc = (0,) * 9
     _build.launch(
         "gccnmf_frontend", dev, x.data_ptr(), b, n, hop_size, win, *fp32, *tc,

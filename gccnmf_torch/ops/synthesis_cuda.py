@@ -40,6 +40,7 @@ from gccnmf_torch.precision import bf16_operands, round_bf16
 
 __all__ = [
     "FFT_MAX_SMEM",
+    "FFT_SMEM_TARGET",
     "SynthesisBasis",
     "fft_plan",
     "fft_row_len",
@@ -58,6 +59,9 @@ __all__ = [
 # two rows of fft_row_len(win) complex fp32 values a frame, so one frame
 # must fit (win up to 29,052 samples when even, 14,525 when odd).
 FFT_MAX_SMEM = 232448
+# Shared memory a float32 FFT block aims at (csrc/fft.cuh FFT_SMEM_TARGET):
+# the transforms it holds at once, at most 16
+FFT_SMEM_TARGET = 40960
 
 
 class SynthesisBasis(NamedTuple):

@@ -91,11 +91,25 @@ def run_world(fn, world: int, device, *args, timeout_s: float = TIMEOUT_S):
 
 def _collect(procs, results, timeout_s: float) -> dict:
     """Each rank's ``(ok, result or traceback)``, waiting at most
-    ``timeout_s``; a rank that died or never reported counts as failed."""
+    ``timeout_s``; a rank that died or never reported counts as failed.
+
+    A rank puts its report on ``results`` and then exits, and its queue's
+    feeder thread has written the report into the pipe before the exit. So
+    a rank seen to have exited is counted as one that never reported only
+    after the queue has been read dry: the report may have arrived between
+    a ``get`` that timed out and the look at the exit code."""
     world = len(procs)
     reports: dict = {}
     deadline = time.monotonic() + timeout_s
     failed_at = None
+
+    def take(item):
+        nonlocal failed_at
+        rank, ok, payload = item
+        reports[rank] = (ok, payload)
+        if not ok and failed_at is None:
+            failed_at = time.monotonic()
+
     while len(reports) < world:
         now = time.monotonic()
         if failed_at is not None and now > failed_at + _GRACE_S:
@@ -105,14 +119,17 @@ def _collect(procs, results, timeout_s: float) -> dict:
                 reports.setdefault(r, (False, f"timed out after {timeout_s} s"))
             break
         try:
-            rank, ok, payload = results.get(timeout=0.2)
-            reports[rank] = (ok, payload)
-            if not ok and failed_at is None:
-                failed_at = time.monotonic()
+            take(results.get(timeout=0.2))
         except queue.Empty:
-            for r, p in enumerate(procs):
-                if r not in reports and p.exitcode is not None:
-                    reports[r] = (False, f"exited with code {p.exitcode} before reporting")
+            dead = [r for r, p in enumerate(procs) if r not in reports and p.exitcode is not None]
+            while dead:  # what reached the pipe before those exits
+                try:
+                    take(results.get(block=False))
+                except queue.Empty:
+                    break
+            for r in dead:
+                if r not in reports:
+                    reports[r] = (False, f"exited with code {procs[r].exitcode} before reporting")
                     failed_at = failed_at or time.monotonic()
     for r in range(world):
         reports.setdefault(r, (False, "stopped after another rank failed"))

@@ -35,7 +35,7 @@ from gccnmf_torch.ops.frontend_cuda import (
 from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, kl_nmf_simul, nmf_init_numpy
 from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
 from gccnmf_torch.ops.synthesis_cuda import (
-    masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
+    fft_plan, fft_twiddles, masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
 )
 from gccnmf_torch.ops.windows import hann_symmetric
 from gccnmf_torch.parallel.long_audio import LongAudioSeparator
@@ -166,18 +166,41 @@ def test_nmf_kernel_rejects_mixed_devices(cuda):
 # tensor-core tiles and the 64 × 64 SIMT tiles; hop 128 and 64 read the
 # frames from the signal, hop 100 and 36 (not multiples of 8) from frame
 # rows; F = 513 and 129 leave one bin in their last 64-bin group; D = 37
-# (one partial column tile, scalar stores)
+# (one partial column tile, scalar stores); in float32 the FFT at windows
+# that are not powers of two, at hops that do not divide them and ragged T:
+# 1,000 (radices 4, 5, 5, 5), the odd 45 (the full 45-point transform: 3,
+# 3, 5) and 194 (the generic 97)
 FRONTEND_SHAPES = [(1024, 128, 77, 100), (1024, 100, 77, 100), (256, 64, 200, 37),
-                   (256, 36, 130, 37), (1024, 512, 61, 64)]
+                   (256, 36, 130, 37), (1024, 512, 61, 64), (1000, 300, 23, 37),
+                   (45, 7, 61, 37), (194, 60, 41, 100)]
+
+
+def _frontend_float64(x, window, cos_m, sin_m, hop):
+    """The front-end's function in float64 (conjugated): the float64 rfft of
+    the windowed frames, |X|, the guarded PHAT coherence, the angular
+    spectrogram."""
+    win = window.shape[0]
+    frames = x.double().unfold(-1, win, hop) * torch.as_tensor(window, device=x.device).double()
+    spec = torch.conj(torch.fft.rfft(frames, dim=-1))
+    mag = spec.abs()
+    den = mag[:, 0] * mag[:, 1]
+    ok = den > 1e-30
+    coh = torch.where(ok, spec[:, 0] * torch.conj(spec[:, 1]) / torch.where(ok, den, 1.0), 0.0)
+    return (spec.real, spec.imag, mag, coh.real, coh.imag,
+            coh.real @ cos_m.double() + coh.imag @ sin_m.double())
 
 
 @pytest.mark.parametrize("shape", FRONTEND_SHAPES, ids=lambda s: "win%d-hop%d-t%d-d%d" % s)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_frontend_kernel_matches_plain(cuda, mode, shape):
     """bf16 on the tensor cores from the basis's rows and fold, float32 on
-    the SIMT cores; the kernel needs no hop | window. Reruns are
+    the FFT; the kernel needs no hop | window. Reruns are
     bit-identical and every element of a B = 3 batch equals the call of it
-    alone, bit for bit."""
+    alone, bit for bit. In float32 the coherence planes are held against
+    the function in float64 at the same bar: at a bin of |X| a thousandth
+    of the median, the fp32 GEMM of the plain version is itself farther
+    than the bar from it (1.3e-4 at window 1,000, 3.1e-4 at chip_smoke.py's
+    reference shape), where the FFT is nearer."""
     win, hop, t, d = shape
     rng = np.random.default_rng(3)
     x = torch.as_tensor((rng.standard_normal((3, 2, win + hop * (t - 1))) * 0.1)
@@ -194,6 +217,9 @@ def test_frontend_kernel_matches_plain(cuda, mode, shape):
     again = stft_gcc_frontend_cuda(*args, **kw)
     assert stft_gcc_frontend_cuda.launches == before + 2
     want = stft_gcc_frontend_plain(*args, **kw)
+    if mode == "float32":
+        exact = _frontend_float64(x, hann_symmetric(win), cos_m, sin_m, hop)
+        want = (*want[:3], *(e.float() for e in exact[3:5]), want[5])
     # fp32: 1e-4 of each plane's scale; bf16 planes: one bf16 step (8e-3)
     tol = 1e-4 if mode == "float32" else 8e-3
     for g, a, w in zip(got, again, want):
@@ -204,6 +230,63 @@ def test_frontend_kernel_matches_plain(cuda, mode, shape):
         one = stft_gcc_frontend_cuda(x[i:i + 1].clone(), basis, cos_m, sin_m, **kw)
         for g, o in zip(got, one):
             assert torch.equal(g[i:i + 1], o)
+
+
+# (window, hop, T) of the float32 FFT past both channels' transforms in one
+# block, where it takes one frame a block and channel 0's bins go through
+# a scratch row: the first even (2,558) and odd (1,279) such windows, and
+# the longest whose transform fits a block's shared memory (29,052 even,
+# 14,525 odd)
+FRONTEND_LONG_SHAPES = [(2558, 1001, 4), (1279, 500, 5), (29052, 7001, 3), (14525, 5001, 3)]
+
+
+@pytest.mark.parametrize("shape", FRONTEND_LONG_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
+def test_frontend_fft_long_windows_match_rfft(cuda, shape):
+    """The float32 front-end at long windows against its function in
+    float64 (the plain GEMM basis would take gigabytes there): spec and |X|
+    within 1e-5 × max, the coherence and the angular spectrogram within
+    1e-4 × max; reruns bit-identical, each batch element equal to the call
+    of it alone."""
+    win, hop, t = shape
+    f, d = win // 2 + 1, 16
+    rng = np.random.default_rng(win)
+    x = torch.as_tensor((rng.standard_normal((2, 2, win + hop * (t - 1))) * 0.1)
+                        .astype(np.float32), device=cuda)
+    cos_m, sin_m = (torch.as_tensor(m, device=cuda)
+                    for m in gcc.steering_cos_sin(16000.0, f, 1.0, d))
+    window = hann_symmetric(win)
+    # the FFT's fields of frontend_basis; the GEMM halves only give the shape
+    z = torch.zeros(1, 1, device=cuda).expand(win, f)
+    basis = (z, z, None, None, torch.as_tensor(window, device=cuda),
+             *(torch.as_tensor(m, device=cuda) for m in (fft_twiddles(win),
+                                                        np.asarray(fft_plan(win), np.int32))),
+             True)
+    kw = dict(hop_size=hop, matmul_dtype="float32", plane_dtype="float32")
+    got = stft_gcc_frontend_cuda(x, basis, cos_m, sin_m, **kw)
+    for g, a in zip(got, stft_gcc_frontend_cuda(x, basis, cos_m, sin_m, **kw)):
+        assert torch.equal(g, a)
+    one = stft_gcc_frontend_cuda(x[1:].clone(), basis, cos_m, sin_m, **kw)
+    assert all(torch.equal(g[1:], o) for g, o in zip(got, one))
+    exact = _frontend_float64(x, window, cos_m, sin_m, hop)
+    for i, (g, w) in enumerate(zip(got, exact)):
+        tol = 1e-5 if i < 3 else 1e-4
+        assert float((g.double() - w).abs().max()) <= tol * float(w.abs().max()), i
+
+
+def test_frontend_fft_refuses_a_window_past_shared_memory(cuda):
+    """A float32 window whose transform does not fit one block's shared
+    memory (29,054 samples) raises before anything launches."""
+    win, f = 29054, 14528
+    x = torch.zeros((1, 2, win), device=cuda)
+    z = torch.zeros(1, 1, device=cuda).expand(win, f)
+    basis = (z, z, None, None, torch.zeros(win, device=cuda), torch.zeros((win, 2), device=cuda),
+             torch.as_tensor(fft_plan(win), dtype=torch.int32, device=cuda), True)
+    cos_m = torch.zeros((f, 4), device=cuda)
+    before = stft_gcc_frontend_cuda.launches
+    with pytest.raises(ValueError, match="too long for the float32 FFT"):
+        stft_gcc_frontend_cuda(x, basis, cos_m, cos_m, hop_size=128, matmul_dtype="float32",
+                               plane_dtype="float32")
+    assert stft_gcc_frontend_cuda.launches == before
 
 
 def test_frontend_kernel_needs_the_basis_rows(cuda):

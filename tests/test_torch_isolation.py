@@ -106,8 +106,8 @@ KERNEL_PATH = (sorted((ROOT / "gccnmf_torch" / "csrc").glob("*.cu*"))
 def test_no_library_fft_on_the_kernel_path(path):
     """The kernels and their wrappers compute no transform through a
     library: no cuFFT in ``csrc/``, and no ``torch.fft`` (attribute or
-    import) in ``ops/*_cuda.py``. The float32 iDFT of the syntheses is the
-    hand-written FFT of ``csrc/istft.cuh``."""
+    import) in ``ops/*_cuda.py``. The float32 iDFT of the syntheses and the
+    front-end's float32 rDFT are the hand-written FFT of ``csrc/fft.cuh``."""
     text = path.read_text()
     assert "cufft" not in text.lower(), f"{path} names cuFFT"
     if path.suffix != ".py":

@@ -298,14 +298,16 @@ class TestFrontendTensorCoreLayout:
             frontend_basis(window, matmul_dtype="bfloat16")
         fp32 = frontend_basis(window)
         assert fp32.rows is None and fp32.steer is None
-        assert check_frontend_basis(fp32, False, WIN, F, D, torch.device("cpu")) == (None, None)
+        # float32 takes the FFT's constants, and no tensor-core operand
+        fft, tc = check_frontend_basis(fp32, False, WIN, F, D, torch.device("cpu"))
+        assert tc is None and fft[0] is fp32.window and fft[2] is fp32.plan and fft[3] is True
         bf16 = frontend_basis(window, matmul_dtype="bfloat16", steering=(st["cos"], st["sin"]))
         cpu = torch.device("cpu")
         for basis, d in ((fp32, D), (bf16[:2], D), (bf16, D - 1)):
             with pytest.raises(ValueError, match="frontend_basis"):
                 check_frontend_basis(basis, True, WIN, F, d, cpu)
-        rows, steer = check_frontend_basis(bf16, True, WIN, F, D, cpu)
-        assert rows is bf16.rows and steer is bf16.steer
+        fft, (rows, steer) = check_frontend_basis(bf16, True, WIN, F, D, cpu)
+        assert fft is None and rows is bf16.rows and steer is bf16.steer
 
     def test_wrapper_takes_plain_version_on_cpu(self):
         x = torch.from_numpy(_signal(b=1, t_frames=9))

@@ -9,6 +9,7 @@ every case of its size (``jobs.each``); each has a time limit."""
 
 import json
 import os
+import queue
 import socket
 import subprocess
 import sys
@@ -337,6 +338,38 @@ def test_run_world_times_out():
     with pytest.raises(RuntimeError, match="timed out after 2"):
         launch.run_world(time.sleep, 1, "cpu", 60, timeout_s=2)
     assert time.monotonic() - t0 < 30
+
+
+class _LateQueue:
+    """A results queue whose first waiting ``get`` times out although the
+    reports are already there: a rank that put its report and exited
+    while the parent's ``get`` was timing out."""
+
+    def __init__(self, items):
+        self.items, self.waited = list(items), False
+
+    def get(self, block=True, timeout=None):
+        if block and not self.waited:
+            self.waited = True
+            raise queue.Empty
+        if not self.items:
+            raise queue.Empty
+        return self.items.pop(0)
+
+
+class _Exited:
+    exitcode = 0
+
+
+@pytest.mark.parametrize("items,want", [
+    ([(0, True, [])], {0: (True, [])}),
+    ([], {0: (False, "exited with code 0 before reporting")}),
+], ids=["reported", "never_reported"])
+def test_collect_reads_the_queue_before_failing_an_exited_rank(items, want):
+    """A rank seen to have exited fails the world only if its report is not
+    on the queue: one that reported and exited between a timed-out ``get``
+    and the look at its exit code counts as reported."""
+    assert launch._collect([_Exited()], _LateQueue(items), 5.0) == want
 
 
 def test_ranks_import_neither_jax_nor_gccnmf_tpu():
