@@ -1,0 +1,8 @@
+"""Kernel 1's (`kl_nmf_cuda`) share of its roofline in the bf16 cells, traced window."""
+
+from harness import readers
+
+UNIT = "%"
+LAYER = "kernels"
+MOVES = "audio_s_per_s.bf16"
+read = readers.roofline("nmf")

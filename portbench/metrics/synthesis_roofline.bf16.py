@@ -1,0 +1,9 @@
+"""Kernel 2's (`masked_synthesis_cuda`) share of its roofline in the bf16 cells,
+traced window."""
+
+from harness import readers
+
+UNIT = "%"
+LAYER = "kernels"
+MOVES = "audio_s_per_s.bf16"
+read = readers.roofline("synthesis")
