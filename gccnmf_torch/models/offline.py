@@ -27,6 +27,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from gccnmf_torch import profiling
 from gccnmf_torch.convert import from_numpy_state
 from gccnmf_torch.device import resolve_device
 from gccnmf_torch.ops import gcc, localize, masks, stft as stft_ops
@@ -382,7 +383,10 @@ class GCCNMFSeparator:
 
         ``io_dtype="int16"`` runs the int16 program: 16-bit samples both
         ways, the estimates quantized as ``utils/wav.write_wav`` would and
-        returned as float32 in [-1, 1)."""
+        returned as float32 in [-1, 1).
+
+        Each host stage runs in a ``gccnmf.offline.*`` span
+        (:mod:`gccnmf_torch.profiling`), none open across a ``yield``."""
         cfg = self.config
         num_sources = cfg.num_sources if num_sources is None else num_sources
         if not num_sources:
@@ -402,44 +406,48 @@ class GCCNMFSeparator:
             Float samples bound for the int16 program are scaled and clamped
             here; the cast into the staging buffer truncates, as JAX's
             ``astype`` does."""
-            chunk = np.asarray(chunk)
-            if io_dtype == "int16" and chunk.dtype != np.int16:
-                chunk = np.multiply(chunk, 32768.0, dtype=np.float32)
-                np.clip(chunk, -32768, 32767, out=chunk)
-            dtype = torch.int16 if io_dtype == "int16" else torch.float32
-            host = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
-            np.copyto(host.numpy(), chunk, casting="unsafe")
-            trimmer.account(host.nbytes)
-            if not cuda:
-                return host, None
-            with torch.cuda.stream(copy):  # allocated on the copy stream
-                x = host.to(self.device, non_blocking=True)
-            return x, copy.record_event()
+            with profiling.annotate("gccnmf.offline.upload"):
+                chunk = np.asarray(chunk)
+                if io_dtype == "int16" and chunk.dtype != np.int16:
+                    chunk = np.multiply(chunk, 32768.0, dtype=np.float32)
+                    np.clip(chunk, -32768, 32767, out=chunk)
+                dtype = torch.int16 if io_dtype == "int16" else torch.float32
+                host = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
+                np.copyto(host.numpy(), chunk, casting="unsafe")
+                trimmer.account(host.nbytes)
+                if not cuda:
+                    return host, None
+                with torch.cuda.stream(copy):  # allocated on the copy stream
+                    x = host.to(self.device, non_blocking=True)
+                return x, copy.record_event()
 
         def download(outs):
             """Results to pinned host memory on the copy stream, once the
             compute stream has made them."""
-            if not cuda:
-                return outs, None
-            copy.wait_event(compute.record_event())
-            with torch.cuda.stream(copy):
-                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
-                    o, non_blocking=True) for o in outs]
-            for o in outs:  # not reused by the compute stream before the copy ends
-                o.record_stream(copy)
-            return host, copy.record_event()
+            with profiling.annotate("gccnmf.offline.download"):
+                if not cuda:
+                    return outs, None
+                copy.wait_event(compute.record_event())
+                with torch.cuda.stream(copy):
+                    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
+                        o, non_blocking=True) for o in outs]
+                for o in outs:  # not reused by the compute stream before the copy ends
+                    o.record_stream(copy)
+                return host, copy.record_event()
 
         def materialize(pending):
-            (est, targets), done = pending
-            if done is not None:
-                done.synchronize()
-            est = est.numpy()
-            trimmer.account(est.nbytes)
-            if io_dtype == "int16":  # a new array, scaled as utils/wav reads PCM
-                est = np.multiply(est, np.float32(1 / 32768), dtype=np.float32)
-            elif cuda:  # the caller's own copy; the pinned block goes back to the cache
-                est = est.copy()
-            return est, targets.numpy().copy()
+            with profiling.annotate("gccnmf.offline.materialize"):
+                (est, targets), done = pending
+                if done is not None:
+                    with profiling.annotate("gccnmf.offline.wait"):
+                        done.synchronize()
+                est = est.numpy()
+                trimmer.account(est.nbytes)
+                if io_dtype == "int16":  # a new array, scaled as utils/wav reads PCM
+                    est = np.multiply(est, np.float32(1 / 32768), dtype=np.float32)
+                elif cuda:  # the caller's own copy; the pinned block goes back to the cache
+                    est = est.copy()
+                return est, targets.numpy().copy()
 
         chunks = iter(batches)
         nxt = next(chunks, None)
@@ -453,7 +461,8 @@ class GCCNMFSeparator:
             key = (x.shape[0], x.shape[-1])
             if key not in inits:
                 inits[key] = self._init_nmf(x.shape[-1], (x.shape[0],))
-            est, targets, _ = run(x, *inits[key], num_sources)
+            with profiling.annotate("gccnmf.offline.compute"):
+                est, targets, _ = run(x, *inits[key], num_sources)
             nxt = next(chunks, None)  # chunk k+1 uploads while chunk k computes
             up = None if nxt is None else upload(nxt)
             pending = download((est, targets))

@@ -227,7 +227,8 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     block scans (at most 256); ``None`` splits them across blocks
     when the frames alone would leave SMs idle. Any chunk gives the same
     result. Launches the CUDA kernel for CUDA planes; CPU planes take
-    :func:`soft_mask_plain`."""
+    :func:`soft_mask_plain`. ``soft_mask_cuda.launches`` counts its calls,
+    not the device kernels each one launches."""
     rnd = bf16_operands(matmul_dtype)
     if coh_re.device.type == "cpu":
         return soft_mask_plain(coh_re, coh_im, basis, target_index, target_epsilon,
@@ -339,7 +340,8 @@ def tf_synthesis_cuda(spec_re, spec_im, h_mask, basis, *, hop_size, matmul_dtype
     ``make_mm`` does: the Wiener GEMM's operands, the masked planes and the
     iDFT basis, and the frames entering the overlap-add, and runs the iDFT
     on the tensor cores. Launches the CUDA kernels for CUDA planes; CPU
-    planes take :func:`tf_synthesis_plain`."""
+    planes take :func:`tf_synthesis_plain`. ``tf_synthesis_cuda.launches``
+    counts its calls, not the device kernels each one launches."""
     rnd = bf16_operands(matmul_dtype)
     if spec_re.device.type == "cpu":
         return tf_synthesis_plain(spec_re, spec_im, h_mask, basis, hop_size=hop_size,

@@ -227,7 +227,8 @@ def stft_gcc_frontend_cuda(stereo, basis, cos_m, sin_m, *, hop_size,
     ``"float32"`` runs the rDFT as the FFT of the basis's ``window``,
     ``twiddle`` and ``plan``.
     Launches the CUDA kernels for a CUDA ``stereo``; a CPU ``stereo`` takes
-    :func:`stft_gcc_frontend_plain`."""
+    :func:`stft_gcc_frontend_plain`. ``stft_gcc_frontend_cuda.launches``
+    counts its calls, not the device kernels each one launches."""
     rnd, pd = _check_dtypes(matmul_dtype, plane_dtype)
     if stereo.device.type == "cpu":
         return stft_gcc_frontend_plain(stereo, basis, cos_m, sin_m, hop_size=hop_size,

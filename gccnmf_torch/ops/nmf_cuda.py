@@ -121,7 +121,8 @@ def kl_nmf_cuda(
     ``Fv >= F`` (columns past F are ignored); ``w0``: (..., F, K);
     ``h0``: (..., T, K), broadcast over ``v``'s batch dims. Returns fp32
     ``(W, H)`` with the batch dims of ``v``. Launches the CUDA kernel for a
-    CUDA ``v``; a CPU ``v`` takes :func:`kl_nmf_plain`."""
+    CUDA ``v``; a CPU ``v`` takes :func:`kl_nmf_plain`. ``kl_nmf_cuda.launches``
+    counts its calls, not the device kernels each one launches."""
     mode = nmf_mode(matmul_dtype)
     if v.device.type == "cpu":
         return kl_nmf_plain(v, w0, h0, num_iterations, sparsity_alpha, epsilon, matmul_dtype)

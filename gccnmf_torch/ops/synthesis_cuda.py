@@ -262,7 +262,9 @@ def masked_synthesis_cuda(spec_re, spec_im, winner, w, h_stereo, basis, *,
     ``matmul_dtype="bfloat16"`` rounds where JAX's ``make_mm`` does: the mag
     operands, the iDFT operands and the frames entering the overlap-add, and
     runs the iDFT on the tensor cores. Launches the CUDA kernel for CUDA
-    planes; CPU planes take :func:`masked_synthesis_plain`."""
+    planes; CPU planes take :func:`masked_synthesis_plain`.
+    ``masked_synthesis_cuda.launches`` counts its calls, not the device
+    kernels each one launches."""
     rnd = bf16_operands(matmul_dtype)
     if spec_re.device.type == "cpu":
         return masked_synthesis_plain(spec_re, spec_im, winner, w, h_stereo, basis,

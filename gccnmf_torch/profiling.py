@@ -1,34 +1,53 @@
-"""Profiling and per-stage timing utilities (counterpart of
+"""Profiler traces and program spans (counterpart of
 ``gccnmf_tpu/profiling.py``).
 
 The reference's only telemetry is ad-hoc wall-clock logging of per-block
 processing times (reference: gccNMF/realtime/audioProcessor.py:98-102,130;
 a richer logProcessingTimes at :162-181 is dead code). Here it is two
-layers:
+pieces:
 
 - :func:`trace` — a context manager around ``torch.profiler`` that writes a
   Chrome/Perfetto trace (host ops, CUDA kernels and copies when a card is
   present) into a directory;
-- :class:`StageTimer` — host-side wall-clock stage timing, fenced with
-  :func:`block_all`, for benchmark harnesses and pipeline stage breakdowns
-  (first-call capture vs steady state).
+- :func:`annotate` — a named host span (``record_function``) that lands in
+  such a trace on the same clock as the device's kernels, so each idle
+  interval of the card can be laid beside what the host thread was inside.
+  With no profiler running it costs one flag read.
+
+The program's spans are opened through :func:`annotate` under fixed names
+(no per-call suffix), all on the thread that calls the program, none open
+across a ``yield``. Each is listed with its parent and the reader
+(``portbench/metrics/``, run by ``portbench/tools/program_spans.py``) that
+it is for:
+
+- ``GCCNMFSeparator.separate_batches``' stages: ``gccnmf.offline.upload``
+  (scaling, pinned staging, the H2D enqueue), ``gccnmf.offline.compute``
+  (the host time to enqueue a chunk's device work:
+  ``offline.enqueue_ms_per_chunk``), ``gccnmf.offline.download`` (the D2H
+  enqueue) and ``gccnmf.offline.materialize`` (its self time:
+  ``offline.materialize_ms_per_chunk``) with the child
+  ``gccnmf.offline.wait`` (the download's event, on the card only);
+- ``gccnmf.hostmem.trim``: ``utils/hostmem.PeriodicTrim``'s
+  ``malloc_trim`` when it fires, inside ``upload`` or ``materialize``.
+
+``offline.idle_unattributed_pct`` reads them all: the share of the traced
+window in which the card is idle and none of these spans is open.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import logging
 import os
-import time
-from dataclasses import dataclass, field
 
-import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["trace", "annotate", "StageTimer", "block_all"]
+__all__ = ["trace", "annotate"]
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -53,64 +72,9 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named host annotation visible in profiler traces
-    (``torch.profiler.record_function``)."""
+    """A named host span in profiler traces (``record_function``) while a
+    profiler runs; otherwise one shared no-op context, since
+    ``record_function`` costs microseconds even when nothing records it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
     return torch.profiler.record_function(name)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):  # NamedTuples too
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
-def block_all(tree) -> None:
-    """Wait for every card that holds a tensor of a pytree (dicts, lists,
-    tuples) to finish its queued work (timing fence); other leaves are
-    ignored."""
-    devices = {leaf.device for leaf in _leaves(tree)
-               if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-
-
-@dataclass
-class StageTimer:
-    """Accumulates named stage durations; prints a breakdown.
-
-    >>> timer = StageTimer()
-    >>> with timer.stage("stft"):
-    ...     out = stft(...); block_all(out)
-    >>> timer.summary()
-    """
-
-    stages: dict = field(default_factory=dict)
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stages.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def summary(self) -> dict:
-        out = {}
-        for name, times in self.stages.items():
-            t = np.asarray(times)
-            out[name] = dict(
-                calls=len(t),
-                total_s=round(float(t.sum()), 4),
-                mean_ms=round(float(t.mean() * 1e3), 3),
-                p50_ms=round(float(np.percentile(t, 50) * 1e3), 3),
-                max_ms=round(float(t.max() * 1e3), 3),
-            )
-        return out
-
-    def log_summary(self) -> None:
-        logger.info("stage timing: %s", json.dumps(self.summary()))

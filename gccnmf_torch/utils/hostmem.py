@@ -27,6 +27,8 @@ import ctypes
 import ctypes.util
 import time
 
+from gccnmf_torch import profiling
+
 __all__ = ["trim_host_heap", "PeriodicTrim", "rss_anon_mib", "HostMemWatchdog"]
 
 _libc = None
@@ -64,7 +66,8 @@ class PeriodicTrim:
     """Trim the host heap every ``every_bytes`` of accounted traffic.
 
     A chunked loop calls :meth:`account` with each chunk's host byte count;
-    the trim fires at the threshold and the counter resets."""
+    the trim fires at the threshold, in a ``gccnmf.hostmem.trim`` span, and
+    the counter resets."""
 
     def __init__(self, every_bytes: int = 256 * 1024 * 1024):
         self.every_bytes = int(every_bytes)
@@ -78,10 +81,11 @@ class PeriodicTrim:
         if self._since < self.every_bytes:
             return False
         self._since = 0
-        if trim_host_heap():
+        with profiling.annotate("gccnmf.hostmem.trim"):
+            trimmed = trim_host_heap()
+        if trimmed:
             self.trims += 1
-            return True
-        return False
+        return trimmed
 
 
 def rss_anon_mib() -> float:

@@ -1,0 +1,8 @@
+"""Time a chunk of `gccnmf.offline.compute`, the host's enqueue, in the bf16 cells."""
+
+from harness import program_trace
+
+UNIT = "ms"
+LAYER = "host stages"
+MOVES = "audio_s_per_s.bf16"
+read = program_trace.span_ms_per_chunk("gccnmf.offline.compute", "s")
