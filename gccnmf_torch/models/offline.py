@@ -22,6 +22,8 @@ winner are torch ops on either device, as they are XLA ops in JAX.
 from __future__ import annotations
 
 import logging
+import threading
+import weakref
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -136,6 +138,57 @@ def plane_dtype(cfg: OfflineConfig) -> str:
     """Storage dtype of the front-end's spec/V/coherence planes: bf16 in the
     throughput modes, fp32 in float32 parity mode."""
     return "bfloat16" if gemm_dtype(cfg) == "bfloat16" else "float32"
+
+
+# Bytes of page-locked estimates that ``separate_batches`` may have handed
+# over and that are still alive at once; past it, estimates are copied out.
+PINNED_OUTPUT_BUDGET = 4 << 30
+
+
+class PinnedHandOver:
+    """Hands a downloaded block of estimates to the caller as the block's own
+    array while the page-locked estimates still alive fit
+    :data:`PINNED_OUTPUT_BUDGET`, and as a pageable copy (in a
+    ``gccnmf.offline.copy_out`` span) past it.
+
+    An array keeps its base tensor, and so the block, alive, and a view keeps
+    its array: a weak reference to the base sees the block's last holder
+    dropped, after which PyTorch's caching host allocator may reuse it once
+    its copy has ended. ``pinned`` and ``copied`` count the two routes."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._held = []  # (weak reference to a handed array's base, bytes)
+        self.pinned = 0
+        self.copied = 0
+
+    def alive_bytes(self) -> int:
+        """Bytes of handed-over blocks still alive."""
+        with self._lock:
+            return self._prune()
+
+    def _prune(self) -> int:
+        self._held = [(ref, n) for ref, n in self._held if ref() is not None]
+        return sum(n for _, n in self._held)
+
+    def __call__(self, block: torch.Tensor) -> tuple[np.ndarray, bool]:
+        """``(array, pinned)``: ``block``'s own array and True, or a copy of
+        it and False when the budget is full."""
+        est = block.numpy()
+        with self._lock:
+            pinned = self._prune() + est.nbytes <= PINNED_OUTPUT_BUDGET
+            if pinned:
+                self._held.append((weakref.ref(est.base), est.nbytes))
+                self.pinned += 1
+            else:
+                self.copied += 1
+        if pinned:
+            return est, True
+        with profiling.annotate("gccnmf.offline.copy_out"):
+            return est.copy(), False
+
+
+hand_over = PinnedHandOver()
 
 
 class GCCNMFSeparator:
@@ -323,13 +376,15 @@ class GCCNMFSeparator:
         return est, targets, counts
 
     def _separate_batch_i16(self, stereo_i16, w0, h0, num_sources: int):
-        """The int16-in, int16-out program: the PCM↔float conversions of
-        ``utils/wav.py`` on the device, so the host link carries 16-bit
-        samples both ways. The cast truncates after the clamp, as JAX's
-        ``astype`` does."""
+        """The int16-in program: the PCM↔float conversions of ``utils/wav.py``
+        on the device, so the upload carries 16-bit samples. The float32
+        estimates leave as 16-bit PCM read back: ×32768, NaN to 0, clamped to
+        [-32768, 32767], cast to int16 (truncating, as JAX's ``astype``
+        does), ×2⁻¹⁵ (exact)."""
         stereo = stereo_i16.to(torch.float32) / 32768.0
         est, targets, counts = self._separate_batch_core(stereo, w0, h0, num_sources)
-        return torch.clamp(est * 32768.0, -32768, 32767).to(torch.int16), targets, counts
+        pcm = torch.nan_to_num_(est * 32768.0, nan=0.0).clamp_(-32768, 32767).to(torch.int16)
+        return pcm * (1 / 32768), targets, counts
 
     @torch.inference_mode()
     def separate_batch(
@@ -381,9 +436,16 @@ class GCCNMFSeparator:
         chunk writes into it. On the CPU the same loop runs without
         streams.
 
-        ``io_dtype="int16"`` runs the int16 program: 16-bit samples both
-        ways, the estimates quantized as ``utils/wav.write_wav`` would and
-        returned as float32 in [-1, 1).
+        ``io_dtype="int16"`` runs the int16 program: 16-bit samples up, the
+        estimates quantized on the device as ``utils/wav.write_wav`` would
+        and downloaded as float32 in [-1, 1).
+
+        On the card the yielded estimates are the page-locked block the copy
+        engine wrote, with no host pass over them (:data:`hand_over`), while
+        the handed-over blocks the caller still holds stay within
+        :data:`PINNED_OUTPUT_BUDGET` (4 GiB); past it they are copied into
+        pageable memory, so a caller that keeps every chunk's output pins no
+        more than that.
 
         Each host stage runs in a ``gccnmf.offline.*`` span
         (:mod:`gccnmf_torch.profiling`), none open across a ``yield``."""
@@ -441,12 +503,12 @@ class GCCNMFSeparator:
                 if done is not None:
                     with profiling.annotate("gccnmf.offline.wait"):
                         done.synchronize()
-                est = est.numpy()
-                trimmer.account(est.nbytes)
-                if io_dtype == "int16":  # a new array, scaled as utils/wav reads PCM
-                    est = np.multiply(est, np.float32(1 / 32768), dtype=np.float32)
-                elif cuda:  # the caller's own copy; the pinned block goes back to the cache
-                    est = est.copy()
+                if cuda:
+                    est, pinned = hand_over(est)
+                else:  # the result tensor's own array
+                    est, pinned = est.numpy(), False
+                if not pinned:  # page-locked blocks are not glibc heap
+                    trimmer.account(est.nbytes)
                 return est, targets.numpy().copy()
 
         chunks = iter(batches)

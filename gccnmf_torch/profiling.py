@@ -25,8 +25,11 @@ it is for:
   (the host time to enqueue a chunk's device work:
   ``offline.enqueue_ms_per_chunk``), ``gccnmf.offline.download`` (the D2H
   enqueue) and ``gccnmf.offline.materialize`` (its self time:
-  ``offline.materialize_ms_per_chunk``) with the child
-  ``gccnmf.offline.wait`` (the download's event, on the card only);
+  ``offline.materialize_ms_per_chunk``) with the children
+  ``gccnmf.offline.wait`` (the download's event, on the card only) and
+  ``gccnmf.offline.copy_out`` (the estimates copied into pageable memory
+  because the page-locked ones the caller holds fill their budget; read by
+  no metric: in a trace it shows when that fallback engages);
 - ``gccnmf.hostmem.trim``: ``utils/hostmem.PeriodicTrim``'s
   ``malloc_trim`` when it fires, inside ``upload`` or ``materialize``.
 

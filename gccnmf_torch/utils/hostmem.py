@@ -10,8 +10,8 @@ visible:
 
 - :func:`trim_host_heap` / :class:`PeriodicTrim`: ``malloc_trim(0)`` for the
   loop's own allocator churn, fired every 256 MB of accounted traffic
-  (``GCCNMFSeparator.separate_batches`` accounts each chunk's input and
-  output bytes);
+  (``GCCNMFSeparator.separate_batches`` accounts each chunk's input bytes,
+  and its output bytes where they are copied into pageable memory);
 - :func:`rss_anon_mib` / :class:`HostMemWatchdog`: a cheap, rate-limited
   reading of the process's anonymous resident set against a budget, for
   long-lived streaming and serving processes to report in their health

@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from gccnmf_torch import checkpoint, cli, pretrain
+from gccnmf_torch import checkpoint, cli, pretrain, profiling
 from gccnmf_torch.config import GCCNMFConfig
+from gccnmf_torch.models import offline
 from gccnmf_torch.models.offline import GCCNMFEnhancer, GCCNMFSeparator, OfflineConfig
 from gccnmf_torch.models.online import OnlineConfig, OnlineGCCNMFEnhancer
 from gccnmf_torch.models.realtime import RTGCCNMFProcessor, StreamConfig, StreamParams
@@ -426,6 +427,66 @@ def test_separate_batches_on_card_equal_separate_batch(cuda, io_dtype):
                 want = np.trunc(np.clip(want_est * 32768.0, -32768, 32767)) / 32768.0
                 np.testing.assert_array_equal(est, want.astype(np.float32))
             np.testing.assert_array_equal(est, est_kept)
+
+
+@pytest.mark.parametrize("io_dtype", ["float32", "int16"])
+def test_separate_batches_hands_over_pinned_blocks_within_budget(cuda, io_dtype, monkeypatch,
+                                                                 tmp_path):
+    """The yielded estimates are the page-locked blocks the copy engine
+    wrote while the ones the caller holds fit the budget; past it they are
+    copied into pageable memory (counted, in a ``gccnmf.offline.copy_out``
+    span), and once the caller drops its arrays the blocks are handed over
+    again. No held array changes while later chunks run, and the results are
+    separate_batch's, as in the test above."""
+    chunks = [np.stack([_mixture(i), _mixture(i + 1), _mixture(i + 2)]) for i in range(4)]
+    cfg = OfflineConfig(dictionary_size=16, num_iterations=10, num_tdoas=64, num_sources=2)
+    sep = GCCNMFSeparator(cfg, device=cuda)
+    want = []
+    for chunk in chunks:
+        if io_dtype == "int16":
+            chunk = np.clip(chunk * 32768.0, -32768, 32767).astype(np.int16) / 32768.0
+        est, targets = sep.separate_batch(chunk.astype(np.float32))
+        if io_dtype == "int16":
+            est = (np.trunc(np.clip(est * 32768.0, -32768, 32767)) / 32768.0).astype(np.float32)
+        want.append((est, targets))
+    hand = offline.hand_over
+    budget = hand.alive_bytes() + 2 * want[0][0].nbytes
+    monkeypatch.setattr(offline, "PINNED_OUTPUT_BUDGET", budget)
+    gen = sep.separate_batches(iter(chunks), io_dtype=io_dtype)
+    routes, got = [], []
+
+    def step():
+        before = (hand.pinned, hand.copied)
+        est, targets = next(gen)
+        routes.append({(1, 0): "pinned", (0, 1): "copied"}[
+            (hand.pinned - before[0], hand.copied - before[1])])
+        assert est.dtype == np.float32 and hand.alive_bytes() <= budget
+        if routes[-1] == "pinned":
+            assert est.base.is_pinned()
+        else:
+            assert est.base is None
+        got.append((est.copy(), targets))
+        return est
+
+    with profiling.trace(str(tmp_path)):
+        e0, e1 = step(), step()
+        e2 = step()  # the two held fill the budget: copied out
+        np.testing.assert_array_equal(e0, got[0][0])  # all four chunks have run
+        np.testing.assert_array_equal(e1, got[1][0])
+        del e0, e1
+        e3 = step()
+    assert next(gen, None) is None
+    assert routes == ["pinned", "pinned", "copied", "pinned"]
+    np.testing.assert_array_equal(e2, got[2][0])
+    np.testing.assert_array_equal(e3, got[3][0])
+    for (est, targets), (want_est, want_targets) in zip(got, want):
+        np.testing.assert_array_equal(targets, want_targets)
+        np.testing.assert_array_equal(est, want_est)
+    with open(tmp_path / "trace.json") as fh:
+        names = [e["name"] for e in json.load(fh)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    assert names.count("gccnmf.offline.copy_out") == 1
+    assert names.count("gccnmf.offline.materialize") == 4
 
 
 def test_separate_batch_auto_on_card_matches_cpu(cuda):

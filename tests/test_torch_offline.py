@@ -5,12 +5,15 @@ and test_nmf_pallas.py:204-225."""
 
 import dataclasses
 import os
+import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
 from gccnmf_tpu.models import offline as joffline
+from gccnmf_torch.models import offline
 from gccnmf_torch.models.offline import (
     GCCNMFSeparator, OfflineConfig, gemm_dtype, plane_dtype, stft_gain,
 )
@@ -249,7 +252,8 @@ class TestThroughput:
 
     def test_int16_program_clamps_then_truncates(self, stereo_signal):
         """The device PCM conversion: clamp to [-32768, 32767], then the cast
-        truncates toward zero, as JAX's astype does."""
+        truncates toward zero, as JAX's astype does; the estimates leave as
+        float32, bit-equal to that int16 read back."""
         mix, sr = stereo_signal
         sep = GCCNMFSeparator(OfflineConfig(**_small_kw(sr)), device="cpu")
         x = torch.from_numpy(np.round(np.stack([mix]) * 32768).astype(np.int16))
@@ -257,9 +261,34 @@ class TestThroughput:
         got, _, _ = sep._separate_batch_i16(x, w0, h0, 2)
         est, _, _ = sep._separate_batch_core(x.float() / 32768.0, w0, h0, 2)
         scaled = (est * 32768.0).numpy()
-        want = np.trunc(np.clip(scaled, -32768, 32767)).astype(np.int16)
-        assert got.dtype == torch.int16
-        np.testing.assert_array_equal(got.numpy(), want)
+        want = (np.trunc(np.clip(scaled, -32768, 32767)).astype(np.int16) / 32768).astype(
+            np.float32)
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+    @pytest.mark.parametrize("seed", [0, 1])
+    def test_int16_program_output_is_the_pcm_round_trip(self, monkeypatch, seed):
+        """On estimates past full scale, at -1.0 exactly, at ±0 and NaN: the
+        float32 output is bit for bit the int16 cast read back, NaN as 0, and
+        the method keeps its name and its (est, targets, counts) return."""
+        est = np.random.default_rng(seed).uniform(-1.6, 1.6, (2, 3, 2, 700)).astype(np.float32)
+        special = [1.0, -1.0, 1.5, -1.5, np.nan, 0.0, -0.0, -1e-6, 3e-5, -3e-5,
+                   32767 / 32768, -32767.5 / 32768]
+        est.reshape(-1)[:len(special)] = special
+        targets, counts = torch.zeros((2, 3), dtype=torch.int32), torch.full((2,), 3)
+        sep = GCCNMFSeparator(OfflineConfig(dictionary_size=8, num_iterations=2, num_sources=3),
+                              device="cpu")
+        monkeypatch.setattr(sep, "_separate_batch_core",
+                            lambda *a: (torch.from_numpy(est.copy()), targets, counts))
+        out = sep._separate_batch_i16(torch.zeros((2, 2, 4000), dtype=torch.int16), None, None, 3)
+        assert type(out) is tuple and len(out) == 3
+        got, got_targets, got_counts = out
+        assert got_targets is targets and got_counts is counts
+        pcm = np.trunc(np.clip(np.nan_to_num(est, nan=0.0) * 32768, -32768, 32767))
+        want = (pcm.astype(np.int16) / 32768).astype(np.float32)
+        assert got.dtype == torch.float32 and got.shape == est.shape
+        np.testing.assert_array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+        assert got.numpy().reshape(-1)[4] == 0.0 and not np.signbit(got.numpy()).reshape(-1)[6]
 
     def test_separate_batches_validation(self, stereo_signal):
         mix, sr = stereo_signal
@@ -270,6 +299,74 @@ class TestThroughput:
             list(GCCNMFSeparator(OfflineConfig(sample_rate=sr, num_sources=None),
                                  device="cpu").separate_batches([np.stack([mix])]))
         assert list(sep.separate_batches([], 2)) == []
+
+
+class TestPinnedHandOver:
+    """``separate_batches``' hand-over budget on the CPU, ordinary tensors in
+    place of the card's page-locked download blocks."""
+
+    def test_arrays_and_views_count_until_dropped(self, monkeypatch):
+        monkeypatch.setattr(offline, "PINNED_OUTPUT_BUDGET", 3 * 4000)
+        hand = offline.PinnedHandOver()
+        blocks = [torch.full((1000,), float(i)) for i in range(5)]
+        a0, pinned = hand(blocks[0])
+        assert pinned and a0.ctypes.data == blocks[0].data_ptr()
+        view = a0[::2]
+        del a0
+        assert hand.alive_bytes() == 4000  # the view holds the block
+        (a1, p1), (a2, p2) = hand(blocks[1]), hand(blocks[2])
+        assert p1 and p2 and hand.alive_bytes() == 12000
+        a3, p3 = hand(blocks[3])  # past the budget: a pageable copy
+        assert not p3 and a3.ctypes.data != blocks[3].data_ptr() and a3.base is None
+        np.testing.assert_array_equal(a3, blocks[3].numpy())
+        assert hand.alive_bytes() == 12000 and (hand.pinned, hand.copied) == (3, 1)
+        del view
+        assert hand.alive_bytes() == 8000
+        a4, p4 = hand(blocks[4])
+        assert p4 and (hand.pinned, hand.copied) == (4, 1)
+        del a1, a2, a3, a4
+        assert hand.alive_bytes() == 0
+        assert blocks[0].sum() == 0 and blocks[4][0] == 4  # the blocks outlive the arrays
+
+    def test_budget_holds_across_threads(self, monkeypatch):
+        """Handing over from several threads at once, with the callers
+        dropping arrays meanwhile, never has more alive than the budget."""
+        monkeypatch.setattr(offline, "PINNED_OUTPUT_BUDGET", 10 * 400)
+        hand, over, errors = offline.PinnedHandOver(), [], []
+
+        def caller(seed):
+            try:
+                rng, held = np.random.default_rng(seed), []
+                for _ in range(2000):
+                    held.append(hand(torch.zeros(100))[0])
+                    if rng.random() < 0.5:
+                        held.pop(int(rng.integers(len(held))))
+                    if hand.alive_bytes() > offline.PINNED_OUTPUT_BUDGET:
+                        over.append(hand.alive_bytes())
+            except Exception as exc:  # reported by the assertion below
+                errors.append(exc)
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=caller, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(t.is_alive() for t in threads) and not errors and not over
+        assert hand.pinned + hand.copied == 8 * 2000 and hand.copied > 0
+
+    def test_the_cpu_yields_the_result_tensors_own_array(self, stereo_signal):
+        mix, sr = stereo_signal
+        sep = GCCNMFSeparator(OfflineConfig(**_small_kw(sr)), device="cpu")
+        before = (offline.hand_over.pinned, offline.hand_over.copied)
+        for io_dtype in ("float32", "int16"):
+            (est, _), = sep.separate_batches([np.stack([mix])], io_dtype=io_dtype)
+            assert est.dtype == np.float32 and isinstance(est.base, torch.Tensor)
+        assert (offline.hand_over.pinned, offline.hand_over.copied) == before
 
 
 class TestConfig:
