@@ -140,16 +140,17 @@ def plane_dtype(cfg: OfflineConfig) -> str:
     return "bfloat16" if gemm_dtype(cfg) == "bfloat16" else "float32"
 
 
-# Bytes of page-locked estimates that ``separate_batches`` may have handed
-# over and that are still alive at once; past it, estimates are copied out.
+# Bytes of page-locked outputs that the pipelined entry points
+# (``separate_batches``, ``enhance_batches``) may have handed over and that
+# are still alive at once; past it, outputs are copied out.
 PINNED_OUTPUT_BUDGET = 4 << 30
 
 
 class PinnedHandOver:
-    """Hands a downloaded block of estimates to the caller as the block's own
-    array while the page-locked estimates still alive fit
+    """Hands a downloaded block of outputs to the caller as the block's own
+    array while the page-locked outputs still alive fit
     :data:`PINNED_OUTPUT_BUDGET`, and as a pageable copy (in a
-    ``gccnmf.offline.copy_out`` span) past it.
+    ``<span>.copy_out`` span) past it.
 
     An array keeps its base tensor, and so the block, alive, and a view keeps
     its array: a weak reference to the base sees the block's last holder
@@ -171,7 +172,8 @@ class PinnedHandOver:
         self._held = [(ref, n) for ref, n in self._held if ref() is not None]
         return sum(n for _, n in self._held)
 
-    def __call__(self, block: torch.Tensor) -> tuple[np.ndarray, bool]:
+    def __call__(self, block: torch.Tensor,
+                 span: str = "gccnmf.offline") -> tuple[np.ndarray, bool]:
         """``(array, pinned)``: ``block``'s own array and True, or a copy of
         it and False when the budget is full."""
         est = block.numpy()
@@ -184,11 +186,118 @@ class PinnedHandOver:
                 self.copied += 1
         if pinned:
             return est, True
-        with profiling.annotate("gccnmf.offline.copy_out"):
+        with profiling.annotate(f"{span}.copy_out"):
             return est.copy(), False
 
 
 hand_over = PinnedHandOver()
+
+
+def _pcm_round_trip(x: torch.Tensor) -> torch.Tensor:
+    """Float32 audio as 16-bit PCM read back, on its device: ×32768, NaN to
+    0, clamped to [-32768, 32767], cast to int16 (truncating, as JAX's
+    ``astype`` does), ×2⁻¹⁵ (exact)."""
+    pcm = torch.nan_to_num_(x * 32768.0, nan=0.0).clamp_(-32768, 32767).to(torch.int16)
+    return pcm * (1 / 32768)
+
+
+def pipelined(chunks, program, io_dtype: str, device: torch.device, span: str,
+              prepare=None):
+    """Run ``program`` over an iterable of ``(B, 2, n)`` chunks, host↔device
+    copies overlapped with the compute, and yield its outputs per chunk as
+    NumPy arrays: the first (the output block) handed over by
+    :data:`hand_over`, the others (small) copied.
+
+    ``program(x)`` takes a chunk on ``device`` (int16 for ``io_dtype="int16"``,
+    else float32) and returns a tuple of device tensors; with ``prepare``, it
+    takes ``prepare(x)``'s arguments after the chunk, made before the
+    ``compute`` span opens (the separator's seeded NMF init). On the card, while
+    chunk k computes on the current stream, chunk k+1 uploads from pinned
+    memory and chunk k−1's outputs download into pinned memory, both on a
+    copy stream ordered by CUDA events; every yielded array is the caller's
+    own (no later chunk writes into it). On the CPU the same loop runs
+    without streams and yields the output tensors' own arrays.
+
+    Float samples bound for an int16 program are scaled by 32768 and
+    clamped on the host; the cast into the staging buffer truncates, as
+    JAX's ``astype`` does.
+
+    Each host stage runs in a ``<span>.*`` span (:mod:`gccnmf_torch.profiling`):
+    ``upload``, ``compute``, ``download``, ``materialize`` with ``wait`` and
+    ``copy_out`` inside it, none open across a ``yield``."""
+    if io_dtype not in ("float32", "int16"):
+        raise ValueError(f"io_dtype must be float32 or int16: {io_dtype}")
+    cuda = device.type == "cuda"
+    compute = torch.cuda.current_stream(device) if cuda else None
+    copy = torch.cuda.Stream(device) if cuda else None
+    trimmer = PeriodicTrim()  # bounds the loop's own host-heap churn
+
+    def upload(chunk):
+        """Chunk to the device: on the card through a pinned copy of it,
+        sent on the copy stream, with the event that marks its arrival."""
+        with profiling.annotate(f"{span}.upload"):
+            chunk = np.asarray(chunk)
+            if io_dtype == "int16" and chunk.dtype != np.int16:
+                chunk = np.multiply(chunk, 32768.0, dtype=np.float32)
+                np.clip(chunk, -32768, 32767, out=chunk)
+            dtype = torch.int16 if io_dtype == "int16" else torch.float32
+            host = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
+            np.copyto(host.numpy(), chunk, casting="unsafe")
+            trimmer.account(host.nbytes)
+            if not cuda:
+                return host, None
+            with torch.cuda.stream(copy):  # allocated on the copy stream
+                x = host.to(device, non_blocking=True)
+            return x, copy.record_event()
+
+    def download(outs):
+        """Outputs to pinned host memory on the copy stream, once the
+        compute stream has made them."""
+        with profiling.annotate(f"{span}.download"):
+            if not cuda:
+                return outs, None
+            copy.wait_event(compute.record_event())
+            with torch.cuda.stream(copy):
+                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
+                    o, non_blocking=True) for o in outs]
+            for o in outs:  # not reused by the compute stream before the copy ends
+                o.record_stream(copy)
+            return host, copy.record_event()
+
+    def materialize(pending):
+        with profiling.annotate(f"{span}.materialize"):
+            (block, *rest), done = pending
+            if done is not None:
+                with profiling.annotate(f"{span}.wait"):
+                    done.synchronize()
+            if cuda:
+                block, pinned = hand_over(block, span)
+            else:  # the output tensor's own array
+                block, pinned = block.numpy(), False
+            if not pinned:  # page-locked blocks are not glibc heap
+                trimmer.account(block.nbytes)
+            return (block, *(r.numpy().copy() for r in rest))
+
+    chunks = iter(chunks)
+    nxt = next(chunks, None)
+    up = None if nxt is None else upload(nxt)
+    prev = None
+    while up is not None:
+        x, arrived = up
+        if cuda:
+            compute.wait_event(arrived)
+            x.record_stream(compute)
+        args = () if prepare is None else prepare(x)
+        with profiling.annotate(f"{span}.compute"):
+            outs = program(x, *args)
+        nxt = next(chunks, None)  # chunk k+1 uploads while chunk k computes
+        up = None if nxt is None else upload(nxt)
+        pending = download(outs)
+        if prev is not None:
+            yield materialize(prev)
+        prev = pending
+    if prev is not None:
+        yield materialize(prev)
 
 
 class GCCNMFSeparator:
@@ -377,14 +486,11 @@ class GCCNMFSeparator:
 
     def _separate_batch_i16(self, stereo_i16, w0, h0, num_sources: int):
         """The int16-in program: the PCM↔float conversions of ``utils/wav.py``
-        on the device, so the upload carries 16-bit samples. The float32
-        estimates leave as 16-bit PCM read back: ×32768, NaN to 0, clamped to
-        [-32768, 32767], cast to int16 (truncating, as JAX's ``astype``
-        does), ×2⁻¹⁵ (exact)."""
+        on the device, so the upload carries 16-bit samples; the float32
+        estimates leave as 16-bit PCM read back (:func:`_pcm_round_trip`)."""
         stereo = stereo_i16.to(torch.float32) / 32768.0
         est, targets, counts = self._separate_batch_core(stereo, w0, h0, num_sources)
-        pcm = torch.nan_to_num_(est * 32768.0, nan=0.0).clamp_(-32768, 32767).to(torch.int16)
-        return pcm * (1 / 32768), targets, counts
+        return _pcm_round_trip(est), targets, counts
 
     @torch.inference_mode()
     def separate_batch(
@@ -448,91 +554,26 @@ class GCCNMFSeparator:
         more than that.
 
         Each host stage runs in a ``gccnmf.offline.*`` span
-        (:mod:`gccnmf_torch.profiling`), none open across a ``yield``."""
+        (:func:`pipelined`), none open across a ``yield``."""
         cfg = self.config
         num_sources = cfg.num_sources if num_sources is None else num_sources
         if not num_sources:
             raise ValueError("separate_batches needs a fixed num_sources")
-        if io_dtype not in ("float32", "int16"):
-            raise ValueError(f"io_dtype must be float32 or int16: {io_dtype}")
         run = self._separate_batch_i16 if io_dtype == "int16" else self._separate_batch_core
-        cuda = self.device.type == "cuda"
-        compute = torch.cuda.current_stream(self.device) if cuda else None
-        copy = torch.cuda.Stream(self.device) if cuda else None
         inits: dict = {}  # per (B, n): the seeded NMF init
-        trimmer = PeriodicTrim()  # bounds the loop's own host-heap churn
 
-        def upload(chunk):
-            """Chunk to the device: on the card through a pinned copy of it,
-            sent on the copy stream, with the event that marks its arrival.
-            Float samples bound for the int16 program are scaled and clamped
-            here; the cast into the staging buffer truncates, as JAX's
-            ``astype`` does."""
-            with profiling.annotate("gccnmf.offline.upload"):
-                chunk = np.asarray(chunk)
-                if io_dtype == "int16" and chunk.dtype != np.int16:
-                    chunk = np.multiply(chunk, 32768.0, dtype=np.float32)
-                    np.clip(chunk, -32768, 32767, out=chunk)
-                dtype = torch.int16 if io_dtype == "int16" else torch.float32
-                host = torch.empty(chunk.shape, dtype=dtype, pin_memory=cuda)
-                np.copyto(host.numpy(), chunk, casting="unsafe")
-                trimmer.account(host.nbytes)
-                if not cuda:
-                    return host, None
-                with torch.cuda.stream(copy):  # allocated on the copy stream
-                    x = host.to(self.device, non_blocking=True)
-                return x, copy.record_event()
-
-        def download(outs):
-            """Results to pinned host memory on the copy stream, once the
-            compute stream has made them."""
-            with profiling.annotate("gccnmf.offline.download"):
-                if not cuda:
-                    return outs, None
-                copy.wait_event(compute.record_event())
-                with torch.cuda.stream(copy):
-                    host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True).copy_(
-                        o, non_blocking=True) for o in outs]
-                for o in outs:  # not reused by the compute stream before the copy ends
-                    o.record_stream(copy)
-                return host, copy.record_event()
-
-        def materialize(pending):
-            with profiling.annotate("gccnmf.offline.materialize"):
-                (est, targets), done = pending
-                if done is not None:
-                    with profiling.annotate("gccnmf.offline.wait"):
-                        done.synchronize()
-                if cuda:
-                    est, pinned = hand_over(est)
-                else:  # the result tensor's own array
-                    est, pinned = est.numpy(), False
-                if not pinned:  # page-locked blocks are not glibc heap
-                    trimmer.account(est.nbytes)
-                return est, targets.numpy().copy()
-
-        chunks = iter(batches)
-        nxt = next(chunks, None)
-        up = None if nxt is None else upload(nxt)
-        prev = None
-        while up is not None:
-            x, arrived = up
-            if cuda:
-                compute.wait_event(arrived)
-                x.record_stream(compute)
+        def init(x):
             key = (x.shape[0], x.shape[-1])
             if key not in inits:
                 inits[key] = self._init_nmf(x.shape[-1], (x.shape[0],))
-            with profiling.annotate("gccnmf.offline.compute"):
-                est, targets, _ = run(x, *inits[key], num_sources)
-            nxt = next(chunks, None)  # chunk k+1 uploads while chunk k computes
-            up = None if nxt is None else upload(nxt)
-            pending = download((est, targets))
-            if prev is not None:
-                yield materialize(prev)
-            prev = pending
-        if prev is not None:
-            yield materialize(prev)
+            return inits[key]
+
+        def program(x, w0, h0):
+            est, targets, _ = run(x, w0, h0, num_sources)
+            return est, targets
+
+        yield from pipelined(batches, program, io_dtype, self.device, "gccnmf.offline",
+                             prepare=init)
 
 
 class GCCNMFEnhancer:
@@ -652,6 +693,33 @@ class GCCNMFEnhancer:
             center_trim=True, method=self._stft_method,
         )
         return out * stft_gain(cfg), target_idx, ang
+
+    def _enhance_batch_i16(self, stereo_i16):
+        """The int16-in program, as the separator's: 16-bit samples in, the
+        enhanced output as 16-bit PCM read back (:func:`_pcm_round_trip`)."""
+        out, target_idx, ang = self._enhance_batch(stereo_i16.to(torch.float32) / 32768.0)
+        return _pcm_round_trip(out), target_idx, ang
+
+    @torch.inference_mode()
+    def enhance_batches(self, batches, io_dtype: str = "float32"):
+        """Pipelined enhancement over an iterable of ``(B, 2, n)`` chunks, on
+        :meth:`GCCNMFSeparator.separate_batches`' pipeline
+        (:func:`pipelined`, spans ``gccnmf.enhance.*``).
+
+        Yields ``(enhanced (B, 2, n_out) float32, target_tdoa_index (B,)
+        int32)`` per chunk, as :meth:`enhance` returns them for that chunk.
+        ``io_dtype="int16"`` runs the int16 program: 16-bit samples up, the
+        output quantized on the device as ``utils/wav.write_wav`` would and
+        downloaded as float32 in [-1, 1). On the card the yielded outputs are
+        the page-locked blocks the copy engine wrote, within
+        :data:`PINNED_OUTPUT_BUDGET` (:data:`hand_over`)."""
+        run = self._enhance_batch_i16 if io_dtype == "int16" else self._enhance_batch
+
+        def program(x):
+            out, target_idx, _ = run(x)
+            return out, target_idx.to(torch.int32)
+
+        yield from pipelined(batches, program, io_dtype, self.device, "gccnmf.enhance")
 
     @torch.inference_mode()
     def enhance(self, stereo: np.ndarray):

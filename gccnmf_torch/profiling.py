@@ -20,11 +20,14 @@ across a ``yield``. Each is listed with its parent and the reader
 (``portbench/metrics/``, run by ``portbench/tools/program_spans.py``) that
 it is for:
 
-- ``GCCNMFSeparator.separate_batches``' stages: ``gccnmf.offline.upload``
-  (scaling, pinned staging, the H2D enqueue), ``gccnmf.offline.compute``
-  (the host time to enqueue a chunk's device work:
-  ``offline.enqueue_ms_per_chunk``), ``gccnmf.offline.download`` (the D2H
-  enqueue) and ``gccnmf.offline.materialize`` (its self time:
+- the stages of ``models/offline.py``'s ``pipelined``, under the prefix
+  ``gccnmf.offline`` in ``GCCNMFSeparator.separate_batches`` and
+  ``gccnmf.enhance`` in ``GCCNMFEnhancer.enhance_batches``; named here
+  under the first: ``gccnmf.offline.upload`` (scaling, pinned staging,
+  the H2D enqueue), ``gccnmf.offline.compute`` (the host time to enqueue
+  a chunk's device work: ``offline.enqueue_ms_per_chunk``),
+  ``gccnmf.offline.download`` (the D2H enqueue) and
+  ``gccnmf.offline.materialize`` (its self time:
   ``offline.materialize_ms_per_chunk``) with the children
   ``gccnmf.offline.wait`` (the download's event, on the card only) and
   ``gccnmf.offline.copy_out`` (the estimates copied into pageable memory
@@ -34,7 +37,9 @@ it is for:
   ``malloc_trim`` when it fires, inside ``upload`` or ``materialize``.
 
 ``offline.idle_unattributed_pct`` reads them all: the share of the traced
-window in which the card is idle and none of these spans is open.
+window in which the card is idle and none of these spans is open. In the
+enhancement cell ``enhance.enqueue_ms_per_chunk`` reads
+``gccnmf.enhance.compute``.
 """
 
 from __future__ import annotations

@@ -671,6 +671,70 @@ def test_enhancer_on_card_matches_cpu(cuda):
                                atol=1e-5 * np.abs(one["enhanced"]).max())
 
 
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_enhance_kernels_at_the_k1024_widths(cuda, mode):
+    """Kernels 4 and 5 at the enhancement cell's widths (window 1,024: F =
+    513; 64 TDOAs over 10 cm; K = 1,024 atoms, eight 128-atom tiles) over a
+    short ragged T, against their plain twins at the bars of the tests
+    above: argmax flips only at near-ties, counted by ``argmax_flips``."""
+    rng = np.random.default_rng(23)
+    b, t, f, k, d, win, hop = 2, 301, 513, 1024, 64, 1024, 128
+    pd = torch.float32 if mode == "float32" else torch.bfloat16
+    cre, cim = (torch.as_tensor(rng.standard_normal((b, t, f)), dtype=pd, device=cuda)
+                for _ in range(2))
+    w = torch.as_tensor(rng.random((f, k)) ** 3 + 1e-3, dtype=torch.float32, device=cuda)
+    cos_m, sin_m = gcc.steering_cos_sin(16000.0, f, 0.1, d)
+    basis = soft_mask_basis(cos_m, sin_m, w, mode)
+    args = (cre, cim, basis, torch.as_tensor([5, 40], device=cuda), 5.0, 2.0, 0.0)
+    got, arg = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
+    want = soft_mask_plain(*args, matmul_dtype=mode)
+    flipped, gap, scale = argmax_flips(cre, cim, basis, arg, matmul_dtype=mode)
+    assert gap <= 1e-5 * scale
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps[~flipped].max()) <= 2
+    assert float(flipped.float().mean()) <= (1e-3 if mode == "float32" else 1e-2)
+    sre, sim = (torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
+                for _ in range(2))
+    tb = tf_synthesis_basis(w, hann_symmetric(win), hop / win * 2.0, mode)
+    out = tf_synthesis_cuda(sre, sim, got, tb, hop_size=hop, matmul_dtype=mode)
+    plain = tf_synthesis_plain(sre, sim, got, tb, hop_size=hop, matmul_dtype=mode)
+    assert out.shape == plain.shape == (b, 2, (t - 1) * hop)
+    tol = 1e-4 if mode == "float32" else 1e-2
+    assert float((out - plain).abs().max()) <= tol * float(plain.abs().max())
+
+
+@pytest.mark.parametrize("io_dtype", ["float32", "int16"])
+def test_enhance_batches_on_card_equal_enhance(cuda, io_dtype):
+    """The pipelined enhancer (pinned copies on a copy stream beside the
+    compute, the kernels 3–5 in bf16) gives ``enhance``'s results chunk by
+    chunk: float32 bit for bit, int16 as ``enhance``'s output quantized to
+    16 bits; the outputs are the page-locked blocks the copy engine wrote,
+    counted by ``hand_over``, and no yielded array changes while later
+    chunks run."""
+    rng = np.random.default_rng(17)
+    w = (rng.random((513, 64)) + 1e-3).astype(np.float32)
+    cfg = OfflineConfig(mic_separation_m=0.1, num_tdoas=64, dictionary_size=64)
+    enh = GCCNMFEnhancer(w, cfg, device=cuda)
+    chunks = [np.stack([_mixture(i), _mixture(i + 1), _mixture(i + 2)]) for i in range(3)]
+    if io_dtype == "int16":
+        chunks = [np.clip(c * 32768.0, -32768, 32767).astype(np.int16) for c in chunks]
+    counts = (soft_mask_cuda.launches, tf_synthesis_cuda.launches, offline.hand_over.pinned)
+    got = list(enh.enhance_batches(iter(chunks), io_dtype=io_dtype))
+    assert (soft_mask_cuda.launches, tf_synthesis_cuda.launches,
+            offline.hand_over.pinned) == (counts[0] + 3, counts[1] + 3, counts[2] + 3)
+    kept = [o.copy() for o, _ in got]
+    for chunk, (out, targets), out_kept in zip(chunks, got, kept):
+        assert out.base.is_pinned()
+        x = chunk.astype(np.float32) / (32768.0 if io_dtype == "int16" else 1.0)
+        want = enh.enhance(x)
+        np.testing.assert_array_equal(targets, want["target_tdoa_index"])
+        if io_dtype == "int16":
+            want["enhanced"] = (np.trunc(np.clip(want["enhanced"] * 32768.0, -32768, 32767))
+                                / 32768.0).astype(np.float32)
+        np.testing.assert_array_equal(out, want["enhanced"])
+        np.testing.assert_array_equal(out, out_kept)
+
+
 def test_enhancer_h_updates_take_the_fp32_argmax(cuda, monkeypatch):
     """bf16 mode with H updates: the coefficient mask the enhancer builds is
     ``soft_tdoa_coefficient_mask(argmax_tdoa(...))`` on the front-end
