@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the tensor-core NMF kernels spend their time, block by block, on one
-NVIDIA GPU.
+"""Where the tensor-core NMF kernels of the materialised-Q route spend their
+time, block by block, on one NVIDIA GPU.
 
 Run from the root of a checkout: ``python3 chip_nmf_phases.py [--batch 16]
 [--seed 0] [--no-prefetch]``. It builds an instrumented copy of
 ``gccnmf_torch/csrc/nmf.cu`` into a temporary directory: thread 0 of every
 block of the three tensor-core kernels reads ``%globaltimer`` when the block
 starts, after its main loop, after staging its output tile, and at its end.
-It runs ``kl_nmf_cuda`` (``bfloat16_q``) through that copy at the reference
+It runs ``kl_nmf_cuda`` (``bfloat16_q_simul``, turbo, which launches all
+three: ``bfloat16_q`` keeps Q on chip at K = 128 and launches none of
+them) through that copy at the reference
 shape (2T = 2486, F = 513, K = 128, random bf16 V from ``--seed``), one
 iteration for the stamps of its last launch of each kernel, and prints per
 kernel one JSON line: blocks, span, mean block life, the mean of each phase,
@@ -34,6 +36,7 @@ sys.path.insert(0, ROOT)
 
 T, F, K = 2486, 513, 128
 KERNELS = ("tc_wh_ratio_kernel", "tc_h_update_kernel", "tc_qth_split_kernel")
+MODE = "bfloat16_q_simul"  # the materialised route, all three kernels
 MAX_BLOCKS = 16384
 
 STAMPS = f"""
@@ -117,8 +120,8 @@ def main() -> int:
     w0n, h0n = nmf_init_numpy(F, K, T)
     w0 = torch.as_tensor(w0n, device=dev).expand(b, F, K)
     h0 = torch.as_tensor(h0n, device=dev).expand(b, T, K)
-    kl_nmf_cuda(v, w0, h0, 1)  # warm-up
-    kl_nmf_cuda(v, w0, h0, 1)
+    kl_nmf_cuda(v, w0, h0, 1, matmul_dtype=MODE)  # warm-up
+    kl_nmf_cuda(v, w0, h0, 1, matmul_dtype=MODE)
     torch.cuda.synchronize()
     stamps = np.zeros((3, MAX_BLOCKS, 4), np.uint64)
     if lib.phase_stamps_get(stamps.ctypes.data) != 0:
@@ -135,7 +138,7 @@ def main() -> int:
             blocks_in_flight=life.sum() / span)), flush=True)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
-    kl_nmf_cuda(v, w0, h0, 100)
+    kl_nmf_cuda(v, w0, h0, 100, matmul_dtype=MODE)
     end.record()
     end.synchronize()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

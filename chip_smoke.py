@@ -9,7 +9,8 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    CUDA versions; asserts TF32 is off for matmuls and cuDNN.
 2. ``build``: builds every kernel under ``gccnmf_torch/csrc`` with ``nvcc``,
    and reads the library's SASS with ``cuobjdump -sass`` from the same
-   toolkit: each tensor-core kernel (the NMF's three, the soft mask's
+   toolkit: each tensor-core kernel (the NMF's three materialised-Q
+   products and its two on-chip ones, the soft mask's
    scores, the iDFT of ``istft.cuh`` in both sources that include it, and
    the front-end's rDFT and angular products) must hold HGMMA (``wgmma``)
    instructions in each source that instantiates it, and so must each of
@@ -30,8 +31,10 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    the default config's modes and the turbo NMF (``bfloat16_q_simul``)
    again at batch 16, the NMF at its full 100 iterations, which are the
    shapes ``separate_batch`` gives them. Each NMF row names its product
-   design (``wgmma`` in the bf16 modes, ``simt2`` in float32: the
-   pipelined core of ``simt_gemm.cuh``) and carries
+   design (``wgmma_q_on_chip`` in ``bfloat16`` and ``bfloat16_q``: Q kept
+   on chip, ``nmf_cuda.q_on_chip``; ``wgmma`` in turbo, Q materialised;
+   ``simt2`` in float32: the pipelined core of ``simt_gemm.cuh``) and
+   carries
    ``gemm_library_ms``: the same iteration's products (four; three in the
    turbo mode) as ``torch.matmul`` calls at the row's batch and operand
    type, times 100 (a yardstick only; the port never calls it). Each front-end
@@ -441,12 +444,14 @@ def basis_len(mode: str) -> int:
 
 
 # the tensor-core kernels whose SASS must hold HGMMA, with the sources that
-# instantiate each: the NMF's three products (csrc/nmf.cu), the soft mask's
+# instantiate each: the NMF's three materialised-Q products and its two
+# on-chip back-to-back products (csrc/nmf.cu), the soft mask's
 # scores (csrc/enhance.cu), the iDFT of csrc/istft.cuh, which both
 # syntheses include (csrc/synthesis.cu, csrc/enhance.cu), and the
 # front-end's rDFT and angular products (csrc/frontend.cu)
 TC_KERNELS = {"tc_wh_ratio_kernel": ("nmf.cu",), "tc_h_update_kernel": ("nmf.cu",),
-              "tc_qth_split_kernel": ("nmf.cu",), "tc_score_argmax_kernel": ("enhance.cu",),
+              "tc_qth_split_kernel": ("nmf.cu",), "fused_h_update_kernel": ("nmf.cu",),
+              "fused_qth_split_kernel": ("nmf.cu",), "tc_score_argmax_kernel": ("enhance.cu",),
               "tc_frames_kernel": ("synthesis.cu", "enhance.cu"),
               "tc_dft_coherence_kernel": ("frontend.cu",), "tc_angular_kernel": ("frontend.cu",)}
 # substrings of the front-end's kernel names, for the profiler
@@ -1518,7 +1523,7 @@ def main() -> int:
         frontend_basis, stft_gcc_frontend_cuda, stft_gcc_frontend_plain,
     )
     from gccnmf_torch.ops.nmf import kl_divergence, kl_nmf, nmf_init_numpy
-    from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain
+    from gccnmf_torch.ops.nmf_cuda import kl_nmf_cuda, kl_nmf_plain, q_on_chip
     from gccnmf_torch.ops.synthesis_cuda import (
         idft_rows, masked_synthesis_cuda, masked_synthesis_plain, synthesis_basis,
     )
@@ -1816,7 +1821,8 @@ def main() -> int:
                 check_fn=lambda md=md: kl_nmf_cuda(v, w0, h0, nmf_check_iters,
                                                    matmul_dtype=md),
                 err=err, note=note, iterations_timed=NMF_ITERS,
-                design="simt2" if md == "float32" else "wgmma",
+                design=("simt2" if md == "float32" else
+                        "wgmma_q_on_chip" if q_on_chip(md, K) else "wgmma"),
                 gemm_library_ms=gemm_library_ms,
                 gemm_library_note=(f"H·Wᵀ {'once' if turbo else 'twice'}, Q·W, Qᵀ·H as "
                                    f"torch.matmul on {dt} operands at B = {b}, times "

@@ -74,9 +74,14 @@ def _nmf_problem(dev, b=2, t=300, f=65, k=24, seed=0):
 # and of the float32 mode's SIMT tiles (128 x 64 and 64 x 128, 8-deep
 # slices): F = 513 at a ragged T (1,001 rows, 8 splits), K = 256 (two
 # 128-wide tiles), K = 13 (rows of W and H not 16-byte aligned: the 4-byte
-# copies), and T = 140,001 (35 row splits, past the 32 of ≈128 rows)
+# copies), and T = 140,001 (35 row splits, past the 32 of ≈128 rows); and
+# of the on-chip route of modes 1 and 2 (64-row blocks, 64-wide chunks,
+# output widths of 128 and 256): T = 4,097 (a multiple of neither 64 nor
+# the 272 rows of its 16 splits, the last split 17 rows) at F = 513 with K
+# = 128 and K = 136 (the 256-wide blocks; 256 itself at 1,001 rows), and K
+# = 264, past the route's limit (Q materialised)
 NMF_SHAPES = [(300, 65, 24), (517, 65, 136), (96, 513, 24), (1001, 513, 256), (300, 65, 13),
-              (140001, 33, 24)]
+              (140001, 33, 24), (4097, 513, 128), (4097, 513, 136), (300, 65, 264)]
 
 
 @pytest.mark.parametrize("shape", NMF_SHAPES, ids=lambda s: "t%d-f%d-k%d" % s)
@@ -102,6 +107,62 @@ def test_nmf_kernel_matches_plain(cuda, mode, shape):
         assert abs(_kl(v, w, h) - _kl(v, w_p, h_p)) <= 0.02 * _kl(v, w_p, h_p)
         for g, p in ((w, w_p), (h, h_p)):
             assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
+
+
+def _kernel_names(fn):
+    """The device kernels one ``fn()`` launches, in order (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.name.startswith(("Memcpy", "Memset"))]
+
+
+@pytest.mark.parametrize("md,k,on_chip,per_iter", [
+    ("bfloat16", 24, True, 7), ("bfloat16_q", 128, True, 7), ("bfloat16_q", 136, True, 7),
+    ("bfloat16_q", 264, False, 9), ("bfloat16_q_simul", 24, False, 10),
+    ("float32", 24, False, 9)])
+def test_nmf_q_on_chip_route_is_counted_and_writes_no_q(cuda, md, k, on_chip, per_iter):
+    """Modes 1 and 2 at K <= 256 raise ``kl_nmf_cuda.q_on_chip`` and run 7
+    launches an iteration, none of them the ratio kernel that writes Q
+    (no Q plane exists); above the limit, in turbo and in float32 the
+    counter stays and the materialised kernels run (9, 10 and 9 an
+    iteration)."""
+    v, w0, h0 = _nmf_problem(cuda, b=2, t=300, f=65, k=k)
+    before = (kl_nmf_cuda.launches, kl_nmf_cuda.q_on_chip)
+    one = _kernel_names(lambda: kl_nmf_cuda(v, w0, h0, 1, matmul_dtype=md))
+    three = _kernel_names(lambda: kl_nmf_cuda(v, w0, h0, 3, matmul_dtype=md))
+    assert (kl_nmf_cuda.launches - before[0], kl_nmf_cuda.q_on_chip - before[1]) == (
+        2, 2 * on_chip)
+    assert len(three) - len(one) == 2 * per_iter
+    fused = [n for n in three if "fused_" in n]
+    ratio = [n for n in three if "wh_ratio_kernel" in n]
+    if on_chip:
+        assert len(fused) == 2 * 3 and not ratio
+    else:
+        assert not fused and ratio
+
+
+def test_nmf_q_on_chip_at_the_cell_shape(cuda):
+    """The on-chip route at the bf16 benchmark cell's shape (2 of its 16
+    utterances: T = 14,986 rows of left‖right, F = 513, K = 128, V a bf16
+    plane of 513-wide rows as the front-end writes it), 5 iterations,
+    against the plain updates at the NMF bars, bit-identical on a rerun."""
+    t, f, k = 14986, 513, 128
+    v, w0, h0 = _nmf_problem(cuda, b=2, t=t, f=f, k=k, seed=3)
+    v = v.to(torch.bfloat16)
+    before = kl_nmf_cuda.q_on_chip
+    w, h = kl_nmf_cuda(v, w0, h0, 5, matmul_dtype="bfloat16_q")
+    w2, h2 = kl_nmf_cuda(v, w0, h0, 5, matmul_dtype="bfloat16_q")
+    assert kl_nmf_cuda.q_on_chip == before + 2
+    assert torch.equal(w, w2) and torch.equal(h, h2)
+    w_p, h_p = kl_nmf_plain(v, w0, h0, 5, matmul_dtype="bfloat16_q")
+    assert abs(_kl(v, w, h) - _kl(v, w_p, h_p)) <= 0.02 * _kl(v, w_p, h_p)
+    for g, p in ((w, w_p), (h, h_p)):
+        assert float((g - p).abs().max()) <= 1e-2 * float(p.abs().max())
 
 
 @pytest.mark.parametrize("t", [4_194_240, 4_194_304], ids=["last-one-grid", "past-the-cap"])

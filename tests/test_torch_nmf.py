@@ -262,3 +262,44 @@ def test_bf16_modes_keep_their_splits(t, want):
     from gccnmf_torch.ops.nmf_cuda import _splits
 
     assert _splits(t) == want
+
+
+@pytest.mark.parametrize("md,k,want", [
+    ("bfloat16", 128, True), ("bfloat16_q", 128, True), ("bfloat16_q", 13, True),
+    ("bfloat16", 136, True), ("bfloat16_q", 256, True), ("bfloat16", 257, False),
+    ("bfloat16_q", 264, False), ("bfloat16_q", 1024, False), ("bfloat16_q_simul", 128, False),
+    ("bfloat16_q_simul", 24, False), ("float32", 128, False), ("float32", 256, False)])
+def test_q_on_chip_route_is_mode_and_k_alone(md, k, want):
+    """Kernel 1 keeps Q on chip in modes 1 and 2 at K <= 256 and
+    materialises it above; turbo and float32 never take the route. Nothing
+    else (T, F, the batch, the device) enters the rule."""
+    from gccnmf_torch.ops.nmf_cuda import q_on_chip
+
+    assert q_on_chip(md, k) is want
+
+
+def test_q_on_chip_rejects_an_unknown_mode():
+    from gccnmf_torch.ops.nmf_cuda import q_on_chip
+
+    with pytest.raises(ValueError, match="unknown matmul_dtype"):
+        q_on_chip("float16", 128)
+
+
+@pytest.mark.parametrize("dtype,fv,f,mode,want_dtype,want_fv,same", [
+    (torch.bfloat16, 513, 513, 2, torch.bfloat16, 520, False),  # the front-end's V plane
+    (torch.float32, 513, 513, 2, torch.bfloat16, 520, False),  # mode 2 rounds V to bf16 first
+    (torch.float32, 65, 65, 1, torch.float32, 68, False),  # mode 1 keeps fp32 V
+    (torch.bfloat16, 72, 65, 2, torch.bfloat16, 72, True),  # already 16-byte rows
+    (torch.float32, 516, 513, 1, torch.float32, 516, True),
+    (torch.bfloat16, 80, 65, 1, torch.bfloat16, 80, True)])
+def test_on_chip_v_rows(dtype, fv, f, mode, want_dtype, want_fv, same):
+    """The on-chip route's V: rows of whole 16-byte chunks, bf16 in mode 2,
+    the first F columns equal to V's (cast to bf16 in mode 2, which the
+    ratio does first anyway); V itself where it already lies so."""
+    from gccnmf_torch.ops.nmf_cuda import _v_rows
+
+    v = torch.rand((2, 7, fv)).to(dtype)
+    got, ld = _v_rows(v, f, mode)
+    assert got.dtype == want_dtype and ld == want_fv and got.shape == (2, 7, want_fv)
+    assert (got is v) is same
+    torch.testing.assert_close(got[..., :f], v[..., :f].to(want_dtype), rtol=0, atol=0)
