@@ -280,7 +280,6 @@ import dataclasses
 import functools
 import io
 import json
-import math
 import os
 import shutil
 import statistics
@@ -293,6 +292,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+# the kernel table's yardstick: the benchmark's own arithmetic (peak rates of
+# one H100 SXM at its 700 W limit), so that the table and the cells count
+# the same work
+from portbench.harness.roofline import PEAK_FLOP_S, basis_len, bound, dft_flops  # noqa: E402
 
 SR, SECONDS, WIN, HOP, K, D, SOURCES = 16000, 10, 1024, 128, 128, 128, 3
 # the mixture's delays (samples) of the right mic behind the left, per source
@@ -346,13 +350,12 @@ CLI_SNR_DB = 45.0
 # the streaming step's device time by stage, for the profiler
 STREAM_STAGES = {"cuFFT": ("fft", "FFT"), "GEMMs (cuBLAS)": ("gemm", "gemv"),
                  "H2D copies": ("Memcpy HtoD",), "D2H copies": ("Memcpy DtoH",)}
-
-# Peak rates of one H100 SXM (NVIDIA data sheet, dense, at its 700 W
-# limit): 3.35 TB/s of HBM, 67 TFLOP/s fp32 on the SIMT cores, 989 TFLOP/s
-# bf16 on the tensor cores.
-HBM_BYTES_S = 3.35e12
-PEAK_FLOP_S = {"float32": 67e12, "bfloat16": 989e12, "bfloat16_q": 989e12,
-               "bfloat16_q_simul": 989e12}
+# how dft_flops counts a mode's DFTs, for the kernel table: in float32 an
+# FFT computes the same function; in the bf16 modes the JAX package rounds
+# the windowed DFT basis to bf16, which no FFT reproduces, so the least work
+# under its rounding points is the GEMM against the basis
+DFT_COUNTED = {True: "DFTs as FFTs (2.5·N·log2 N)",
+               False: "DFTs as GEMMs on the bf16-rounded basis"}
 
 
 def emit(phase: str, **fields) -> None:
@@ -418,31 +421,6 @@ def time_ms(torch, fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, mode: str) -> tuple[float, str]:
-    """Least time (ms) for the work: the larger of bytes over the HBM rate
-    and operations over the peak rate for the GEMM operand type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / PEAK_FLOP_S[mode]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
-def dft_flops(frames: int, mode: str) -> tuple[float, str]:
-    """Least operations of a real DFT (or its inverse) of ``frames`` windows
-    of WIN samples, F = WIN/2 + 1 bins, and how they were counted. In
-    float32 an FFT computes the same function: 2.5·N·log2 N flop a frame. In
-    the bf16 modes the JAX package rounds the windowed DFT basis to bf16,
-    which no FFT reproduces, so the least work under its rounding points is
-    the GEMM against the basis: 4·N·F flop a frame (real and imaginary)."""
-    if mode == "float32":
-        return frames * 2.5 * WIN * math.log2(WIN), "DFTs as FFTs (2.5·N·log2 N)"
-    return frames * 4 * WIN * (WIN // 2 + 1), "DFTs as GEMMs on the bf16-rounded basis"
-
-
-def basis_len(mode: str) -> int:
-    """fp32 words of transform constants the DFT of :func:`dft_flops` must
-    read: the window for an FFT, the two (N, F) basis planes for the GEMM."""
-    return WIN if mode == "float32" else 2 * WIN * (WIN // 2 + 1)
-
-
 # the tensor-core kernels whose SASS must hold HGMMA, with the sources that
 # instantiate each: the NMF's three materialised-Q products and its two
 # on-chip back-to-back products (csrc/nmf.cu), the soft mask's
@@ -460,14 +438,19 @@ FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "fft_c
 # the tensor-core kernels that must not spill: two blocks an SM leave each
 # thread 128 registers
 NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
-# the float32 products on the pipelined SIMT core (csrc/simt_gemm.cuh), the
-# float32 iDFT's FFT (csrc/istft.cuh) and the front-end's float32 rDFT on
-# the same FFT passes (csrc/fft.cuh), by the sources that instantiate each:
-# exact fp32, so their SASS must hold no tensor-core instruction (HGMMA, or
-# HMMA as TF32 would use), and they must not spill
+# the products on the pipelined SIMT core (csrc/simt_gemm.cuh), the float32
+# iDFT's FFT (csrc/istft.cuh) and the front-end's float32 rDFT on the same
+# FFT passes (csrc/fft.cuh), by the sources that instantiate each: exact
+# fp32 sums, so their SASS must hold no tensor-core instruction (HGMMA, or
+# HMMA as TF32 would use), and they must not spill. Matched by the name's
+# mangled form (its length, then the name): angular_kernel is a substring
+# of the tensor-core tc_angular_kernel, spectra_kernel of
+# wiener_spectra_kernel
 SIMT_KERNELS = {"simt_wh_ratio_kernel": ("nmf.cu",), "simt_h_update_kernel": ("nmf.cu",),
                 "simt_qth_split_kernel": ("nmf.cu",),
                 "simt_score_argmax_kernel": ("enhance.cu",),
+                "wiener_spectra_kernel": ("enhance.cu",), "spectra_kernel": ("synthesis.cu",),
+                "angular_kernel": ("frontend.cu",),
                 "fft_frames_kernel": ("synthesis.cu", "enhance.cu"),
                 "fft_coherence_kernel": ("frontend.cu",)}
 # a kernel name that tells a source's SASS apart from the others', tried in
@@ -502,7 +485,7 @@ def hgmma_counts(nvcc: str, library: str) -> tuple[dict[str, int], list[str], di
                     if "HGMMA" not in section:
                         empty.append(f"{name.strip()} ({src})")
             for k in SIMT_KERNELS:
-                if k in name:
+                if f"{len(k)}{k}" in name:
                     key = f"{k} ({src})"
                     simt[key] = simt.get(key, 0) + section.count("HGMMA") + section.count("HMMA")
     return counts, empty, simt
@@ -1726,7 +1709,7 @@ def main() -> int:
         b, n_ = x.shape[0], x.shape[-1]
         t_, d_ = got[5].shape[-2], cos_.shape[-1]
         psize = 4 if md == "float32" else 2
-        dft, counted = dft_flops(b * 2 * t_, md)
+        dft, counted = dft_flops(b * 2 * t_, WIN, md), DFT_COUNTED[md == "float32"]
         lib_ms, lib_note = frontend_library_ms(md, b, t_, basis, cos_, sin_)
         extra = {}
         if md == "float32":
@@ -1748,7 +1731,7 @@ def main() -> int:
             "gccnmf_tpu/ops/frontend_pallas.py:111", got, want,
             1e-4 if md == "float32" else 8e-3, kfn, pfn,
             flops=dft + b * 4 * t_ * f * d_, counted=counted + ", angular GEMM",
-            nbytes=b * 2 * n_ * 4 + 4 * (basis_len(md) + 2 * f * d_)
+            nbytes=b * 2 * n_ * 4 + 4 * (basis_len(WIN, md) + 2 * f * d_)
             + b * psize * (3 * 2 * t_ * f + 2 * t_ * f) + b * t_ * d_ * 4,
             note=("1e-4 x max|plain| (the coherence planes: x max|float64|, against the "
                   "function in float64)" if md == "float32"
@@ -1844,14 +1827,14 @@ def main() -> int:
                 sre, sim, winner, w_nmf, h_st, sbasis, **kw)
             tol = 1e-4 if md == "float32" else 1e-2
             psize = 4 if md == "float32" else 2
-            dft, counted = dft_flops(b * SOURCES * 2 * t, md)
+            dft, counted = dft_flops(b * SOURCES * 2 * t, WIN, md), DFT_COUNTED[md == "float32"]
             lib_ms, lib_note = idft_library_ms(md, b * SOURCES * 2 * t)
             record(
                 "masked_synthesis_cuda", md, b, "gccnmf_torch/csrc/synthesis.cu",
                 "gccnmf_tpu/ops/synthesis_pallas.py:140", (kfn(),), (pfn(),), tol, kfn, pfn,
                 flops=2 * b * SOURCES * 2 * t * f * K + dft, counted="W·H GEMM, " + counted,
                 nbytes=b * (2 * 2 * t * f * psize + t * K * 4 + f * K * 4 + 2 * t * K * 4)
-                + 4 * basis_len(md) + b * SOURCES * 2 * (t - 1) * HOP * 4,
+                + 4 * basis_len(WIN, md) + b * SOURCES * 2 * (t - 1) * HOP * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
                 design="fft" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,
@@ -1962,7 +1945,7 @@ def main() -> int:
                 sre, sim, hm, tb, hop_size=hop, matmul_dtype=md)
             pfn = lambda sre=sre, sim=sim, hm=hm, md=md: tf_synthesis_plain(
                 sre, sim, hm, tb, hop_size=hop, matmul_dtype=md)
-            dft, counted = dft_flops(b * 2 * t_, md)
+            dft, counted = dft_flops(b * 2 * t_, WIN, md), DFT_COUNTED[md == "float32"]
             lib_ms, lib_note = idft_library_ms(md, b * 2 * t_)
             record(
                 "tf_synthesis_cuda", md, b, "gccnmf_torch/csrc/enhance.cu",
@@ -1970,7 +1953,7 @@ def main() -> int:
                 1e-4 if md == "float32" else 1e-2, kfn, pfn,
                 flops=2 * b * t_ * k_ * f + dft, counted="Wiener GEMM, " + counted,
                 nbytes=b * 2 * 2 * t_ * f * psize + b * t_ * k_ * 4 + k_ * f * 4
-                + 4 * basis_len(md) + b * 2 * (t_ - 1) * hop * 4,
+                + 4 * basis_len(WIN, md) + b * 2 * (t_ - 1) * hop * 4,
                 check_fn=lambda kfn=kfn: (kfn(),),
                 note=("1e-4" if md == "float32" else "1e-2 (bf16 operands)") + " x max|plain|",
                 design="fft" if md == "float32" else "wgmma", gemm_library_ms=lib_ms,

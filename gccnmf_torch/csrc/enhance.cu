@@ -96,8 +96,8 @@
 // In bf16 it is 2·B·T·(K·F + C·2·F·win) flop (86 GFLOP at B = 16) against
 // about 190 MB; in float32 the iDFT is an FFT (2.5·win·log2 win flop a
 // frame), so the bytes of X's planes and the frames bound it. The tf GEMM
-// runs as fp32 FMAs on the SIMT tile of common.cuh, with bf16-rounded
-// operands in the bf16 mode.
+// runs as fp32 FMAs on the SIMT core of simt_gemm.cuh (128 x 64 tiles, both
+// operands through registers, rounded to bf16 there in the bf16 mode).
 #include <math.h>
 
 #include "common.cuh"
@@ -182,10 +182,7 @@ simt_score_argmax_kernel(const float* __restrict__ rows, int ldj, const float* _
         lb.fetch(b, n0, fetch_k * simt::BK, st + TL::A_FLOATS);
         if (++fetch_k == nk) fetch_k = 0, ++fetch_d;
       },
-      [&](float* st) {
-        la.put(st);
-        lb.put(st + TL::A_FLOATS);
-      },
+      [&](float* st) { la.put(st, a); },  // the fold lands by cp.async
       [&](int, const float* st) {
         simt::fma_slice<TL>(st, acc);
         if (++fold_k < nk) return;  // the TDOA's scores are complete: fold them
@@ -320,37 +317,40 @@ __global__ void mask_kernel(const float* __restrict__ pmax, const int* __restric
   }
 }
 
+// (m, f) tiles of 128 x 64: F = 513 in 9 column tiles (576 columns, against
+// 640 in tiles of 128).
+using WienerTile = simt::Tile<128, 64>;
+
 // X for z = (b, c): X[t,f] = (Σ_k hm[b,t,k]·Wn[k,f])·plane[b,c,t,f], at
 // spectrum row z·T + t of x (put_x: ldx, x_im), over rows m = (b, t) so one
 // GEMM serves every channel.
 template <typename TP, typename TX>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(WienerTile::THREADS, 4)
 wiener_spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
                       const float* __restrict__ hm, const float* __restrict__ wn,
                       TX* __restrict__ x, int ldx, long x_im, int M, int T, int C, int F, int K,
                       bool rnd) {
-  __shared__ __align__(16) TileA As;
-  __shared__ __align__(16) TileB Bs;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  float acc[4][4];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    stage_a<true>(As, hm, K, 1, m0, k0, M, K, rnd);  // (m, k) at hm[m*K + k]
-    stage_b<true>(Bs, wn, F, 1, k0, n0, K, F, rnd);  // (k, f) at Wn[k*F + f]
-    __syncthreads();
-    tile_fma(As, Bs, acc);
-    __syncthreads();
-  }
+  using TL = WienerTile;
+  __shared__ __align__(16) float smem[TL::SMEM_FLOATS];
+  const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
+  float acc[8][8];
+  // (m, k) at hm[m*K + k]; (k, f) at Wn[k*F + f], both through registers
+  simt::gemm<TL, true, false>(acc, smem, simt::Rounded{{hm, K, M, K}, rnd},
+                              simt::Rounded{{wn, F, F, K}, rnd}, m0, n0, 0, K);
+  const int lane = simt::frag_col<TL>(0) / 4;  // 0..7 across a row's threads
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = out_row(m0, i);
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + simt::frag_row<TL>(i);
     if (m >= M) continue;
     const int b = m / T, t = m % T;
     if (n0 == 0)
-      for (int c = 0; c < C; ++c) pad_x(x, ((long)b * C + c) * T + t, F, ldx, threadIdx.x % 16);
+      for (int c = 0; c < C; ++c) {
+        pad_x(x, ((long)b * C + c) * T + t, F, ldx, lane);
+        pad_x(x, ((long)b * C + c) * T + t, F, ldx, lane + 8);
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = out_col(n0, j);
+    for (int j = 0; j < 8; ++j) {
+      const int f = n0 + simt::frag_col<TL>(j);
       if (f >= F) continue;
       for (int c = 0; c < C; ++c) {
         const long r = ((long)b * C + c) * T + t;
@@ -430,7 +430,7 @@ cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const
                    cudaStream_t st) {
   const int M = B * T, Z = B * C;
   const bool rows = sizeof(TX) == 2;
-  wiener_spectra_kernel<TP, TX><<<tile_grid(M, F, 1), NTHREADS, 0, st>>>(
+  wiener_spectra_kernel<TP, TX><<<simt::grid<WienerTile>(M, F, 1), WienerTile::THREADS, 0, st>>>(
       sre, sim, ldf, hm, wn, x, rows ? ldj : F, rows ? (long)F : (long)Z * T * F, M, T, C, F,
       K, rows);
   cudaError_t err = cudaGetLastError();

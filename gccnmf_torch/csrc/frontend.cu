@@ -61,13 +61,16 @@
 //      29,052 (even) or 14,525 (odd) samples one transform does not fit
 //      and the call is refused.
 //   2. angular_kernel: the angular product from the stored coherence
-//      planes, on the SIMT tile of common.cuh.
+//      planes, on the SIMT core of simt_gemm.cuh (64 x 128 tiles, the
+//      planes' rows staged through registers, the steering planes by
+//      cp.async).
 //   The FFT's butterflies run in one fixed order for each frame, so reruns
 //   and batch elements are bit-identical.
 #include <climits>
 
 #include "common.cuh"
 #include "fft.cuh"
+#include "simt_gemm.cuh"
 #include "tc_gemm.cuh"
 
 using namespace gccnmf;
@@ -213,39 +216,49 @@ fft_coherence_kernel(const float* __restrict__ x, long n, int hop, FftPlan plan,
   }
 }
 
-// ---- the angular product on the SIMT tile of common.cuh ---------------------
+// ---- the angular product on the SIMT core of simt_gemm.cuh --------------
 
-// ang[t,d] = Σ_f cre[t,f]·cos[f,d] + cim[t,f]·sin[f,d]
+// 64 frames x 128 TDOAs a block: D = 128 in one column tile, so each
+// coherence row (F = 513 wide: element loads) is read once.
+using AngTile32 = simt::Tile<64, 128>;
+
+// ang[t,d] = Σ_f cre[t,f]·cos[f,d] + cim[t,f]·sin[f,d], summed in 16-bin
+// blocks, each block's Re terms, then its Im terms: slice i of the ring is
+// the Re (i % 4 < 2) or Im terms of bins f0..f0 + 7, f0 = 16·(i/4) + 8·(i%2).
 template <typename TP>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(AngTile32::THREADS, 4)
 angular_kernel(const TP* __restrict__ cre, const TP* __restrict__ cim,
                const float* __restrict__ cosm, const float* __restrict__ sinm,
                float* __restrict__ ang, int T, int F, int D) {
-  __shared__ __align__(16) TileA Ar, Ai;
-  __shared__ __align__(16) TileB Bc, Bs;
-  const int b = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const TP* cr = cre + (long)b * T * F;
-  const TP* ci = cim + (long)b * T * F;
-  float acc[4][4];
-  zero(acc);
-  for (int f0 = 0; f0 < F; f0 += BK) {
-    stage_a<true>(Ar, cr, F, 1, m0, f0, T, F, false);  // (t, f) at C[t*F + f]
-    stage_a<true>(Ai, ci, F, 1, m0, f0, T, F, false);
-    stage_b<true>(Bc, cosm, D, 1, f0, n0, F, D, false);  // (f, d) at cos[f*D + d]
-    stage_b<true>(Bs, sinm, D, 1, f0, n0, F, D, false);
-    __syncthreads();
-    tile_fma(Ar, Bc, acc);
-    tile_fma(Ai, Bs, acc);
-    __syncthreads();
-  }
+  using TL = AngTile32;
+  __shared__ __align__(16) float smem[TL::SMEM_FLOATS];
+  const int b = blockIdx.z, m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
+  const long plane = (long)b * T * F;
+  using Plane = simt::OperandOf<TP>;
+  simt::Loader<true, TL::BM, TL::THREADS, TL::LDA, Plane> la;
+  simt::Loader<false, TL::BN, TL::THREADS, TL::LDB> lb;
+  float acc[8][8];
+  simt::zero(acc);
+  simt::ring<TL>(
+      smem, 4 * ((F + 15) / 16),
+      [&](int i, float* st) {  // (t, f) at C[t*F + f]; (f, d) at cos[f*D + d]
+        const bool re = i % 4 < 2;
+        const int f0 = 16 * (i / 4) + 8 * (i % 2);
+        la.fetch({(re ? cre : cim) + plane, F, T, F}, m0, f0, st);
+        lb.fetch({re ? cosm : sinm, D, D, F}, n0, f0, st + TL::A_FLOATS);
+      },
+      // a plane stages its runs as they are (its value() reads no field); B
+      // lands by cp.async
+      [&](float* st) { la.put(st, Plane{}); },
+      [&](int, const float* st) { simt::fma_slice<TL>(st, acc); });
   float* ab = ang + (long)b * T * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = out_row(m0, i);
+  for (int i = 0; i < 8; ++i) {
+    const int t = m0 + simt::frag_row<TL>(i);
     if (t >= T) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = out_col(n0, j);
+    for (int j = 0; j < 8; ++j) {
+      const int d = n0 + simt::frag_col<TL>(j);
       if (d < D) ab[(long)t * D + d] = acc[i][j];
     }
   }
@@ -276,7 +289,8 @@ cudaError_t run_fft(const float* x, int B, long n, int hop, int win, const FftPl
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  angular_kernel<TP><<<tile_grid(T, D, B), NTHREADS, 0, st>>>(cre, cim, cosm, sinm, ang, T, F, D);
+  angular_kernel<TP><<<simt::grid<AngTile32>(T, D, B), AngTile32::THREADS, 0, st>>>(
+      cre, cim, cosm, sinm, ang, T, F, D);
   return cudaGetLastError();
 }
 

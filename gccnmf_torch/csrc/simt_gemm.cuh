@@ -1,6 +1,11 @@
-// Pipelined fp32 product core for the port's exact float32 products on
-// Hopper's SIMT cores: the NMF's three products in the float32 mode
-// (nmf.cu) and the soft mask's float32 scores (enhance.cu).
+// The port's one core for products summed as exact fp32 FMAs on Hopper's
+// SIMT cores: the NMF's three products in the float32 mode (nmf.cu), the
+// soft mask's float32 scores and the Wiener synthesis's tf product
+// (enhance.cu), the masked synthesis's spectra product (synthesis.cu) and
+// the front-end's float32 angular product (frontend.cu). The two
+// syntheses' products also run in the bf16 modes, their operands rounded
+// to bf16 as they are staged: JAX's "bf16 operands, fp32 accumulation"
+// contract, exact in fp32 (the product of two bf16 values is).
 //
 // The float32 mode is exact fp32 (JAX's make_mm at HIGHEST): no tensor-core
 // instruction computes it (TF32 keeps 10 mantissa bits), so these products
@@ -20,15 +25,17 @@
 // of STAGES (3) stages in shared memory, each an A tile As[k][m]
 // (BK rows of BM + 4 floats) and a B tile Bs[k][n]. While a slice's FMAs
 // run, the copies of the slice STAGES - 1 ahead are in flight:
-//   MN-major operand (element (k, mn) contiguous along mn, as the tile
-//   wants it): cp.async 16-byte copies straight into the stage (4-byte
+//   MN-major fp32 operand (element (k, mn) contiguous along mn, as the
+//   tile wants it): cp.async 16-byte copies straight into the stage (4-byte
 //   copies where the row stride or base is not 16-byte aligned, or a chunk
 //   straddles the last row); a copy past the ragged edge reads nothing and
 //   writes zeros (src-size 0).
-//   K-major operand (contiguous along the contraction): float4 global loads
-//   into registers, issued before the slice's FMAs and stored transposed
-//   into the stage after them. With rows of BM + 4 floats, a warp's 16 rows
-//   x 2 chunks land in 32 distinct banks.
+//   K-major operand (contiguous along the contraction), and any operand
+//   converted, rounded to bf16 or masked on its way in: runs of 4 loaded
+//   into registers (16-byte loads where aligned), issued before the slice's
+//   FMAs, and stored into the stage after them (transposed for a K-major
+//   operand: with rows of BM + 4 floats, a warp's 16 rows x 2 runs land in
+//   32 distinct banks). What each element becomes is its source's value().
 //   A slice wholly inside its operand (every row, every k, one plane, a
 //   16-byte aligned row stride) takes a path with no per-chunk checks.
 // One __syncthreads a slice: it both publishes slice i and frees the stage
@@ -41,15 +48,17 @@
 // gives alone, bit for bit, and two runs agree.
 //
 // A kernel whose contraction is not one product (the soft mask's scores run
-// one 2F-deep product per TDOA back to back, one continuous ring) calls
-// ring() with its own fetch, put and compute; gemm() is ring() over one
-// contraction.
+// one 2F-deep product per TDOA back to back, one continuous ring; the
+// angular product interleaves two) calls ring() with its own fetch, put and
+// compute; gemm() is ring() over one contraction.
 #pragma once
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace gccnmf {
 namespace simt {
@@ -70,20 +79,6 @@ struct Tile {
   static_assert(STAGES >= 2, "a ring needs two stages");
 };
 
-// An fp32 operand in device memory.
-//   K-major: element (mn, k) at p[mn*ld + k].
-//   MN-major: element (k, mn) at row(k)[mn], row(k) = p + k*ld below
-//   split and p2 + (k - split)*ld from it (two planes stacked along the
-//   contraction, as the soft mask's fold [cw[d]; sw[d]]).
-// Elements at mn >= rows or k >= depth stage as zeros.
-struct Operand {
-  const float* p;
-  long ld;
-  int rows, depth;
-  const float* p2 = nullptr;
-  int split = INT_MAX;
-};
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -91,6 +86,53 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
+
+// An operand in device memory, of fp32 (Operand) or bf16 elements.
+//   K-major: element (mn, k) at p[mn*ld + k].
+//   MN-major: element (k, mn) at row(k)[mn], row(k) = p + k*ld below
+//   split and p2 + (k - split)*ld from it (two planes stacked along the
+//   contraction, as the soft mask's fold [cw[d]; sw[d]]; cp.async only).
+// Elements at mn >= rows or k >= depth stage as zeros.
+// As the source of a slice staged through registers (Loader, below) it
+// gives runs of 4 elements along its contiguous dimension and stages them
+// as fp32; a source of the same shape may convert, round or mask them on
+// the way in (Rounded; synthesis.cu's winner mask).
+template <typename T>
+struct OperandOf {
+  const T* p;
+  long ld;
+  int rows, depth;
+  const T* p2 = nullptr;
+  int split = INT_MAX;
+
+  using Run = float4;  // a run's registers between fetch and put
+  // runs load as 16 bytes: fp32 elements, a whole number of runs a row, an aligned base
+  __device__ __forceinline__ bool vec() const {
+    return sizeof(T) == 4 && ld % 4 == 0 && aligned16(p);
+  }
+  // the run at p[off], one 16-byte load (only where vec())
+  __device__ __forceinline__ Run run(long off) const {
+    return *reinterpret_cast<const float4*>(p + off);
+  }
+  // the run at p[off], its first n elements (n may be <= 0), zeros past them
+  __device__ __forceinline__ Run run(long off, int n) const {
+    return make_float4(n > 0 ? to_f32(p[off]) : 0.0f, n > 1 ? to_f32(p[off + 1]) : 0.0f,
+                       n > 2 ? to_f32(p[off + 2]) : 0.0f, n > 3 ? to_f32(p[off + 3]) : 0.0f);
+  }
+  // what the stage holds of a run
+  __device__ __forceinline__ float4 value(const Run& v) const { return v; }
+};
+using Operand = OperandOf<float>;
+
+// An fp32 operand rounded to bf16 (round-to-nearest-even) on its way in
+// where rnd: the bf16 modes' operands, where JAX's make_mm rounds them.
+struct Rounded : Operand {
+  bool rnd;
+  __device__ __forceinline__ float4 value(const Run& v) const {
+    return rnd ? make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z), round_bf16(v.w))
+               : v;
+  }
+};
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -114,62 +156,66 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Stages an R x BK slice (R rows of the tile, from row r0; contraction from
-// k0) of an operand into st[k*LD + r], by THREADS threads.
-template <bool KMAJOR, int R, int THREADS, int LD>
-struct Loader;
+// k0) of an operand from source Src into st[k*LD + r], by THREADS threads.
+//
+// Through registers: every K-major operand, and an MN-major one whose source
+// converts, rounds or masks. fetch loads the slice as runs of 4 along the
+// operand's contiguous dimension, issued before the slice's FMAs; put
+// stores each run's value after them, transposed for a K-major operand (a
+// warp's 16 rows x 2 runs land in 32 distinct banks), as one 16-byte store
+// for an MN-major one. Thread e of a chunk round takes line e / RUNS (a row
+// of a K-major operand, a k of an MN-major one) and run e % RUNS of it.
+template <bool KMAJOR, int R, int THREADS, int LD, class Src = Operand>
+struct Loader {
+  static constexpr int LINES = KMAJOR ? R : BK, RUNS = (KMAJOR ? BK : R) / 4;
+  static constexpr int CHUNKS = LINES * RUNS / THREADS;
+  static_assert(CHUNKS * THREADS == LINES * RUNS, "whole chunk rounds");
+  typename Src::Run v[CHUNKS];
 
-// K-major: float4 loads along k into registers (fetch), stored transposed
-// (put). Thread e of a chunk round takes row e / 2, chunk e % 2.
-template <int R, int THREADS, int LD>
-struct Loader<true, R, THREADS, LD> {
-  static constexpr int CHUNKS = R * (BK / 4) / THREADS;
-  static_assert(CHUNKS * THREADS == R * (BK / 4), "whole chunk rounds");
-  float4 v[CHUNKS];
-
-  __device__ __forceinline__ void fetch(const Operand& op, int r0, int k0, float*) {
-    const bool vec = op.ld % 4 == 0 && aligned16(op.p);
-    if (vec && r0 + R <= op.rows && k0 + BK <= op.depth) {  // an interior slice: no checks
+  __device__ __forceinline__ void fetch(const Src& op, int r0, int k0, float*) {
+    const int o0 = KMAJOR ? r0 : k0, i0 = KMAJOR ? k0 : r0;  // line, element in the line
+    const int on = KMAJOR ? op.rows : op.depth, in = KMAJOR ? op.depth : op.rows;
+    const bool vec = op.vec();
+    if (vec && o0 + LINES <= on && i0 + 4 * RUNS <= in) {  // an interior slice: no checks
 #pragma unroll
       for (int c = 0; c < CHUNKS; ++c) {
         const int e = threadIdx.x + c * THREADS;
-        v[c] = *reinterpret_cast<const float4*>(
-            op.p + (long)(r0 + e / (BK / 4)) * op.ld + k0 + (e % (BK / 4)) * 4);
+        v[c] = op.run((long)(o0 + e / RUNS) * op.ld + i0 + (e % RUNS) * 4);
       }
       return;
     }
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       const int e = threadIdx.x + c * THREADS;
-      const int gr = r0 + e / (BK / 4), gk = k0 + (e % (BK / 4)) * 4;
-      const float* src = op.p + (long)gr * op.ld + gk;
-      if (gr < op.rows && vec && gk + 4 <= op.depth) {
-        v[c] = *reinterpret_cast<const float4*>(src);
-      } else {
-        const bool in = gr < op.rows;
-        v[c] = make_float4(in && gk < op.depth ? src[0] : 0.0f,
-                                in && gk + 1 < op.depth ? src[1] : 0.0f,
-                                in && gk + 2 < op.depth ? src[2] : 0.0f,
-                                in && gk + 3 < op.depth ? src[3] : 0.0f);
-      }
+      const int go = o0 + e / RUNS, gi = i0 + (e % RUNS) * 4;
+      const int n = go < on ? in - gi : 0;  // the run's elements inside the operand
+      const long off = (long)go * op.ld + gi;
+      v[c] = vec && n >= 4 ? op.run(off) : op.run(off, n);
     }
   }
 
-  __device__ __forceinline__ void put(float* st) const {
+  __device__ __forceinline__ void put(float* st, const Src& op) const {
 #pragma unroll
     for (int c = 0; c < CHUNKS; ++c) {
       const int e = threadIdx.x + c * THREADS;
-      const int r = e / (BK / 4), k = (e % (BK / 4)) * 4;
-      st[(k + 0) * LD + r] = v[c].x;
-      st[(k + 1) * LD + r] = v[c].y;
-      st[(k + 2) * LD + r] = v[c].z;
-      st[(k + 3) * LD + r] = v[c].w;
+      const int o = e / RUNS, i = (e % RUNS) * 4;
+      const float4 x = op.value(v[c]);
+      if (KMAJOR) {
+        st[(i + 0) * LD + o] = x.x;
+        st[(i + 1) * LD + o] = x.y;
+        st[(i + 2) * LD + o] = x.z;
+        st[(i + 3) * LD + o] = x.w;
+      } else {
+        *reinterpret_cast<float4*>(st + o * LD + i) = x;
+      }
     }
   }
 };
 
-// MN-major: cp.async straight into the stage (fetch); put has nothing to do.
+// An MN-major fp32 operand as it is: cp.async straight into the stage
+// (fetch); put has nothing to do.
 template <int R, int THREADS, int LD>
-struct Loader<false, R, THREADS, LD> {
+struct Loader<false, R, THREADS, LD, Operand> {
   static constexpr int PER_K = R / 4;  // 16-byte chunks of one staged k row
   static constexpr int CHUNKS = BK * PER_K / THREADS;
   static_assert(CHUNKS * THREADS == BK * PER_K, "whole chunk rounds");
@@ -210,7 +256,7 @@ struct Loader<false, R, THREADS, LD> {
     }
   }
 
-  __device__ __forceinline__ void put(float*) const {}
+  __device__ __forceinline__ void put(float*, const Operand&) const {}
 };
 
 // The ring over n slices: fetch(i, stage) issues slice i's copies (or its
@@ -284,13 +330,13 @@ __device__ __forceinline__ void fma_slice(const float* st, float (&acc)[8][8]) {
 
 // acc = the block's tile at (m0, n0) of Σ_{k_lo <= k < k_hi} A[m, k]·B[k, n]
 // (a's rows are the output rows, b's the output columns; k_hi <= each
-// operand's depth).
-template <class TL, bool A_KMAJOR, bool B_KMAJOR>
-__device__ __forceinline__ void gemm(float (&acc)[8][8], float* smem, const Operand& a,
-                                     const Operand& b, int m0, int n0, int k_lo, int k_hi) {
+// operand's depth), from the sources SA and SB.
+template <class TL, bool A_KMAJOR, bool B_KMAJOR, class SA = Operand, class SB = Operand>
+__device__ __forceinline__ void gemm(float (&acc)[8][8], float* smem, const SA& a, const SB& b,
+                                     int m0, int n0, int k_lo, int k_hi) {
   zero(acc);
-  Loader<A_KMAJOR, TL::BM, TL::THREADS, TL::LDA> la;
-  Loader<B_KMAJOR, TL::BN, TL::THREADS, TL::LDB> lb;
+  Loader<A_KMAJOR, TL::BM, TL::THREADS, TL::LDA, SA> la;
+  Loader<B_KMAJOR, TL::BN, TL::THREADS, TL::LDB, SB> lb;
   ring<TL>(
       smem, (k_hi - k_lo + BK - 1) / BK,
       [&](int i, float* st) {
@@ -298,10 +344,22 @@ __device__ __forceinline__ void gemm(float (&acc)[8][8], float* smem, const Oper
         lb.fetch(b, n0, k_lo + i * BK, st + TL::A_FLOATS);
       },
       [&](float* st) {
-        la.put(st);
-        lb.put(st + TL::A_FLOATS);
+        la.put(st, a);
+        lb.put(st + TL::A_FLOATS, b);
       },
       [&](int, const float* st) { fma_slice<TL>(st, acc); });
+}
+
+// The (column tile, row tile, batch) grid of a product. CUDA caps gridDim.y
+// at 65,535, so rows past 65,535 tiles (8,388,480 in tiles of 128,
+// 4,194,240 in tiles of 64) cannot launch in one grid. Kernel 1's float32
+// launches are chunked along the rows (nmf.cu row_chunks); no other path
+// comes near it: the spectra and angular products tile the T frames of one
+// utterance (7,493 at 60 s, hop 128), the Wiener product B·T (119,888 at
+// the enhancer's 16 utterances of 60 s).
+template <class TL>
+inline dim3 grid(int rows, int cols, int batch) {
+  return dim3((cols + TL::BN - 1) / TL::BN, (rows + TL::BM - 1) / TL::BM, batch);
 }
 
 }  // namespace simt

@@ -29,60 +29,84 @@
 // utterance (about 16.7 GFLOP at the reference shape with 3 targets)
 // against about 20 MB of planes, H, winner and waveforms, so the products
 // bound it; the mag GEMM (about 6 % of them) runs as fp32 FMAs on the SIMT
-// cores, its operands rounded to bf16 where JAX's make_mm rounds them, the
-// iDFT on wgmma. In float32 the iDFT is an FFT (2.5·win·log2 win flop a
+// core of simt_gemm.cuh, its operands rounded to bf16 where JAX's make_mm
+// rounds them, the iDFT on wgmma. In float32 the iDFT is an FFT (2.5·win·log2 win flop a
 // frame), which leaves the mag GEMM (2·S·C·T·F·K) as most of the
 // operations, and X's planes and the frames (written and read once each)
 // as most of the bytes.
 #include "common.cuh"
 #include "istft.cuh"
+#include "simt_gemm.cuh"
 
 using namespace gccnmf;
 
 namespace {
 
+// (t, f) tiles of 128 x 64, as kernel 1's ratio: F = 513 in 9 column tiles
+// (576 columns, against 640 in tiles of 128).
+using SpectraTile = simt::Tile<128, 64>;
+
+// H[t,k] where winner[t,k] == s, else 0, rounded to bf16 where rnd: the
+// winner mask applied as H passes through registers (the one-hot mask
+// never exists). The winner shares H's (t, k) layout.
+struct MaskedH : simt::Operand {
+  const int* winner;
+  int s;
+  bool rnd;
+  struct Run {
+    float4 h;
+    int4 w;
+  };
+  __device__ __forceinline__ bool vec() const {
+    return simt::Operand::vec() && simt::aligned16(winner);
+  }
+  __device__ __forceinline__ Run run(long off) const {
+    return {simt::Operand::run(off), *reinterpret_cast<const int4*>(winner + off)};
+  }
+  __device__ __forceinline__ Run run(long off, int n) const {  // past n: H 0, winner −1
+    return {simt::Operand::run(off, n),
+            make_int4(n > 0 ? winner[off] : -1, n > 1 ? winner[off + 1] : -1,
+                      n > 2 ? winner[off + 2] : -1, n > 3 ? winner[off + 3] : -1)};
+  }
+  __device__ __forceinline__ float pick(float h, int w) const {
+    return w == s ? (rnd ? round_bf16(h) : h) : 0.0f;
+  }
+  __device__ __forceinline__ float4 value(const Run& v) const {
+    return make_float4(pick(v.h.x, v.w.x), pick(v.h.y, v.w.y), pick(v.h.z, v.w.z),
+                       pick(v.h.w, v.w.w));
+  }
+};
+
 // X for z = (b, s, c): X[t,f] = (Σ_k H[b,c,t,k]·[win[b,t,k]==s]·W[b,f,k])·phase,
 // at spectrum row z·T + t of x (put_x: ldx, x_im).
 template <typename TP, typename TX>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(SpectraTile::THREADS, 4)
 spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, int ldf,
                const int* __restrict__ winner, const float* __restrict__ w,
                const float* __restrict__ h, TX* __restrict__ x, int ldx, long x_im, int S,
                int C, int T, int F, int K, bool rnd) {
-  __shared__ __align__(16) TileA As;
-  __shared__ __align__(16) TileB Bs;
+  using TL = SpectraTile;
+  __shared__ __align__(16) float smem[TL::SMEM_FLOATS];
   const int z = blockIdx.z, c = z % C, s = (z / C) % S, b = z / (C * S);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* hb = h + ((long)b * C + c) * T * K;
-  const int* wnb = winner + (long)b * T * K;
-  const float* wb = w + (long)b * F * K;
-  float acc[4][4];
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // (t, k): H[t,k] where the winner is s, else 0
-    for (int e = threadIdx.x; e < BM * BK; e += NTHREADS) {
-      const int m = e / BK, k = e % BK, gt = m0 + m, gk = k0 + k;
-      float v = 0.0f;
-      if (gt < T && gk < K && wnb[(long)gt * K + gk] == s) {
-        v = hb[(long)gt * K + gk];
-        if (rnd) v = round_bf16(v);
-      }
-      As[k][m] = v;
-    }
-    stage_b<false>(Bs, wb, 1, K, k0, n0, K, F, rnd);  // (k, f) at W[f*K + k]
-    __syncthreads();
-    tile_fma(As, Bs, acc);
-    __syncthreads();
-  }
+  const int m0 = blockIdx.y * TL::BM, n0 = blockIdx.x * TL::BN;
+  float acc[8][8];
+  // (t, k) at H[t*K + k], masked; (f, k) at W[f*K + k]
+  const MaskedH hs{{h + ((long)b * C + c) * T * K, K, T, K}, winner + (long)b * T * K, s, rnd};
+  simt::gemm<TL, true, true>(acc, smem, hs, simt::Rounded{{w + (long)b * F * K, K, F, K}, rnd},
+                             m0, n0, 0, K);
   const long plane = ((long)b * C + c) * T * ldf;
+  const int lane = simt::frag_col<TL>(0) / 4;  // 0..7 across a row's threads
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = out_row(m0, i);
+  for (int i = 0; i < 8; ++i) {
+    const int t = m0 + simt::frag_row<TL>(i);
     if (t >= T) continue;
-    if (n0 == 0) pad_x(x, (long)z * T + t, F, ldx, threadIdx.x % 16);
+    if (n0 == 0) {
+      pad_x(x, (long)z * T + t, F, ldx, lane);
+      pad_x(x, (long)z * T + t, F, ldx, lane + 8);
+    }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int f = out_col(n0, j);
+    for (int j = 0; j < 8; ++j) {
+      const int f = n0 + simt::frag_col<TL>(j);
       if (f >= F) continue;
       const float re = to_f32(sre[plane + (long)t * ldf + f]);
       const float im = to_f32(sim[plane + (long)t * ldf + f]);
@@ -106,7 +130,7 @@ cudaError_t run(const TP* sre, const TP* sim, int ldf, const int* winner, const 
                 int hop, cudaStream_t st) {
   const int Z = B * S * C;
   const bool rows = sizeof(TX) == 2;
-  spectra_kernel<TP, TX><<<tile_grid(T, F, Z), NTHREADS, 0, st>>>(
+  spectra_kernel<TP, TX><<<simt::grid<SpectraTile>(T, F, Z), SpectraTile::THREADS, 0, st>>>(
       sre, sim, ldf, winner, w, h, x, rows ? ldj : F, rows ? (long)F : (long)Z * T * F, S, C,
       T, F, K, rows);
   cudaError_t err = cudaGetLastError();

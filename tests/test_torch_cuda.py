@@ -225,16 +225,20 @@ def test_nmf_kernel_rejects_mixed_devices(cuda):
 
 
 # (window, hop, T, D) of the front-end: ragged T against the 64-frame
-# tensor-core tiles and the 64 × 64 SIMT tiles; hop 128 and 64 read the
-# frames from the signal, hop 100 and 36 (not multiples of 8) from frame
-# rows; F = 513 and 129 leave one bin in their last 64-bin group; D = 37
-# (one partial column tile, scalar stores); in float32 the FFT at windows
-# that are not powers of two, at hops that do not divide them and ragged T:
-# 1,000 (radices 4, 5, 5, 5), the odd 45 (the full 45-point transform: 3,
-# 3, 5) and 194 (the generic 97)
+# tensor-core tiles and the float32 angular product's 64 × 128 SIMT tiles;
+# hop 128 and 64 read the frames from the signal, hop 100 and 36 (not
+# multiples of 8) from frame rows; F = 513 and 129 leave one bin in their
+# last 64-bin group (and the SIMT product's coherence rows, F floats, take
+# element loads); D = 37 (one partial column tile, the steering planes'
+# 4-byte copies); F = 16 (window 30: 16-byte coherence rows, the vector
+# loads) with D = 128 (one whole column tile) at T = 200 (three whole row
+# tiles and 8 rows); in float32 the FFT at windows that are not powers of
+# two, at hops that do not divide them and ragged T: 1,000 (radices 4, 5,
+# 5, 5), the odd 45 (the full 45-point transform: 3, 3, 5) and 194 (the
+# generic 97)
 FRONTEND_SHAPES = [(1024, 128, 77, 100), (1024, 100, 77, 100), (256, 64, 200, 37),
                    (256, 36, 130, 37), (1024, 512, 61, 64), (1000, 300, 23, 37),
-                   (45, 7, 61, 37), (194, 60, 41, 100)]
+                   (45, 7, 61, 37), (194, 60, 41, 100), (30, 10, 200, 128)]
 
 
 def _frontend_float64(x, window, cos_m, sin_m, hop):
@@ -370,14 +374,28 @@ def test_frontend_kernel_needs_the_basis_rows(cuda):
     assert stft_gcc_frontend_cuda.launches == before
 
 
-# (window, hop, T) of the iDFT at the ragged edges of both product tiles
-# (SIMT 64 × 64; tensor cores 128 rows × 128 columns, 64-deep slices of
-# 2F): window 32 (2F = 34, one 128-wide column tile, hop 2 gives 16
-# overlapping frames a sample) and 256 (2F = 258, two column tiles); the
-# rows Z·T (840, 1,800; 148, 600 for the Wiener synthesis) no multiple of
-# 128
-SYNTHESIS_SHAPES = [(32, 2, 70), (256, 32, 150)]
-TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150), (1024, 512, 61)]
+# (window, hop, T[, B, K]) of the syntheses (B = 2, K = 6 where not given)
+# at the ragged edges of both product tiles: the iDFT's on the tensor cores
+# (128 rows × 128 columns, 64-deep slices of 2F): window 32 (2F = 34, one
+# 128-wide column tile, hop 2 gives 16 overlapping frames a sample) and 256
+# (2F = 258, two column tiles); the rows Z·T (840, 1,800; 148, 600 for the
+# Wiener synthesis) no multiple of 128. The spectra products' on the SIMT
+# core (128 rows × 64 bins, 8-deep slices of K): T and B·T no multiple of
+# 128 or 64; F = 129 (three column tiles, the last one bin); K = 5 and 6
+# (below one slice), 13 and 70 (a ragged last slice); K = 5, 6, 13, 70
+# (rows of H, W and h_mask not 16-byte aligned: element loads) and K = 24
+# (16-byte rows: the vector loads, the first row tile's unchecked slices);
+# F = 16 (window 30: the Wiener product's W rows 16-byte aligned); B = 3;
+# the mixture planes' row stride F + 7 (23, 26) no multiple of 4
+SYNTHESIS_SHAPES = [(32, 2, 70), (256, 32, 150), (36, 6, 131, 3, 5), (30, 5, 150, 3, 24),
+                    (256, 32, 300, 3, 13)]
+TF_SYNTHESIS_SHAPES = [(32, 8, 37), (32, 2, 37), (256, 64, 150), (1024, 512, 61),
+                       (36, 9, 131, 3, 5), (30, 5, 77, 3, 24), (256, 32, 100, 3, 70)]
+
+
+def _shape_id(shape):
+    win, hop, t, *bk = shape
+    return "win%d-hop%d-t%d" % (win, hop, t) + ("-b%d-k%d" % tuple(bk) if bk else "")
 
 
 # the float32 FFT at windows that are not powers of two: 48 (radices 4, 2,
@@ -387,12 +405,13 @@ FFT_SYNTHESIS_SHAPES = [(48, 8, 41), (1000, 250, 33), (45, 9, 30), (88, 22, 29)]
 FFT_TF_SYNTHESIS_SHAPES = [(48, 16, 37), (1000, 500, 23), (45, 15, 40), (194, 97, 21)]
 
 
-@pytest.mark.parametrize("shape", SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
+@pytest.mark.parametrize("shape", SYNTHESIS_SHAPES, ids=_shape_id)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_synthesis_kernel_matches_plain(cuda, mode, shape):
-    """Planes wider than F, exact-zero mixture bins; bf16 planes and the
-    tensor-core iDFT in the bf16 mode. Reruns are bit-identical and every
-    batch element equals the call of it alone, bit for bit."""
+    """Planes wider than F, exact-zero mixture bins; bf16 planes, operands
+    rounded to bf16 and the tensor-core iDFT in the bf16 mode. Reruns are
+    bit-identical and every batch element equals the call of it alone, bit
+    for bit."""
     _check_synthesis(cuda, mode, shape)
 
 
@@ -404,9 +423,9 @@ def test_synthesis_fft_at_any_window_matches_plain(cuda, shape):
 
 
 def _check_synthesis(cuda, mode, shape):
-    win, hop, t = shape
+    win, hop, t, *bk = shape
     rng = np.random.default_rng(4)
-    b, f, k = 2, win // 2 + 1, 6
+    (b, k), f = bk or (2, 6), win // 2 + 1
     pd = torch.float32 if mode == "float32" else torch.bfloat16
     sre = torch.zeros((b, 2, t, f + 7), device=cuda, dtype=pd)
     sim = torch.zeros_like(sre)
@@ -637,12 +656,12 @@ def test_soft_mask_kernel_needs_its_modes_basis(cuda):
     assert soft_mask_cuda.launches == before
 
 
-@pytest.mark.parametrize("shape", TF_SYNTHESIS_SHAPES, ids=lambda s: "win%d-hop%d-t%d" % s)
+@pytest.mark.parametrize("shape", TF_SYNTHESIS_SHAPES, ids=_shape_id)
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_tf_synthesis_kernel_matches_plain(cuda, mode, shape):
-    """K = 6, B = 2; bf16 planes and the tensor-core iDFT in the bf16 mode.
-    Reruns are bit-identical and every batch element equals the call of it
-    alone, bit for bit."""
+    """bf16 planes, operands rounded to bf16 and the tensor-core iDFT in the
+    bf16 mode. Reruns are bit-identical and every batch element equals the
+    call of it alone, bit for bit."""
     _check_tf_synthesis(cuda, mode, shape)
 
 
@@ -654,9 +673,9 @@ def test_tf_synthesis_fft_at_any_window_matches_plain(cuda, shape):
 
 
 def _check_tf_synthesis(cuda, mode, shape):
-    win, hop, t = shape
+    win, hop, t, *bk = shape
     rng = np.random.default_rng(7)
-    b, f, k = 2, win // 2 + 1, 6
+    (b, k), f = bk or (2, 6), win // 2 + 1
     pd = torch.float32 if mode == "float32" else torch.bfloat16
     sre, sim = (torch.as_tensor(rng.standard_normal((b, 2, t, f)), dtype=pd, device=cuda)
                 for _ in range(2))
