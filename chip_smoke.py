@@ -16,7 +16,11 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    instructions in each source that instantiates it, and so must each of
    its instantiations (the NMF ratio's, which the turbo mode launches
    too); their ptxas registers and spills are printed, by source, and the
-   iDFT and the front-end's must not spill. The float32 products on the
+   iDFT, the front-end's and the soft mask's scores must not spill. ptxas's
+   numbered performance notes on them are printed too (``ptxas_notes``),
+   and the soft mask's scores, which keep one ``wgmma`` group in flight
+   across their slices, must have none that waits for or serialises their
+   ``wgmma``s (C7514, C7517, C7518). The float32 products on the
    pipelined SIMT core of ``simt_gemm.cuh`` (the NMF's three, the soft
    mask's scores), the float32 iDFT's FFT (``fft_frames_kernel`` of
    ``istft.cuh``, in both sources) and the front-end's float32 rDFT on
@@ -62,7 +66,14 @@ of ``gccnmf_tpu``. Phases, one JSON line each:
    names its design too and carries ``gemm_library_ms``: the same scores as
    one ``torch.matmul`` of the ``[Re c | Im c]`` rows against the (2F, D·K)
    fold, in the row's operand type and batch (a yardstick only); its
-   float32 design is ``simt2``, like the NMF's. The
+   float32 design is ``simt2``, like the NMF's, its bf16 design
+   ``wgmma_tma_cluster`` (``csrc/scores.cu``). Two more soft-mask rows run
+   the bf16 scores at the enhancement cell's shape (60 s, 64 TDOAs, K =
+   1,024, seeded planes): two mixtures against the plain version at the
+   same bars, and equal bit for bit to the first two of the cell's 16,
+   whose call is timed, with its mask's SHA-256 and the counts of
+   ``soft_mask_cuda``'s calls and of those that took the cluster route
+   (``launches``, ``multicast``: equal). The
    synthesis rows (masked and Wiener) name their iDFT design (``wgmma`` in
    bf16, ``fft`` in float32: the hand-written FFT of ``istft.cuh``) and
    carry ``gemm_library_ms``: the iDFT alone as one ``torch.matmul`` of the
@@ -278,9 +289,11 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -424,20 +437,26 @@ def time_ms(torch, fn, reps: int = 5) -> float:
 # the tensor-core kernels whose SASS must hold HGMMA, with the sources that
 # instantiate each: the NMF's three materialised-Q products and its two
 # on-chip back-to-back products (csrc/nmf.cu), the soft mask's
-# scores (csrc/enhance.cu), the iDFT of csrc/istft.cuh, which both
+# scores (csrc/scores.cu), the iDFT of csrc/istft.cuh, which both
 # syntheses include (csrc/synthesis.cu, csrc/enhance.cu), and the
 # front-end's rDFT and angular products (csrc/frontend.cu)
 TC_KERNELS = {"tc_wh_ratio_kernel": ("nmf.cu",), "tc_h_update_kernel": ("nmf.cu",),
               "tc_qth_split_kernel": ("nmf.cu",), "fused_h_update_kernel": ("nmf.cu",),
-              "fused_qth_split_kernel": ("nmf.cu",), "tc_score_argmax_kernel": ("enhance.cu",),
+              "fused_qth_split_kernel": ("nmf.cu",), "tma_score_argmax_kernel": ("scores.cu",),
               "tc_frames_kernel": ("synthesis.cu", "enhance.cu"),
               "tc_dft_coherence_kernel": ("frontend.cu",), "tc_angular_kernel": ("frontend.cu",)}
 # substrings of the front-end's kernel names, for the profiler
 FRONTEND_KERNELS = ("dft_signal_rows", "dft_frame_rows", "dft_coherence", "fft_coherence",
                     "angular_kernel")
 # the tensor-core kernels that must not spill: two blocks an SM leave each
-# thread 128 registers
-NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel")
+# thread 128 registers; the soft mask's scores hand the producer's registers
+# to the consumers (setmaxnreg: 232 a consumer thread)
+NO_SPILL = ("tc_frames_kernel", "tc_dft_coherence_kernel", "tc_angular_kernel",
+            "tma_score_argmax_kernel")
+# the tensor-core kernels that keep one wgmma group in flight across their
+# slices (wgmma_wait<1>), on which ptxas may add no wait and serialise
+# nothing (no C7514, C7517 or C7518 note)
+PIPELINED = ("tma_score_argmax_kernel",)
 # the products on the pipelined SIMT core (csrc/simt_gemm.cuh), the float32
 # iDFT's FFT (csrc/istft.cuh) and the front-end's float32 rDFT on the same
 # FFT passes (csrc/fft.cuh), by the sources that instantiate each: exact
@@ -456,7 +475,8 @@ SIMT_KERNELS = {"simt_wh_ratio_kernel": ("nmf.cu",), "simt_h_update_kernel": ("n
 # a kernel name that tells a source's SASS apart from the others', tried in
 # this order (synthesis.cu's spectra_kernel is also a substring of
 # enhance.cu's wiener_spectra_kernel)
-SOURCE_MARKERS = {"enhance.cu": "score_argmax_kernel", "nmf.cu": "tc_h_update_kernel",
+SOURCE_MARKERS = {"scores.cu": "tma_score_argmax_kernel",
+                  "enhance.cu": "simt_score_argmax_kernel", "nmf.cu": "tc_h_update_kernel",
                   "frontend.cu": "angular_kernel", "synthesis.cu": "spectra_kernel"}
 
 
@@ -504,6 +524,21 @@ def ptxas_summary(build_log: str) -> dict[str, str]:
             name = line.split("Function properties for")[1].strip()
             out[f"{name} ({src})"] = (f"{lines[i + 2].split(':', 1)[1].strip()}; "
                                       f"{lines[i + 1].strip()}")
+    return out
+
+
+def ptxas_notes(build_log: str) -> dict[str, list[str]]:
+    """The numbered performance notes (``(C75xx)``) that ptxas gave for
+    each tensor-core kernel, by source: C7514 and C7518 say it serialised
+    the ``wgmma``s, C7517 that it waited for them where the code does not
+    (both defeat a ``wgmma_wait<1>`` pipeline)."""
+    out, src = {}, "?"
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"\((C75\d\d)\).*function '([^']+)'", line)
+        if m and any(k in m.group(2) for k in TC_KERNELS):
+            out.setdefault(f"{m.group(2)} ({src})", []).append(m.group(1))
     return out
 
 
@@ -1554,8 +1589,11 @@ def main() -> int:
     spills = [k for k, v in ptxas.items() if any(n in k for n in (*NO_SPILL, *SIMT_KERNELS))
               and "0 bytes spill stores, 0 bytes spill loads" not in v]
     require(not spills, f"a tensor-core or SIMT product kernel spills: {spills}")
+    notes = ptxas_notes(_build.build_log)
+    stalled = {k: v for k, v in notes.items() if any(n in k for n in PIPELINED)}
+    require(not stalled, f"ptxas waits for or serialises a pipelined kernel's wgmma: {stalled}")
     emit("build", seconds=round(build_s, 3), library=os.path.relpath(lib._name, ROOT),
-         hgmma=hgmma, simt_tensor_core_instructions=simt_tc, ptxas=ptxas)
+         hgmma=hgmma, simt_tensor_core_instructions=simt_tc, ptxas=ptxas, ptxas_notes=notes)
 
     # ---- 3. kernels against their plain versions ---------------------------
     mix = make_mixture(args.seed, MAIN_BATCH)
@@ -1911,7 +1949,7 @@ def main() -> int:
             # operand type
             dt = torch.float32 if md == "float32" else torch.bfloat16
             rows_ = idft_rows(cre, cim, f, dt)
-            fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt)).reshape(d_ * k_, -1)
+            fold_ = fold_rows(mb.cw.to(dt), mb.sw.to(dt))[..., :rows_.shape[1]].reshape(d_ * k_, -1)
             gemm_library_ms = time_ms(torch, lambda rows_=rows_, fold_=fold_: rows_ @ fold_.T)
             del rows_, fold_
             if md == "float32":  # Re c·cos_d + Im c·sin_d, then one GEMM against W
@@ -1933,7 +1971,7 @@ def main() -> int:
                       f"the argmax agrees, and agree on {agree:.6f} >= {MASK_AGREE[md]} of "
                       "(t, k) at rtol 1e-6; max_abs_err is over all (t, k), flips included"),
                 argmax_flips=flips, mask_ulps=ulps, mask_agreement=agree,
-                design="simt2" if md == "float32" else "wgmma",
+                design="simt2" if md == "float32" else "wgmma_tma_cluster",
                 gemm_library_ms=gemm_library_ms,
                 gemm_library_note=(f"[Re c | Im c] rows @ the (2F, D·K) fold as one torch.matmul "
                                    f"on {dt} operands at B = {b}; the scores alone (no argmax, "
@@ -1962,6 +2000,64 @@ def main() -> int:
 
     check_enhance_kernels(KERNEL_BATCH, ("float32", "bfloat16"))
     check_enhance_kernels(MAIN_BATCH, ("bfloat16",))
+    torch.cuda.empty_cache()
+
+    # kernel 4 bf16 at the enhancement cell's shape (16 mixtures of 60 s, F =
+    # 513, 64 TDOAs over 10 cm, K = 1,024; seeded planes and dictionary):
+    # the first two mixtures against the plain version at the bars above
+    # (its scores at all 16 would take 31 GB), which must also be the
+    # batch's first two bit for bit; then the batch timed
+    rng_c = np.random.default_rng(args.seed + 26)
+    cb, ct, ck, cd = MAIN_BATCH, 7493, 1024, 64
+    cre_c, cim_c = (torch.as_tensor(rng_c.standard_normal((cb, ct, f)), dtype=torch.bfloat16,
+                                    device=dev) for _ in range(2))
+    cos_c, sin_c = gcc.steering_cos_sin(float(SR), f, ENH_MIC_M, cd)
+    w_c = torch.as_tensor(rng_c.random((f, ck)) ** 3 + 1e-3, dtype=torch.float32, device=dev)
+    mb_c = soft_mask_basis(cos_c, sin_c, w_c, "bfloat16")
+    tgt_c = torch.as_tensor(rng_c.integers(0, cd, cb), device=dev)
+    cargs = (cre_c, cim_c, mb_c, tgt_c, ENH_EPS, ENH_BETA, ENH_FLOOR)
+    calls0 = (soft_mask_cuda.launches, soft_mask_cuda.multicast)
+    first = soft_mask_cuda(*cargs)
+    require(torch.equal(first, soft_mask_cuda(*cargs)),
+            "soft_mask_cuda at the cell's shape is not bit-identical across two runs")
+    name = f"soft_mask_cuda[bfloat16]@B{{}} T={ct} K={ck} D={cd}"
+    two = (cre_c[:2].clone(), cim_c[:2].clone(), mb_c, tgt_c[:2], ENH_EPS, ENH_BETA, ENH_FLOOR)
+    got, arg = soft_mask_cuda(*two, return_argmax=True)
+    require(torch.equal(got, first[:2]),
+            f"{name.format(2)}: not the batch of {cb}'s first two mixtures bit for bit")
+    want = soft_mask_plain(*two)
+    flipped, gap, scale = argmax_flips(two[0], two[1], mb_c, arg)
+    flips = int(flipped.sum())
+    require(gap <= TIE_TOL * scale,
+            f"{name.format(2)}: an argmax flip {gap} > {TIE_TOL} x {scale}")
+    ulps = int((got.view(torch.int32).long() - want.view(torch.int32).long())
+               .abs()[~flipped].max())
+    require(ulps <= MASK_ULPS, f"{name.format(2)}: masks {ulps} ulps apart where the argmax agrees")
+    agree = float(torch.isclose(got, want, rtol=1e-6, atol=0.0).float().mean())
+    require(agree >= MASK_AGREE["bfloat16"],
+            f"{name.format(2)}: masks agree on {agree} < {MASK_AGREE['bfloat16']}")
+    err2 = max_err(torch, got, want)[0]
+    del got, arg, want, flipped
+    ms2 = time_ms(torch, lambda: soft_mask_cuda(*two))
+    plain_ms2 = time_ms(torch, lambda: soft_mask_plain(*two), reps=2)
+    cflops = 4 * ct * f * cd * ck  # a mixture's
+    cbytes = 2 * ct * f * 2 + ct * ck * 4  # a mixture's planes and mask
+    fold_bytes = cd * ck * 2 * f * 2
+    for b_, ms_, extra in ((2, ms2, dict(plain_ms=plain_ms2, max_abs_err=err2, argmax_flips=flips,
+                                           mask_ulps=ulps, mask_agreement=agree)),
+                           (cb, time_ms(torch, lambda: soft_mask_cuda(*cargs)),
+                            dict(plain_ms=None,
+                                 sha256=hashlib.sha256(first.cpu().numpy().tobytes()).hexdigest(),
+                                 launches=soft_mask_cuda.launches - calls0[0],
+                                 multicast=soft_mask_cuda.multicast - calls0[1]))):
+        bound_ms, bound_by = bound(b_ * cflops, b_ * cbytes + fold_bytes, "bfloat16")
+        emit("kernel", name=name.format(b_), route="cuda", source="gccnmf_torch/csrc/scores.cu",
+             kernel="soft_mask_cuda", mode="bfloat16", batch=b_, ms=ms_,
+             tflop_s=b_ * cflops / ms_ / 1e9, bound_ms=bound_ms, bound_by=bound_by,
+             design="wgmma_tma_cluster", **extra)
+    require(soft_mask_cuda.multicast - calls0[1] == soft_mask_cuda.launches - calls0[0],
+            f"{name.format(cb)}: a bf16 call left the cluster route")
+    del cre_c, cim_c, cargs, two, first
     torch.cuda.empty_cache()
 
     # ---- 4. the main path: GCCNMFSeparator() -------------------------------

@@ -27,31 +27,22 @@
 //
 // bf16 mode, on the tensor cores (tc_gemm.cuh):
 //   1. coherence_rows_kernel packs the planes into bf16 rows
-//      A[m] = [Re c[m, :F] | Im c[m, :F] | 0] of ldj = 2F rounded up to 8
-//      (16-byte rows for cp.async; the planes themselves are F = 513 wide).
+//      A[m] = [Re c[m, :F] | Im c[m, :F] | 0] of ldj = 2F rounded up to 64
+//      (rows of whole 128-byte lines for the copies; the planes themselves
+//      are F = 513 wide).
 //      The wrapper keeps the fold in the same layout, built once with the
 //      enhancer: B_d[k] = [cw[d, :, k] | sw[d, :, k] | 0], (D, K, ldj).
 //      Each score is then one 2F-deep product, s[m,d,k] = A[m]·B_d[k].
-//   2. tc_score_argmax_kernel: a block of 128 rows × 128 atoms walks its
-//      chunk of TDOAs. For each d it streams the
-//      64-deep slices of A and B_d (17 at F = 513) through a 4-stage
-//      cp.async ring of 128-byte-swizzled tiles into wgmma m64n128k16 (two
-//      warpgroups of 64 rows, fp32 accumulators), one continuous ring
-//      across the d's, so no d waits for its first slice. When d's last
-//      slice is in, each thread folds its accumulators into a running
-//      (max, argmax) in registers (the argmax as d − d0, a byte each) and
-//      zeroes them. That is 64 + 64 + 16 registers of state a thread, so
-//      one block an SM. The (B, T, D, K) scores never reach device memory
-//      (1.3 GB at B = 16).
-//      Traffic: A and B_d are both restreamed for every d, 64 flop per byte
-//      of L2, about 11 GB of L2 reads at B = 16: on the card the slice
-//      copies, not the products, take most of the time. Keeping A resident
-//      instead (a 64-row tile, 132 KB) would move the same bytes per
-//      output, since a 128 × 128 tile cannot stay in 227 KB; fewer bytes
-//      need larger tiles than the registers allow, or copies shared by a
-//      cluster of blocks (TMA multicast). The blocks of one row tile's TDOA
-//      chunks are launched next to each other (the chunk is the grid's
-//      fastest index), so the blocks in flight share their A tiles in L2.
+//   2. tma_score_argmax_kernel (scores.cu): a block of 128 rows × two
+//      TDOAs' 128 atoms walks its chunk of TDOAs a pair at a time, the
+//      64-deep slices of A and of the pair's B_d, B_d+1 (17 at F = 513)
+//      copied by TMA into a 4-stage ring and multiplied by wgmma
+//      m64n256k16, one ring across the pairs; two row tiles a cluster share
+//      the fold's copies by multicast. When the pair's last slice is in,
+//      each thread folds its accumulators into a running (max, argmax) (the
+//      argmax as d − d0, a byte each, in shared memory) and zeroes them.
+//      The (B, T, D, K) scores never reach device memory (31 GB at the
+//      enhancement cell's shape). scores.cu says what bounds it.
 //   When the frames alone give too few blocks to fill the card (one or two
 //   utterances), the wrapper splits the TDOAs into chunks across blocks.
 //   3. mask_kernel: merges the chunks' (max, argmax) in chunk order with the
@@ -107,7 +98,13 @@
 
 using namespace gccnmf;
 
-extern __shared__ __align__(128) unsigned char tc_smem[];  // a ScoreTile's SMEM_BYTES
+extern __shared__ __align__(128) unsigned char tc_smem[];  // SCORE_SMEM_BYTES
+
+namespace gccnmf {
+// scores.cu: the bf16 scores' (max, argmax) per chunk on the tensor cores
+cudaError_t run_tc_scores(const bf16* rows, const bf16* fold, int ldj, float* pmax, int* parg,
+                          int M, int F, int K, int D, int splits, int chunk, cudaStream_t st);
+}  // namespace gccnmf
 
 namespace {
 
@@ -234,63 +231,6 @@ __global__ void coherence_rows_kernel(const TP* __restrict__ cre, const TP* __re
   }
 }
 
-// The score tile: 128 atoms a block, a 4-stage ring (128 KiB). With 64
-// accumulators, 64 running maxima and 16 words of packed argmax a thread,
-// its registers allow one block an SM.
-using ScoreTile = tc::Tile<128, 4>;
-
-// Running (max, argmax) over d in [d0, d0 + chunk) ∩ [0, D), d0 = split·chunk
-// (chunk <= 256), of s[m,d,k] = rows[m]·fold[d,k] (J = 2F deep) for the
-// block's 128 rows and 128 atoms; written to pmax/parg at [split, m, k].
-// Grid: (splits, atom tiles, row tiles).
-__global__ void __launch_bounds__(tc::THREADS, 1)
-tc_score_argmax_kernel(const bf16* __restrict__ rows, const bf16* __restrict__ fold, int ldj,
-                       float* __restrict__ pmax, int* __restrict__ parg, int M, int J, int K,
-                       int D, int chunk) {
-  using TL = ScoreTile;
-  const int split = blockIdx.x, n0 = blockIdx.y * TL::BN, m0 = blockIdx.z * tc::BM;
-  const int d0 = split * chunk, nd = min(D, d0 + chunk) - d0;
-  const int nk = (J + tc::BK - 1) / tc::BK;  // slices per TDOA
-  const tc::Operand a{rows, ldj, m0, M, J};
-  float acc[TL::ACC], best[TL::ACC];
-  uint32_t arg[TL::ACC / 4];  // d − d0 of each running max, a byte each
-#pragma unroll
-  for (int r = 0; r < TL::ACC; ++r) {
-    acc[r] = 0.0f;
-    best[r] = -INFINITY;
-  }
-#pragma unroll
-  for (int r = 0; r < TL::ACC / 4; ++r) arg[r] = 0u;
-  tc::ring<TL>(
-      tc_smem, nd * nk,
-      [&](int i, uint32_t st) {  // slice i % nk of TDOA d0 + i / nk
-        const tc::Operand b{fold + (long)(d0 + i / nk) * K * ldj, ldj, n0, K, J};
-        tc::load_stage<TL, false, false>(st, a, b, (i % nk) * tc::BK);
-      },
-      [&](int i, uint32_t st) {
-        tc::mma_stage<TL, false, false>(acc, st);
-        if (i % nk != nk - 1) return;  // the TDOA's scores are complete: fold them
-        const uint32_t dl = i / nk;
-#pragma unroll
-        for (int r = 0; r < TL::ACC; ++r) {
-          if (acc[r] > best[r]) {  // strict: the first maximum wins; NaN never
-            best[r] = acc[r];
-            arg[r / 4] = (arg[r / 4] & ~(0xFFu << (8 * (r % 4)))) | (dl << (8 * (r % 4)));
-          }
-          acc[r] = 0.0f;
-        }
-      });
-  const long base = (long)split * M * K;
-#pragma unroll
-  for (int r = 0; r < TL::ACC; ++r) {
-    const int m = m0 + tc::acc_row(r), k = n0 + tc::acc_col(r);
-    if (m < M && k < K) {
-      pmax[base + (long)m * K + k] = best[r];
-      parg[base + (long)m * K + k] = d0 + (int)((arg[r / 4] >> (8 * (r % 4))) & 0xFFu);
-    }
-  }
-}
-
 // Merge the chunks in order and apply the soft mask; params is (B, 4):
 // target, ε, β, floor per utterance.
 __global__ void mask_kernel(const float* __restrict__ pmax, const int* __restrict__ parg,
@@ -361,24 +301,6 @@ wiener_spectra_kernel(const TP* __restrict__ sre, const TP* __restrict__ sim, in
   }
 }
 
-// The bf16 scores' (max, argmax) per chunk on the tensor cores.
-cudaError_t run_tc_scores(const bf16* rows, const bf16* fold, int ldj, float* pmax, int* parg,
-                          int M, int F, int K, int D, int splits, int chunk, cudaStream_t st) {
-  using TL = ScoreTile;
-  const void* kernel = reinterpret_cast<const void*>(tc_score_argmax_kernel);
-  // dynamic shared memory past 48 KiB, and the carveout for it
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         TL::SMEM_BYTES);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(splits, (K + TL::BN - 1) / TL::BN, (M + tc::BM - 1) / tc::BM);
-  tc_score_argmax_kernel<<<grid, tc::THREADS, TL::SMEM_BYTES, st>>>(
-      rows, fold, ldj, pmax, parg, M, 2 * F, K, D, chunk);
-  return cudaGetLastError();
-}
-
 // fold null: the float32 mode's: the planes packed into fp32 rows, then the
 // SIMT scores against cw/sw; else the bf16 mode's: the planes packed into
 // bf16 rows, then the tensor cores.
@@ -446,7 +368,8 @@ cudaError_t run_tf(const TP* sre, const TP* sim, int ldf, const float* hm, const
 // or null; ldj >= 2F a multiple of 8; chunk <= 256. float32 mode (fold
 // null): cw/sw the (D, F, K) f32 folded dictionary, rows (B·T, ldj) f32
 // scratch. bf16 mode: fold (D, K, ldj) bf16 with row (d, k) =
-// [cw[d,:,k] | sw[d,:,k] | 0]; rows (B·T, ldj) bf16 scratch; cw/sw unused.
+// [cw[d,:,k] | sw[d,:,k] | 0], 16-byte aligned; rows (B·T, ldj) bf16
+// scratch; cw/sw unused.
 extern "C" int gccnmf_soft_mask(const void* cre, const void* cim, int plane_bf16, int ldf,
                                 const float* cw, const float* sw, const void* fold, void* rows,
                                 int ldj, const float* params, float* pmax, int* parg,

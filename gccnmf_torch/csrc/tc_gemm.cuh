@@ -2,8 +2,9 @@
 // the NMF's products (nmf.cu: three over a materialised Q, and two
 // back-to-back products that keep Q on chip, their second product's A
 // from registers, wgmma_rs, their tiles copied by TMA), the soft mask's
-// scores (enhance.cu), the syntheses' iDFT (istft.cuh) and the
-// front-end's rDFT and angular spectrogram (frontend.cu).
+// scores (scores.cu: a warp-specialised TMA ring, its fold tiles multicast
+// across a cluster), the syntheses' iDFT (istft.cuh) and the front-end's
+// rDFT and angular spectrogram (frontend.cu).
 //
 // One block of 256 threads computes a 128 x BN fp32 output tile (BN = 128
 // or 64) as two consumer warpgroups of 64 rows each, with
@@ -23,11 +24,9 @@
 //     whose epilogue (a guarded divide per output) costs more than its
 //     products, so more blocks in flight hide it; 64-wide tiles also waste
 //     less of F = 513 (576 columns against 640).
-// A kernel whose contraction is not one product (the soft mask runs one
-// per TDOA back to back) or whose A tile is not one operand (the
-// front-end's 64 frames of each channel) streams its slices through ring()
-// itself, with load_tile, load_stage and mma_stage; gemm is ring over one
-// contraction.
+// A kernel whose A tile is not one operand (the front-end's 64 frames of
+// each channel) streams its slices through ring() itself, with load_tile,
+// load_stage and mma_stage; gemm is ring over one contraction.
 //
 // Operands live in device memory as bf16 rows padded to a multiple of 8
 // elements (16 bytes), the padding zero, so every copy is one aligned
@@ -67,7 +66,9 @@
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace gccnmf {
 namespace tc {
@@ -176,6 +177,97 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
       : "memory");
 }
+// Thread-block clusters (the soft mask's scores, scores.cu): blocks of one
+// cluster share TMA copies. A copy multicast to the blocks of mask lands at
+// the same shared offset in each and completes on the barrier at bar's
+// offset in each; a consumer releases a stage by arriving on the barrier
+// at the same offset in every block whose producer writes it.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// Every thread of every block of the cluster: what each did before is
+// visible to all after (barrier initialisation, the last remote arrivals).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// One arrival on the mbarrier at shared offset bar in the cluster's block
+// rank (this block's own for its rank), with mbarrier.arrive's default
+// semantics (release at CTA scope), as for a consumer whose reads of the
+// stage were wgmma's, complete at its wgmma.wait_group. A .release.cluster
+// arrival made every release wait on the thread's memory operations at
+// cluster scope: the soft mask's scores ran 2.1 times slower with it.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(bar),
+      "r"(rank)
+      : "memory");
+}
+// Box (c0, c1, c2) of the tensor map into shared offset dst of every block
+// in mask (bit r: cluster rank r), completing on bar's offset in each.
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const void* map, int c0,
+                                                      int c1, int c2, uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "h"(mask)
+      : "memory");
+}
+// Hand registers between the warpgroups of a warp-specialised block: the
+// producer's gives its up, the consumers' take them (every thread of the
+// warpgroup, on one path that never rejoins the other's).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+// cuTensorMapEncodeTiled (host), looked up once through
+// cudaGetDriverEntryPoint, so nothing links libcuda; null where the driver
+// has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<EncodeTiled>(fn);
+  }();
+  return encode;
+}
+// The tensor map of a plane of batch x rows rows of ld elements (bf16 or
+// fp32; ld · size a multiple of 16, p 16-byte aligned) as (columns, rows,
+// batch), in boxes of 128 bytes of columns x box_rows rows (at most 256)
+// in the 128-byte swizzle, zeros past its bounds.
+inline cudaError_t plane_map(CUtensorMap* map, const void* p, bool is_bf16, int ld, int rows,
+                             int batch, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t size = is_bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {ld * size, ld * size * rows};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / size), (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, is_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            3, const_cast<void*>(p), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 // Keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products.
 template <int N>
@@ -228,6 +320,42 @@ __device__ __forceinline__ void wgmma(float (&d)[64], uint64_t da, uint64_t db) 
         "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

@@ -11,12 +11,13 @@ bound it: in float32 the least work is 2·B·T·F·D·K + 3·B·T·F·D flop (fo
 ``Re c·cos_d + Im c·sin_d``, then one GEMM against W); in bf16, where the
 folded product ``cos_d·W`` is rounded, 4·B·T·F·D·K (669 GFLOP at 16 × 10 s
 with D = K = 128). In the bf16 mode the scores run on the tensor cores
-(``wgmma``, ``csrc/tc_gemm.cuh``) as one 2F-deep product per TDOA, between
+(``wgmma``, ``csrc/scores.cu``) as one 2F-deep product per TDOA, between
 the coherence rows ``[Re c | Im c]`` (packed by the kernel, as
 :func:`synthesis_cuda.idft_rows` lays them out) and the fold ``[cw[d]; sw[d]]``
 (:func:`fold_rows`, built once with the basis), both bf16 on zero-padded
-16-byte rows. In float32 they stay fp32 FMAs on the SIMT cores, since no
-tensor-core path is exact fp32, on the pipelined core of
+128-byte rows (:func:`score_row_pad`), two TDOAs a block and two row tiles
+a cluster sharing the fold's copies. In float32 they stay fp32 FMAs on the
+SIMT cores, since no tensor-core path is exact fp32, on the pipelined core of
 ``csrc/simt_gemm.cuh``: the same 2F-deep product per TDOA, between the
 coherence rows packed in fp32 and the fp32 ``cw``/``sw`` as they lie. That
 keeps JAX's function, ``mm(Re c, cw[d]) + mm(Im c, sw[d])``, and its
@@ -59,6 +60,7 @@ __all__ = [
     "SoftMaskBasis",
     "soft_mask_basis",
     "fold_rows",
+    "score_row_pad",
     "soft_mask_cuda",
     "soft_mask_plain",
     "tdoa_argmax_plain",
@@ -99,14 +101,23 @@ def soft_mask_basis(cos_m, sin_m, w, matmul_dtype: str = "bfloat16",
     return SoftMaskBasis(cw, sw, fold_rows(cw, sw) if bf16 else None)
 
 
+def score_row_pad(n: int) -> int:
+    """``n`` rounded up to a multiple of 64: bf16 rows of whole 128-byte
+    lines, the row stride of the tensor-core scores' operands, so that each
+    row of a TMA box is one aligned line (rows of :func:`row_pad` length,
+    2,064 bytes at F = 513, straddle two lines a box row and ran the
+    kernel 15 % slower at the enhancement cell's shape)."""
+    return -(-n // 64) * 64
+
+
 def fold_rows(cw, sw):
     """The fold as the tensor-core kernel's B operand: (D, K, J) in the
     dtype of ``cw``, row (d, k) = ``[cw[d, :, k] | sw[d, :, k] | 0]`` with
-    J = :func:`row_pad` ``(2F)`` (16-byte bf16 rows), so that
-    ``idft_rows(coh_re, coh_im, F) @ fold_rows(cw, sw)[d].T`` is the score of
-    TDOA d."""
+    J = :func:`score_row_pad` ``(2F)``, so that the score of TDOA d is
+    ``rows @ fold_rows(cw, sw)[d].T`` for the coherence rows
+    ``idft_rows(coh_re, coh_im, F)`` zero-padded to J."""
     d, f, k = cw.shape
-    out = torch.zeros((d, k, row_pad(2 * f)), device=cw.device, dtype=cw.dtype)
+    out = torch.zeros((d, k, score_row_pad(2 * f)), device=cw.device, dtype=cw.dtype)
     out[..., :f] = cw.transpose(1, 2)
     out[..., f : 2 * f] = sw.transpose(1, 2)
     return out
@@ -199,17 +210,27 @@ def argmax_flips(coh_re, coh_im, basis, kernel_argmax, *, matmul_dtype="bfloat16
 _MAX_CHUNK = 256
 
 
+def _full_wave(blocks, slots):
+    """Whether the last wave of ``blocks`` over ``slots`` is >= 90 % full."""
+    return blocks >= 0.9 * slots * -(-blocks // slots)
+
+
 def _tdoa_chunk(m, k, d, sms, tensor_cores):
     """TDOAs a block scans: split over blocks when the (rows × atoms) tiles
-    alone would leave the card's SMs idle (one or two utterances). The
-    tensor-core tile (128 rows × 128 atoms) runs one block an SM, the SIMT
-    tile (128 rows × 64 atoms, float32) three; each takes the fewest splits
-    whose last wave is at least 90 % full."""
-    bn, per_sm = (128, 1) if tensor_cores else (64, 3)
-    tiles, slots = -(-m // 128) * -(-k // bn), per_sm * sms
-    splits = next((s for s in range(1, d + 1)
-                   if tiles * s >= 0.9 * slots * -(-tiles * s // slots)), d)
-    return min(_MAX_CHUNK, -(-d // splits))
+    alone would leave the card's SMs idle (one or two utterances). Each
+    takes the fewest splits whose last wave is at least 90 % full. The
+    SIMT tile (128 rows × 64 atoms, float32) runs three blocks an SM, over
+    TDOAs one at a time. The tensor-core tile (128 rows × 128 atoms × a TDOA
+    pair) runs one block an SM over whole pairs (an even chunk, or all D
+    TDOAs), its row tiles rounded up to clusters of two (an odd count's
+    last block has no rows, but takes an SM all the same)."""
+    if tensor_cores:
+        tiles, slots, step = -(-m // 256) * 2 * -(-k // 128), sms, 2
+    else:
+        tiles, slots, step = -(-m // 128) * -(-k // 64), 3 * sms, 1
+    units = -(-d // step)  # TDOAs, or TDOA pairs
+    splits = next((s for s in range(1, units + 1) if _full_wave(tiles * s, slots)), units)
+    return min(_MAX_CHUNK, d, -(-units // splits) * step)
 
 
 def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_beta,
@@ -228,7 +249,9 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
     when the frames alone would leave SMs idle. Any chunk gives the same
     result. Launches the CUDA kernel for CUDA planes; CPU planes take
     :func:`soft_mask_plain`. ``soft_mask_cuda.launches`` counts its calls,
-    not the device kernels each one launches."""
+    not the device kernels each one launches; ``soft_mask_cuda.multicast``
+    the bf16 calls, whose scores run in clusters of two row tiles that
+    share the fold's copies (TMA multicast)."""
     rnd = bf16_operands(matmul_dtype)
     if coh_re.device.type == "cpu":
         return soft_mask_plain(coh_re, coh_im, basis, target_index, target_epsilon,
@@ -244,13 +267,13 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
         raise ValueError("soft_mask_cuda: planes must be fp32/bf16 with >= F bins")
     if sw.shape != cw.shape or sw.dtype != cw.dtype:
         raise ValueError("soft_mask_cuda: folded dictionary halves disagree")
-    ldj = row_pad(2 * f)
+    ldj = score_row_pad(2 * f) if rnd else row_pad(2 * f)
     # (cw, sw, fold, rows scratch): the SIMT kernel reads cw, sw and fp32
     # rows, the tensor-core kernel the fold and bf16 rows
     if rnd:
         if fold is None or fold.shape != (d, k, ldj) or fold.dtype != torch.bfloat16:
             raise ValueError("soft_mask_cuda: matmul_dtype bfloat16 needs the (D, K, "
-                             "row_pad(2F)) bf16 fold of soft_mask_basis(..., 'bfloat16')")
+                             "score_row_pad(2F)) bf16 fold of soft_mask_basis(..., 'bfloat16')")
         _build.require_cuda("soft_mask_cuda", coh_re, fold)
         dicts = (None, None, fold.contiguous(),
                  torch.empty((b * t, ldj), device=dev, dtype=torch.bfloat16))
@@ -280,10 +303,12 @@ def soft_mask_cuda(coh_re, coh_im, basis, target_index, target_epsilon, target_b
         b, t, f, k, d, splits, chunk,
     )
     soft_mask_cuda.launches += 1
+    soft_mask_cuda.multicast += int(rnd)
     return (out, arg) if return_argmax else out
 
 
 soft_mask_cuda.launches = 0
+soft_mask_cuda.multicast = 0
 
 
 class TfSynthesisBasis(NamedTuple):

@@ -586,14 +586,19 @@ def test_separate_batch_auto_on_card_matches_cpu(cuda):
 
 
 # (B, T, F, K, D) at the ragged edges of both score tiles (SIMT 128 rows ×
-# 64 atoms, 8-deep slices of 2F; tensor cores 128 rows × 128 atoms, 64-deep
-# slices): 2F = 34, 66, 130 and 1,026 (none a multiple of 64), K = 6 and 72
-# (not multiples of 8), 65 (one past a SIMT tile) and 130 (two 128-atom
-# tiles), D against chunks of 3, T = 37, 150, 200, 70 and 129 against 64
-# and 128 rows (B·T = 258: two row tiles and 2 rows), and D = 259 (past the
-# 256 TDOAs of a chunk's argmax bytes)
+# 64 atoms, 8-deep slices of 2F; tensor cores 128 rows × two TDOAs' 128
+# atoms, 64-deep slices, row tiles in clusters of two): 2F = 34, 66, 130
+# and 1,026 (none a multiple of 64), K = 6 and 72 (not multiples of 8), 65
+# (one past a SIMT tile) and 130 (two 128-atom tiles), D against chunks of
+# 3, T = 37, 150, 200, 70 and 129 against 64 and 128 rows (B·T = 258: two
+# row tiles and 2 rows), and D = 259 (past the 256 TDOAs of a chunk's
+# argmax bytes); one row tile (B·T = 74) and three (B·T = 300), so that
+# a cluster's second block has no rows, an odd D (9: the last pair's
+# second TDOA past D) over two atom tiles, and the enhance command's K = D
+# = 64 at hop 512 (T = 311 for 10 s; a mixture alone is three row tiles)
 SOFT_MASK_SHAPES = [(2, 37, 17, 6, 10), (3, 150, 33, 6, 13), (3, 200, 65, 72, 9),
-                    (3, 70, 513, 130, 7), (2, 129, 65, 65, 259)]
+                    (3, 70, 513, 130, 7), (2, 129, 65, 65, 259), (3, 100, 65, 72, 10),
+                    (2, 150, 65, 130, 9), (2, 311, 513, 64, 64)]
 
 
 @pytest.mark.parametrize("shape", SOFT_MASK_SHAPES, ids=lambda s: "b%d-t%d-f%d-k%d-d%d" % s)
@@ -614,10 +619,12 @@ def test_soft_mask_kernel_matches_plain(cuda, mode, shape):
     tgt, eps = rng.integers(0, d, b), rng.uniform(1.0, 4.0, b)
     args = (cre, cim, basis, torch.as_tensor(tgt, device=cuda),
             torch.as_tensor(eps, dtype=torch.float32, device=cuda), 1.5, 0.1)
-    before = soft_mask_cuda.launches
+    before = (soft_mask_cuda.launches, soft_mask_cuda.multicast)
     got, arg = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
     again, arg2 = soft_mask_cuda(*args, matmul_dtype=mode, return_argmax=True)
-    assert soft_mask_cuda.launches == before + 2
+    # every bf16 call runs its scores in clusters of two row tiles
+    assert (soft_mask_cuda.launches - before[0], soft_mask_cuda.multicast - before[1]) == (
+        2, 2 if mode == "bfloat16" else 0)
     assert torch.equal(got, again) and torch.equal(arg, arg2)
     assert got.shape == (b, t, k) and (arg[1, 5] == 0).all()
     # one TDOA per block here; a ragged split and no split give the same mask
@@ -637,6 +644,34 @@ def test_soft_mask_kernel_matches_plain(cuda, mode, shape):
     ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
     assert int(ulps[~flipped].max()) <= 2
     assert float(flipped.float().mean()) <= (1e-3 if mode == "float32" else 1e-2)
+
+
+def test_soft_mask_scores_at_the_cell_shape(cuda):
+    """Kernel 4's bf16 scores at the enhancement cell's T (60 s: 7,493
+    frames), F = 513, 64 TDOAs over 10 cm and K = 1,024, with B = 2: 118 row
+    tiles in 59 clusters that share the fold's copies
+    (``soft_mask_cuda.multicast``), against the plain version at the bars of
+    the tests above; a mixture alone (59 tiles, the last cluster's second
+    block rowless) gives its rows' bits."""
+    rng = np.random.default_rng(26)
+    b, t, f, k, d = 2, 7493, 513, 1024, 64
+    cre, cim = (torch.as_tensor(rng.standard_normal((b, t, f)), dtype=torch.bfloat16,
+                                device=cuda) for _ in range(2))
+    w = torch.as_tensor(rng.random((f, k)) ** 3 + 1e-3, dtype=torch.float32, device=cuda)
+    cos_m, sin_m = gcc.steering_cos_sin(16000.0, f, 0.1, d)
+    basis = soft_mask_basis(cos_m, sin_m, w, "bfloat16")
+    args = (cre, cim, basis, torch.as_tensor([5, 40], device=cuda), 5.0, 2.0, 0.0)
+    before = (soft_mask_cuda.launches, soft_mask_cuda.multicast)
+    got, arg = soft_mask_cuda(*args, return_argmax=True)
+    assert (soft_mask_cuda.launches - before[0], soft_mask_cuda.multicast - before[1]) == (1, 1)
+    want = soft_mask_plain(*args)
+    flipped, gap, scale = argmax_flips(cre, cim, basis, arg)
+    assert gap <= 1e-5 * scale
+    ulps = (got.view(torch.int32).long() - want.view(torch.int32).long()).abs()
+    assert int(ulps[~flipped].max()) <= 2
+    assert float(flipped.float().mean()) <= 1e-2
+    one = soft_mask_cuda(cre[1:].clone(), cim[1:].clone(), basis, 40, 5.0, 2.0, 0.0)
+    assert torch.equal(got[1:], one)
 
 
 def test_soft_mask_kernel_needs_its_modes_basis(cuda):

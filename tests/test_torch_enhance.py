@@ -169,13 +169,14 @@ class TestSoftMaskPlain:
         assert (arg[0, 3] == 0).all()
         np.testing.assert_array_max_ulp(mask, self._pallas(coh, w, cos_m, sin_m, "float32"), 2)
 
-    @pytest.mark.parametrize("f", [17, 41])  # 2F = 34 and 82: rows of 40 and 88
+    @pytest.mark.parametrize("f", [17, 41])  # 2F = 34 and 82: rows of 64 and 128
     def test_tensor_core_layout_matches_plain_and_jax(self, f):
         """The bf16 kernel's operands: coherence rows ``[Re c | Im c | 0]``
-        and the fold ``[cw[d]; sw[d]]`` on 16-byte rows. One 2F-deep
-        product per TDOA over them gives the argmax of tdoa_argmax_plain and
-        of JAX's argmax_tdoa on the same bf16-rounded values, a NaN frame
-        included."""
+        and the fold ``[cw[d]; sw[d]]`` on 128-byte rows (the coherence
+        rows as ``idft_rows`` lays them out, zero-padded to the fold's
+        width). One 2F-deep product per TDOA over them gives the argmax of
+        tdoa_argmax_plain and of JAX's argmax_tdoa on the same bf16-rounded
+        values, a NaN frame included."""
         kw = dict(self.KW, f=f)
         coh, w, cos_m, sin_m = _mask_problem(seed=5, **kw)
         b, t, k, d = kw["b"], kw["t"], kw["k"], kw["num_tdoas"]
@@ -185,8 +186,9 @@ class TestSoftMaskPlain:
         re, im = _planes(coh)
         basis = soft_mask_basis(cos_m, sin_m, w, "bfloat16")
         assert soft_mask_basis(cos_m, sin_m, w, "float32").fold is None
-        rows, fold = idft_rows(re, im, f), basis.fold
-        j = -(-2 * f // 8) * 8
+        j = -(-2 * f // 64) * 64
+        rows = idft_rows(re, im, f)
+        rows, fold = torch.nn.functional.pad(rows, (0, j - rows.shape[1])), basis.fold
         assert rows.dtype == fold.dtype == torch.bfloat16
         assert rows.shape == (b * t, j) and fold.shape == (d, k, j)
         same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
@@ -455,18 +457,26 @@ class TestEnhancer:
                                    (1243, 64, 64), (210, 130, 7), (74, 6, 300)])
 def test_tdoa_chunk_fills_the_last_wave(m, k, d, tensor_cores):
     """The soft mask's TDOA chunk on a 132-SM card: at most 256 TDOAs (a
-    byte of argmax), and the fewest splits whose last wave of blocks (one
-    an SM on the tensor cores' 128 × 128 tiles, three on the SIMT 128 × 64
-    tiles) is at least 90 % full, unless every TDOA is its own chunk."""
+    byte of argmax), and the fewest splits whose last wave of blocks is at
+    least 90 % full, unless every unit is its own chunk. The SIMT tiles
+    (128 × 64, three blocks an SM) split over TDOAs; the tensor cores'
+    (128 rows × 128 atoms × a TDOA pair, one block an SM, row tiles rounded
+    up to clusters of two) over TDOA pairs, so their chunk is even unless
+    it holds all D."""
     from gccnmf_torch.ops.enhance_cuda import _tdoa_chunk
 
     chunk = _tdoa_chunk(m, k, d, 132, tensor_cores)
     assert 1 <= chunk <= min(d, 256)
-    bn, slots = (128, 132) if tensor_cores else (64, 396)
-    tiles = -(-m // 128) * -(-k // bn)
-    full = [s for s in range(1, d + 1) if tiles * s >= 0.9 * slots * -(-tiles * s // slots)]
-    want = full[0] if full else d
-    assert chunk == min(256, -(-d // want))
+    if tensor_cores:
+        tiles, slots, step = -(-m // 256) * 2 * -(-k // 128), 132, 2
+        assert chunk % 2 == 0 or chunk == d
+    else:
+        tiles, slots, step = -(-m // 128) * -(-k // 64), 396, 1
+    units = -(-d // step)
+    full = [s for s in range(1, units + 1)
+            if tiles * s >= 0.9 * slots * -(-tiles * s // slots)]
+    want = full[0] if full else units
+    assert chunk == min(256, d, -(-units // want) * step)
 
 
 def test_tdoa_chunk_at_the_reference_shapes():
@@ -474,8 +484,26 @@ def test_tdoa_chunk_at_the_reference_shapes():
 
     # B = 2 of 10 s (2,486 rows), K = D = 128: the SIMT tiles (40 of them,
     # three blocks an SM) in nine splits of 15 TDOAs, the tensor-core tiles
-    # (20) in six of 22
+    # (20, ten clusters of two) in six of 11 pairs
     assert _tdoa_chunk(2486, 128, 128, 132, False) == 15
     assert _tdoa_chunk(2486, 128, 128, 132, True) == 22
-    # B = 16: 156 row tiles, four splits fill five waves to 95 %
+    # B = 16: 156 row tiles, four splits of 16 pairs fill five waves to 95 %
     assert _tdoa_chunk(19888, 128, 128, 132, True) == 32
+    # the enhancement cell (B = 16 of 60 s, K = 1,024, D = 64): 937 row
+    # tiles in 469 clusters (the last block rowless), 7,504 blocks, no split
+    assert _tdoa_chunk(16 * 7493, 1024, 64, 132, True) == 64
+    # the enhance command (one 10 s file at hop 512, K = D = 64): 3 row
+    # tiles in two clusters, 30 splits asked, chunks of two pairs
+    assert _tdoa_chunk(311, 64, 64, 132, True) == 4
+
+
+@pytest.mark.parametrize("m,want", [(1, 4), (74, 4), (128, 4), (256, 4), (257, 6)])
+def test_tdoa_chunk_counts_the_rowless_block(m, want):
+    """The tensor-core scores run row tiles in clusters of two, so up to 256
+    rows (one cluster, two blocks an atom tile, 64 TDOA pairs at K = D =
+    128) split alike: 60 splits asked for a full last wave, chunks of two
+    pairs. 257 rows take two clusters (four blocks): 30 splits asked,
+    chunks of three pairs."""
+    from gccnmf_torch.ops.enhance_cuda import _tdoa_chunk
+
+    assert _tdoa_chunk(m, 128, 128, 132, True) == want
